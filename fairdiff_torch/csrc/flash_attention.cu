@@ -1,0 +1,377 @@
+// Flash-attention forward (non-causal) for Hopper, sm_90a.
+//
+// Replaces: fairdiff/ops/flash_attention.py `_flash_forward` (Pallas bodies
+// `_flash_kernel` and `_flash_kernel_pipe`, identical maths), the forward
+// without lse that the sampler runs.
+//
+// Computes o = softmax(scale * q k^T) v for q [B,S,H,D], k/v [B,T,H,D], all
+// contiguous, read in place with a row stride of H*D (no relayout copy and no
+// padded copy in device memory). Numerics follow the TPU kernel: fp32 scores
+// with `scale` applied to them (not to q), fp32 running max m, sum l and
+// accumulator, p rounded to the input type before p.v, keys >= T masked to
+// -inf, l clamped at 1e-30.
+//
+// What bounds it on this card: at the UNet shapes (S = T = 4096, D = 40 and
+// S = T = 1024, D = 80) the two products are 4*S*T*D flops per (b, h) against
+// 2*(2*S + 2*T)*D bytes, several hundred flops per byte, so the tensor cores
+// bound it. The bf16 kernel keeps everything but the K/V tiles in registers
+// (the FlashAttention-2 arrangement): one block of four warps per (b*h,
+// 64-row q tile), each warp owning 16 q rows; q fragments are loaded once,
+// then for every 64-key tile the scores come from mma.sync m16n8k16 with
+// ldmatrix operands, the online softmax runs on each row's four threads with
+// shuffles, and the rounded probabilities feed the p.v mma.sync straight from
+// the score registers. D is zero-padded to a multiple of 16 (the MMA depth)
+// in shared memory only: 40 -> 48, 80 -> 80. Not yet done: cp.async/TMA
+// double buffering of K/V and wgmma.
+//
+// The fp32 kernel is the simple version (every tile through shared memory,
+// CUDA-core fmaf); it serves the full-precision parity check, not the hot
+// path.
+#include "common.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+using fd::ldmatrix_x4;
+using fd::ldmatrix_x4_trans;
+using fd::mma_16816;
+using fd::pack_bf16;
+
+constexpr int BM = 64;         // q rows per block (16 per warp)
+constexpr int BN = 64;         // keys per tile
+constexpr int NTHREADS = 128;  // four warps
+constexpr int MAX_D = 128;
+
+// ---------------------------------------------------------------------------
+// bf16: register-resident tiles on mma.sync
+// ---------------------------------------------------------------------------
+
+// rows [row0, row0 + 64) of a [*, D] bf16 slab (row stride `stride`) into a
+// [64 x LD] shared tile whose first DP columns are written; rows >= n_rows and
+// columns >= D are zero. `vec`: D % 8 == 0 and 16-byte aligned rows.
+template <int DP, int LD>
+__device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* src, long stride,
+                                               int row0, int n_rows, int D, bool vec) {
+  constexpr int CHUNKS = DP / 8;  // 16-byte chunks a row
+  for (int idx = threadIdx.x; idx < BM * CHUNKS; idx += NTHREADS) {
+    const int r = idx / CHUNKS, c = (idx % CHUNKS) * 8;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (row0 + r < n_rows) {
+      const bf16* g = src + (long)(row0 + r) * stride + c;
+      if (vec) {
+        if (c < D) val = *reinterpret_cast<const uint4*>(g);
+      } else {
+        union { uint4 u; bf16 e[8]; } tmp;
+        for (int e = 0; e < 8; ++e) tmp.e[e] = (c + e < D) ? g[e] : __float2bfloat16(0.0f);
+        val = tmp.u;
+      }
+    }
+    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(NTHREADS)
+    flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, bf16* __restrict__ o, int S,
+                          int T_, int H, int D, float scale, bool vec) {
+  constexpr int LD = DP + 8;   // padded shared row: ldmatrix rows hit distinct banks
+  constexpr int KS = DP / 16;  // mma depth steps over the head dim
+  constexpr int NO = DP / 8;   // 8-wide output column tiles
+  constexpr int NS = BN / 8;   // 8-wide score column tiles
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem);  // [BM x LD]
+  bf16* sK = sQ + BM * LD;                   // [BN x LD]
+  bf16* sV = sK + BN * LD;                   // [BN x LD]
+
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int q0 = blockIdx.x * BM;
+  const long stride = (long)H * D;
+  const bf16* qb = q + (long)b * S * stride + (long)h * D;
+  const bf16* kb = k + (long)b * T_ * stride + (long)h * D;
+  const bf16* vb = v + (long)b * T_ * stride + (long)h * D;
+  bf16* ob = o + (long)b * S * stride + (long)h * D;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int quad_row = lane / 4, quad_col = (lane % 4) * 2;
+
+  load_tile_bf16<DP, LD>(sQ, qb, stride, q0, S, D, vec);
+  __syncthreads();
+  uint32_t qf[KS][4];  // this warp's 16 q rows as mma A fragments
+  #pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+    ldmatrix_x4(qf[ks], sQ + (warp * 16 + lane % 16) * LD + ks * 16 + (lane / 16) * 8);
+
+  float oacc[NO][4];
+  #pragma unroll
+  for (int n = 0; n < NO; ++n) oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.0f;
+  // this thread's two rows: quad_row and quad_row + 8 of the warp's 16
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.0f, 0.0f};
+
+  for (int k0 = 0; k0 < T_; k0 += BN) {
+    __syncthreads();  // every warp is done with the previous K/V tile
+    load_tile_bf16<DP, LD>(sK, kb, stride, k0, T_, D, vec);
+    load_tile_bf16<DP, LD>(sV, vb, stride, k0, T_, D, vec);
+    __syncthreads();
+
+    float sacc[NS][4];
+    #pragma unroll
+    for (int j = 0; j < NS; ++j) sacc[j][0] = sacc[j][1] = sacc[j][2] = sacc[j][3] = 0.0f;
+    #pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      #pragma unroll
+      for (int j2 = 0; j2 < NS / 2; ++j2) {  // two 8-key column tiles a load
+        uint32_t kf[4];
+        ldmatrix_x4(kf, sK + (j2 * 16 + lane % 8 + (lane / 16) * 8) * LD + ks * 16 +
+                            ((lane / 8) % 2) * 8);
+        mma_16816(sacc[2 * j2], qf[ks], kf[0], kf[1]);
+        mma_16816(sacc[2 * j2 + 1], qf[ks], kf[2], kf[3]);
+      }
+    }
+
+    // scale, mask, online softmax (each row's values sit on one quad)
+    float mx[2] = {-INFINITY, -INFINITY};
+    #pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      #pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + j * 8 + quad_col + (e & 1);
+        sacc[j][e] = col < T_ ? sacc[j][e] * scale : -INFINITY;
+        mx[e / 2] = fmaxf(mx[e / 2], sacc[j][e]);
+      }
+    }
+    float alpha[2];
+    #pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_run[r], mx[r]);  // finite: key 0 is always valid
+      alpha[r] = expf(m_run[r] - m_new);
+      m_run[r] = m_new;
+      l_run[r] *= alpha[r];
+    }
+    #pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      #pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(sacc[j][e] - m_run[e / 2]);
+        l_run[e / 2] += p;  // fp32 p in the sum, as the TPU kernel
+        sacc[j][e] = p;
+      }
+    }
+    #pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      oacc[n][0] *= alpha[0];
+      oacc[n][1] *= alpha[0];
+      oacc[n][2] *= alpha[1];
+      oacc[n][3] *= alpha[1];
+    }
+
+    // o += p . v, p rounded to bf16 straight from the score registers
+    #pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      const uint32_t pf[4] = {
+          pack_bf16(sacc[2 * kk][0], sacc[2 * kk][1]),
+          pack_bf16(sacc[2 * kk][2], sacc[2 * kk][3]),
+          pack_bf16(sacc[2 * kk + 1][0], sacc[2 * kk + 1][1]),
+          pack_bf16(sacc[2 * kk + 1][2], sacc[2 * kk + 1][3]),
+      };
+      #pragma unroll
+      for (int np = 0; np < NO / 2; ++np) {  // two 8-wide output tiles a load
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, sV + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * LD +
+                                  np * 16 + (lane / 16) * 8);
+        mma_16816(oacc[2 * np], pf, vf[0], vf[1]);
+        mma_16816(oacc[2 * np + 1], pf, vf[2], vf[3]);
+      }
+    }
+  }
+
+  #pragma unroll
+
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+    l_run[r] = 1.0f / fmaxf(l_run[r], 1e-30f);
+  }
+  #pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    #pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = q0 + warp * 16 + quad_row + (e / 2) * 8;
+      const int col = n * 8 + quad_col + (e & 1);
+      if (row < S && col < D) ob[(long)row * stride + col] = __float2bfloat16(oacc[n][e] * l_run[e / 2]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fp32: the simple version, every tile through shared memory
+// ---------------------------------------------------------------------------
+
+// C[M x N] = A[M x K] . B[N x K]^T
+__device__ void mm_nt(const float* A, int lda, const float* B, int ldb, float* C,
+                      int ldc, int M, int N, int K) {
+  for (int idx = threadIdx.x; idx < M * N; idx += NTHREADS) {
+    const int i = idx / N, j = idx % N;
+    float s = 0.0f;
+    for (int kk = 0; kk < K; ++kk) s = fmaf(A[i * lda + kk], B[j * ldb + kk], s);
+    C[i * ldc + j] = s;
+  }
+}
+
+// C[M x N] = A[M x K] . B[K x N]
+__device__ void mm_nn(const float* A, int lda, const float* B, int ldb, float* C,
+                      int ldc, int M, int N, int K) {
+  for (int idx = threadIdx.x; idx < M * N; idx += NTHREADS) {
+    const int i = idx / N, j = idx % N;
+    float s = 0.0f;
+    for (int kk = 0; kk < K; ++kk) s = fmaf(A[i * lda + kk], B[kk * ldb + j], s);
+    C[i * ldc + j] = s;
+  }
+}
+
+__device__ void load_tile_f32(float* dst, const float* src, long stride, int row0,
+                              int rows, int n_rows, int D) {
+  for (int idx = threadIdx.x; idx < rows * D; idx += NTHREADS) {
+    const int r = idx / D, c = idx % D;
+    dst[idx] = row0 + r < n_rows ? src[(long)(row0 + r) * stride + c] : 0.0f;
+  }
+}
+
+size_t smem_f32(int D) { return sizeof(float) * (5 * BM * D + BM * BN + 3 * BM); }
+
+__global__ void __launch_bounds__(NTHREADS)
+    flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o, int S,
+                         int T_, int H, int D, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* sQ = reinterpret_cast<float*>(smem);  // [BM x D]
+  float* sK = sQ + BM * D;                     // [BN x D]
+  float* sV = sK + BN * D;                     // [BN x D]
+  float* sS = sV + BN * D;                     // [BM x BN] scores, then p
+  float* sO = sS + BM * BN;                    // [BM x D] output accumulator
+  float* sT = sO + BM * D;                     // [BM x D] this tile's p.v
+  float* sM = sT + BM * D;                     // [BM] running max
+  float* sL = sM + BM;                         // [BM] running sum
+  float* sAlpha = sL + BM;                     // [BM] rescale of this tile
+
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int q0 = blockIdx.x * BM;
+  const long stride = (long)H * D;
+  const float* qb = q + (long)b * S * stride + (long)h * D;
+  const float* kb = k + (long)b * T_ * stride + (long)h * D;
+  const float* vb = v + (long)b * T_ * stride + (long)h * D;
+  float* ob = o + (long)b * S * stride + (long)h * D;
+  const int tid = threadIdx.x;
+
+  load_tile_f32(sQ, qb, stride, q0, BM, S, D);
+  for (int idx = tid; idx < BM * D; idx += NTHREADS) sO[idx] = 0.0f;
+  for (int r = tid; r < BM; r += NTHREADS) {
+    sM[r] = -INFINITY;
+    sL[r] = 0.0f;
+  }
+  for (int k0 = 0; k0 < T_; k0 += BN) {
+    __syncthreads();
+    load_tile_f32(sK, kb, stride, k0, BN, T_, D);
+    load_tile_f32(sV, vb, stride, k0, BN, T_, D);
+    __syncthreads();
+    mm_nt(sQ, D, sK, D, sS, BN, BM, BN, D);
+    __syncthreads();
+    {
+      // two neighbouring threads share a row, 32 keys each
+      const int r = tid >> 1, c0 = (tid & 1) * (BN / 2);
+      float* srow = sS + r * BN;
+      float mx = -INFINITY;
+      for (int c = c0; c < c0 + BN / 2; ++c) {
+        const float s = (k0 + c < T_) ? srow[c] * scale : -INFINITY;
+        srow[c] = s;
+        mx = fmaxf(mx, s);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      const float m_prev = sM[r];
+      const float m_new = fmaxf(m_prev, mx);
+      float sum = 0.0f;
+      for (int c = c0; c < c0 + BN / 2; ++c) {
+        srow[c] = expf(srow[c] - m_new);
+        sum += srow[c];
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      __syncwarp();  // both threads of the row have read sM[r]
+      if ((tid & 1) == 0) {
+        const float alpha = expf(m_prev - m_new);
+        sAlpha[r] = alpha;
+        sL[r] = sL[r] * alpha + sum;
+        sM[r] = m_new;
+      }
+    }
+    __syncthreads();
+    mm_nn(sS, BN, sV, D, sT, D, BM, D, BN);
+    __syncthreads();
+    for (int idx = tid; idx < BM * D; idx += NTHREADS)
+      sO[idx] = sO[idx] * sAlpha[idx / D] + sT[idx];
+  }
+  __syncthreads();
+  for (int idx = tid; idx < BM * D; idx += NTHREADS) {
+    const int r = idx / D;
+    if (q0 + r < S) ob[(long)(q0 + r) * stride + idx % D] = sO[idx] / fmaxf(sL[r], 1e-30f);
+  }
+}
+
+template <typename Kernel>
+int set_smem(Kernel kernel, size_t bytes) {
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)bytes);
+}
+
+template <int DP>
+int launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int S,
+                int T_, int H, int D, float scale, cudaStream_t stream) {
+  const size_t smem = sizeof(bf16) * 3 * BM * (DP + 8);
+  if (int err = set_smem(flash_fwd_bf16_kernel<DP>, smem)) return err;
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const bool vec = D % 8 == 0 && aligned(q) && aligned(k) && aligned(v);
+  const dim3 grid((S + BM - 1) / BM, B * H);
+  flash_fwd_bf16_kernel<DP><<<grid, NTHREADS, smem, stream>>>(q, k, v, o, S, T_, H, D,
+                                                              scale, vec);
+  return (int)cudaGetLastError();
+}
+
+bool bad_shape(int B, int S, int T_, int H, int D) {
+  return B < 1 || S < 1 || T_ < 1 || H < 1 || D < 1 || D > MAX_D || (long)B * H > 65535;
+}
+
+}  // namespace
+
+extern "C" int fd_flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
+                                 int B, int S, int T, int H, int D, float scale,
+                                 void* stream) {
+  if (bad_shape(B, S, T, H, D)) return (int)cudaErrorInvalidValue;
+  const auto* qq = static_cast<const bf16*>(q);
+  const auto* kk = static_cast<const bf16*>(k);
+  const auto* vv = static_cast<const bf16*>(v);
+  auto* oo = static_cast<bf16*>(o);
+  auto st = static_cast<cudaStream_t>(stream);
+  switch ((D + 15) / 16) {  // head dim padded to the mma depth
+    case 1: return launch_bf16<16>(qq, kk, vv, oo, B, S, T, H, D, scale, st);
+    case 2: return launch_bf16<32>(qq, kk, vv, oo, B, S, T, H, D, scale, st);
+    case 3: return launch_bf16<48>(qq, kk, vv, oo, B, S, T, H, D, scale, st);
+    case 4: return launch_bf16<64>(qq, kk, vv, oo, B, S, T, H, D, scale, st);
+    case 5: return launch_bf16<80>(qq, kk, vv, oo, B, S, T, H, D, scale, st);
+    case 6: return launch_bf16<96>(qq, kk, vv, oo, B, S, T, H, D, scale, st);
+    case 7: return launch_bf16<112>(qq, kk, vv, oo, B, S, T, H, D, scale, st);
+    default: return launch_bf16<128>(qq, kk, vv, oo, B, S, T, H, D, scale, st);
+  }
+}
+
+extern "C" int fd_flash_fwd_f32(const void* q, const void* k, const void* v, void* o,
+                                int B, int S, int T, int H, int D, float scale,
+                                void* stream) {
+  if (bad_shape(B, S, T, H, D)) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_f32(D);
+  if (int err = set_smem(flash_fwd_f32_kernel, smem)) return err;
+  const dim3 grid((S + BM - 1) / BM, B * H);
+  flash_fwd_f32_kernel<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), S, T, H, D, scale);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,73 @@
+"""fairdiff_torch fused GEGLU (K4) against the JAX package.
+
+The port's plain version runs here (CPU tensors); the JAX `_geglu_forward`
+runs its Pallas kernel in interpret mode, as tests/test_geglu.py does.
+Float32 inputs from one numpy seed. Tolerance 2e-5: the same fp32
+projection and gelu, differing in summation order and in the JAX kernel's
+A&S erf (|error| <= 1.5e-7).
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+import fairdiff.models.unet2d as junet
+import fairdiff.ops.geglu as jgeglu
+from fairdiff_torch.io.from_jax import load_jax_params
+from fairdiff_torch.models.unet2d import FeedForwardGEGLU
+from fairdiff_torch.ops import geglu as tgeglu
+
+torch.set_num_threads(1)
+
+
+def _interpret(monkeypatch):
+    monkeypatch.setattr(pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True))
+
+
+@pytest.mark.parametrize("m,d,inner", [(8, 16, 64), (37, 24, 128), (300, 32, 512)])
+def test_plain_matches_jax_geglu_forward(monkeypatch, m, d, inner):
+    _interpret(monkeypatch)
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(m, d)).astype(np.float32)
+    w = (rng.normal(size=(d, 2 * inner)) * d**-0.5).astype(np.float32)  # JAX [d, 2I]
+    b = (rng.normal(size=(2 * inner,)) * 0.1).astype(np.float32)
+    want = np.asarray(jgeglu._geglu_forward(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b)))
+    before = tgeglu.launches
+    got = tgeglu.geglu(
+        torch.from_numpy(x), torch.from_numpy(np.ascontiguousarray(w.T)), torch.from_numpy(b)
+    )
+    assert got.shape == (m, inner)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=2e-5)
+    assert tgeglu.launches == before  # CPU tensors take the plain version
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_feedforward_matches_jax_module(monkeypatch, fused):
+    """The port's FeedForwardGEGLU (one `proj` Linear) against the JAX module
+    with its fused-GEGLU gate on (Pallas, interpret) and off (Dense), with
+    the JAX module's own init params carried over."""
+    _interpret(monkeypatch)
+    monkeypatch.setattr(jgeglu, "fused_geglu_enabled", lambda: fused)
+    x = np.random.default_rng(1).normal(size=(2, 9, 16)).astype(np.float32)
+    mod = junet.FeedForwardGEGLU(16)
+    params = mod.init(jax.random.key(4), jnp.asarray(x))["params"]
+    want = np.asarray(mod.apply({"params": params}, jnp.asarray(x)))
+    ff = load_jax_params(FeedForwardGEGLU(16), params)
+    with torch.no_grad():
+        got = ff(torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=2e-5)
+
+
+def test_wrapper_rejects_bad_weights():
+    x = torch.zeros(3, 8)
+    with pytest.raises(ValueError, match="want w"):
+        tgeglu.geglu(x, torch.zeros(8, 16), torch.zeros(16))  # JAX layout, not torch's
+    with pytest.raises(TypeError, match="mixed dtypes"):
+        tgeglu.geglu(x, torch.zeros(16, 8, dtype=torch.float64), torch.zeros(16))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tgeglu.geglu(x.to("meta"), torch.zeros(16, 8, device="meta"), torch.zeros(16, device="meta"))
