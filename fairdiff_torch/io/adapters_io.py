@@ -1,6 +1,6 @@
-"""Adapter loading from the flat `.npz` files the JAX package's
-`fairdiff.io.adapters_io.save_adapters` writes (keys are `|`-joined tree
-paths)."""
+"""Adapter `.npz` files in the JAX package's format (flat, keys are
+`|`-joined tree paths; `fairdiff.io.adapters_io`), so adapters move between
+the two packages as they are."""
 
 from __future__ import annotations
 
@@ -8,6 +8,7 @@ from pathlib import Path
 from typing import Any
 
 import numpy as np
+import torch
 
 _SEP = "|"
 
@@ -23,3 +24,21 @@ def load_adapters(path: str | Path) -> dict[str, Any]:
                 node = node.setdefault(p, {})
             node[parts[-1]] = data[name]
     return tree
+
+
+def save_adapters(path: str | Path, tree: Any) -> None:
+    """Nested dict of tensors or arrays -> `.npz` (parents created)."""
+    out: dict[str, np.ndarray] = {}
+
+    def walk(node: Any, prefix: tuple[str, ...]) -> None:
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], prefix + (str(k),))
+        else:
+            out[_SEP.join(prefix)] = (
+                node.detach().float().cpu().numpy() if torch.is_tensor(node) else np.asarray(node)
+            )
+
+    walk(tree, ())
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, **out)

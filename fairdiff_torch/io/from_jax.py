@@ -21,6 +21,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from fairdiff_torch.utils.tree import tree_map
+
 _SEP = "/"
 
 
@@ -72,3 +74,11 @@ def tree_from_npz(path: str | Path) -> dict[str, Any]:
                 node = node.setdefault(p, {})
             node[leaf] = data[key]
     return tree
+
+
+def adapters_from_jax(tree: Mapping) -> dict[str, Any]:
+    """A JAX adapter tree (LoRA `down` [in, r] / `up` [r, out] leaves, numpy
+    or anything `np.asarray` reads) -> the same tree of fp32 tensors that
+    require grad, the trainable leaves of the port's trainer. LoRA leaves
+    keep the JAX orientation (`adapters.lora` merges them as JAX does)."""
+    return tree_map(lambda v: torch.tensor(np.asarray(v, dtype=np.float32)).requires_grad_(), tree)

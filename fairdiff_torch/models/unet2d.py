@@ -5,8 +5,11 @@ convolutions run NCHW and each spatial transformer works on [B, H*W, C]
 tokens. Submodule names follow the JAX parameter tree (`down_0_resnet_0`,
 `mid_attn_0`, `up_3_attn_2`, ...) so the weight carry-over is by path.
 The self-attention of the 1024- and 4096-token latents runs the
-flash-attention kernel on CUDA, and every feed-forward runs the fused
-GEGLU kernel on CUDA.
+flash-attention kernels on CUDA, and every feed-forward runs the fused
+GEGLU kernels on CUDA; both through autograd Functions where a gradient is
+wanted. `remat=True` recomputes each resnet and transformer block in the
+backward instead of keeping its activations (`torch.utils.checkpoint`, the
+counterpart of `nn.remat` in the JAX module).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from fairdiff_torch.models.layers import dot_product_attention, expand_padding_mask
 from fairdiff_torch.ops.geglu import geglu
@@ -213,9 +217,10 @@ class UNet2DCondition(nn.Module):
             context [B,T,768], key mask [B,T] or None) -> eps [B,H,W,4] NHWC
     """
 
-    def __init__(self, config: UNetConfig = UNetConfig.sd15()):
+    def __init__(self, config: UNetConfig = UNetConfig.sd15(), remat: bool = False):
         super().__init__()
         self.config = cfg = config
+        self.remat = remat
         ch = cfg.block_out_channels
         heads, ctx, groups, eps = (
             cfg.attention_head_dim, cfg.cross_attention_dim, cfg.norm_num_groups, cfg.norm_eps,
@@ -276,7 +281,13 @@ class UNet2DCondition(nn.Module):
 
         context = encoder_hidden_states.to(dtype)
         mask = encoder_attention_mask
-        block = lambda name: getattr(self, name)
+        remat = self.remat and torch.is_grad_enabled()
+
+        def block(name: str):
+            module = getattr(self, name)
+            if remat and isinstance(module, (ResnetBlock2D, Transformer2D)):
+                return lambda *args: checkpoint(module, *args, use_reentrant=False)
+            return module
 
         h = self.conv_in(sample.to(dtype).permute(0, 3, 1, 2))
         skips = [h]
@@ -290,9 +301,9 @@ class UNet2DCondition(nn.Module):
                 h = block(f"down_{i}_downsample")(h)
                 skips.append(h)
 
-        h = self.mid_resnet_0(h, temb)
-        h = self.mid_attn_0(h, context, mask)
-        h = self.mid_resnet_1(h, temb)
+        h = block("mid_resnet_0")(h, temb)
+        h = block("mid_attn_0")(h, context, mask)
+        h = block("mid_resnet_1")(h, temb)
 
         for i in range(len(ch)):
             for j in range(cfg.layers_per_block + 1):

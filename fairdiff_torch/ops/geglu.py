@@ -1,10 +1,14 @@
-"""Fused GEGLU forward (kernel K4) and its plain PyTorch version.
+"""Fused GEGLU: forward (kernel K4), input gradient (kernel K5), their plain
+PyTorch versions and the autograd Function that joins them.
 
-Counterpart of fairdiff/ops/geglu.py `_geglu_forward`. The CUDA kernel is
-`csrc/geglu.cu`; it reads the feed-forward's own `proj` Linear weight
-[2I, d] (torch layout) and bias [2I], so the module keeps one parameter
-tree whichever path runs. On a CPU tensor the wrapper runs `geglu_plain`;
-on a CUDA tensor it launches the kernel or raises.
+Counterpart of fairdiff/ops/geglu.py `_geglu_forward` (K4), `_geglu_dx`
+(K5) and the custom_vjp `fused_geglu` (`_fg_fwd` / `_fg_bwd`). The CUDA
+kernels are `csrc/geglu.cu`; they read the feed-forward's own `proj`
+Linear weight [2I, d] (torch layout) and bias [2I], so the module keeps one
+parameter tree whichever path runs. On a CPU tensor each wrapper runs its
+plain version; on a CUDA tensor it launches its kernel or raises. `geglu`
+is the entry point the models call: where a gradient is wanted it goes
+through `FusedGEGLU`, otherwise it runs the forward kernel.
 """
 
 from __future__ import annotations
@@ -17,20 +21,31 @@ import torch.nn.functional as F
 
 from fairdiff_torch.kernels import build
 
-# kernel launches, counted where the kernel is launched
+# kernel launches, counted where each kernel is launched: K4 and K5
 launches = 0
+launches_dx = 0
 
-_ENTRY = {torch.bfloat16: "fd_geglu_fwd_bf16", torch.float32: "fd_geglu_fwd_f32"}
+_DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel(dtype: torch.dtype):
-    fn = getattr(build.load("geglu"), _ENTRY[dtype])
-    p = ctypes.c_void_p
-    i = ctypes.c_int
-    fn.argtypes = [p, p, p, p, i, i, i, p]
+def _kernel(name: str, dtype: torch.dtype):
+    """The C entry `fd_geglu_<name>_<dtype>`: pointers, then M, d, I, stream."""
+    fn = getattr(build.load("geglu"), f"fd_geglu_{name}_{_DTYPES[dtype]}")
+    n_ptr = {"fwd": 4, "dx": 5}[name]
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _acc(x: torch.Tensor) -> torch.Tensor:
+    """The accumulation type: fp32, or fp64 for fp64 inputs (references)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
+def _gelu_grad(z: torch.Tensor) -> torch.Tensor:
+    """d gelu(z) / dz = Phi(z) + z phi(z) (exact erf form)."""
+    return 0.5 * (1.0 + torch.erf(z * 2.0**-0.5)) + z * torch.exp(-0.5 * z * z) * (2.0 * torch.pi) ** -0.5
 
 
 def geglu_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -41,9 +56,30 @@ def geglu_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tens
     return (h * F.gelu(gate, approximate="none")).to(x.dtype)
 
 
-def geglu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """y[..., I] = h * gelu(gate) with [h | gate] = x[..., d] @ w[2I, d]^T + b."""
-    global launches
+def _dproj(x2: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dy2: torch.Tensor):
+    """(dh, dg) [M, I] in the input type: h and g from exact products with
+    fp32 accumulation plus the fp32 bias, dh = dy gelu(g), dg = dy h gelu'(g)."""
+    proj = _acc(x2) @ _acc(w).T + _acc(b)
+    h, g = proj.chunk(2, dim=-1)
+    dyf = _acc(dy2)
+    return (dyf * F.gelu(g, approximate="none")).to(x2.dtype), (dyf * h * _gelu_grad(g)).to(x2.dtype)
+
+
+def geglu_dx_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """K5 without the kernel: dx = dh.Wh + dg.Wg, dh/dg rounded to the input
+    type, dx accumulated in fp32 and rounded once (`_dx_kernel`)."""
+    d = x.shape[-1]
+    dh, dg = _dproj(x.reshape(-1, d), w, b, dy.reshape(-1, dy.shape[-1]))
+    inner = w.shape[0] // 2
+    dx = _acc(dh) @ _acc(w[:inner]) + _acc(dg) @ _acc(w[inner:])
+    return dx.to(x.dtype).reshape(x.shape)
+
+
+def _needs_grad(*xs: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
+def _check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> None:
     d = x.shape[-1]
     if w.dim() != 2 or w.shape[1] != d or w.shape[0] % 2 or b.shape != (w.shape[0],):
         raise ValueError(f"want w [2I, {d}] and b [2I]; got {tuple(w.shape)}, {tuple(b.shape)}")
@@ -51,25 +87,97 @@ def geglu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"mixed dtypes {x.dtype}, {w.dtype}, {b.dtype}")
     if not (x.device == w.device == b.device):
         raise ValueError("x, w and b must be on one device")
-    if x.device.type == "cpu":
-        return geglu_plain(x, w, b)
+
+
+def _check_cuda(x: torch.Tensor, w: torch.Tensor, *rest: torch.Tensor) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"geglu runs on cuda or cpu, not {x.device}")
-    if x.dtype not in _ENTRY:
+    if x.dtype not in _DTYPES:
         raise TypeError(f"the kernel takes bfloat16 or float32, not {x.dtype}")
-    if not (x.is_contiguous() and w.is_contiguous() and b.is_contiguous()):
+    if not all(t.is_contiguous() for t in (x, w, *rest)):
         raise ValueError("the kernel reads contiguous x, w and b")
-    if x.dtype == torch.bfloat16 and (d % 8 or x.data_ptr() % 16 or w.data_ptr() % 16):
+    if x.dtype == torch.bfloat16 and (x.shape[-1] % 8 or x.data_ptr() % 16 or w.data_ptr() % 16):
         raise ValueError("the bf16 kernel reads 16-byte rows: d % 8 == 0, x and w 16-byte aligned")
-    inner = w.shape[0] // 2
-    m = x.numel() // d
+
+
+def _forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    global launches
+    _check(x, w, b)
+    if x.device.type == "cpu":
+        return geglu_plain(x, w, b)
+    _check_cuda(x, w, b)
+    if _needs_grad(x, w, b):
+        raise RuntimeError(
+            "the kernel's output has no grad_fn: call geglu (or FusedGEGLU.apply) "
+            "for a result that carries gradients"
+        )
+    d, inner = x.shape[-1], w.shape[0] // 2
     y = torch.empty(*x.shape[:-1], inner, dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _kernel(x.dtype)(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), m, d, inner, stream
+        rc = _kernel("fwd", x.dtype)(
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), x.numel() // d, d, inner, stream
         )
     if rc != 0:
         raise RuntimeError(f"geglu kernel launch failed: CUDA error {rc}")
     launches += 1
     return y
+
+
+def geglu_dx(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """dx [..., d] of y = h * gelu(gate) for the cotangent dy [..., I], through
+    K5 (plain version on the CPU)."""
+    global launches_dx
+    _check(x, w, b)
+    d, inner = x.shape[-1], w.shape[0] // 2
+    if dy.shape != (*x.shape[:-1], inner) or dy.dtype != x.dtype:
+        raise ValueError(f"want dy {(*x.shape[:-1], inner)} in {x.dtype}; got {tuple(dy.shape)} {dy.dtype}")
+    if x.device.type == "cpu":
+        return geglu_dx_plain(x, w, b, dy)
+    _check_cuda(x, w, b, dy)
+    if d > 1280:
+        raise ValueError(f"the dx kernel takes d up to 1280, not {d}")
+    dx = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _kernel("dx", x.dtype)(
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+            x.numel() // d, d, inner, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"geglu dx kernel launch failed: CUDA error {rc}")
+    launches_dx += 1
+    return dx
+
+
+class FusedGEGLU(torch.autograd.Function):
+    """Counterpart of the JAX custom_vjp: forward through K4, dx through K5;
+    dW and db in plain PyTorch only when asked for (the UNet's feed-forward
+    is frozen on exp-1's path, so they are not)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w, b)
+        return _forward(x, w, b)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, b = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = geglu_dx(x, w, b, dy) if ctx.needs_input_grad[0] else None
+        dw = db = None
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            d = x.shape[-1]
+            dh, dg = _dproj(x.reshape(-1, d), w, b, dy.reshape(-1, dy.shape[-1]))
+            dproj = _acc(torch.cat([dh, dg], dim=-1))
+            dw = (dproj.T @ _acc(x.reshape(-1, d))).to(w.dtype)
+            db = dproj.sum(0).to(b.dtype)
+        return dx, dw, db
+
+
+def geglu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """y[..., I] = h * gelu(gate) with [h | gate] = x[..., d] @ w[2I, d]^T + b.
+    Differentiable where a gradient is wanted (through `FusedGEGLU`)."""
+    if _needs_grad(x, w, b):
+        return FusedGEGLU.apply(x, w, b)
+    return _forward(x, w, b)

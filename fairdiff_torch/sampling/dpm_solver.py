@@ -1,10 +1,18 @@
-"""DPM-Solver++ (2M) multistep sampler, no-grad path (counterpart of
+"""DPM-Solver++ (2M) multistep sampler (counterpart of
 fairdiff/sampling/dpm_solver.py).
 
 The schedule and coefficient tables are the JAX package's (numpy, fp64
 computed, stored fp32); `denoise` is a Python loop over them where the JAX
 package runs `lax.scan`. Per-step scalars are computed in fp32 with numpy,
 as the JAX package computes them on fp32 arrays.
+
+The reference's "adjusted direct finetuning" gradient treatment (a detach
+of the latent at every UNet input and a per-step rescale of the guided
+epsilon's gradient) is `grad_mode` in `denoise` with `scale_grad`. Under it
+the chain is affine in the guided epsilons with schedule-only scalar
+coefficients, which `chain_eps_cotangents` computes: the linearized phase 4
+of the trainer (docs/LINEARIZED-PHASE4.md) uses them in place of a chain
+backward.
 """
 
 from __future__ import annotations
@@ -140,24 +148,81 @@ def dpm_step(
     return x_first - float(np.float32(0.5) * coef) * d1, x0
 
 
-@torch.no_grad()
+class ScaleGrad(torch.autograd.Function):
+    """Identity forward; the backward scales the cotangent by `coef` (the
+    reference's register_hook on the guided epsilon; `scale_grad`)."""
+
+    @staticmethod
+    def forward(ctx, x, coef: float):
+        ctx.coef = coef
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.coef, None
+
+
+def scale_grad(x: torch.Tensor, coef: float) -> torch.Tensor:
+    return ScaleGrad.apply(x, float(coef))
+
+
+def chain_eps_cotangents(bundle: StepBundle) -> torch.Tensor:
+    """Per-step scalar d(x_final)/d(eps_guided_t) times the per-step rescale
+    coefficient, [T] fp32 (the JAX function of the same name).
+
+    With the UNet input detached, the solver chain is affine in the guided
+    epsilons with scalar coefficients, so autograd through a scalar replay
+    of `dpm_step` from x_init = 0 gives the exact gamma_t:
+        cot(eps_t) = grad_coef_t * gamma_t * dL/dx_final."""
+    n = len(bundle.t)
+    eps = torch.zeros(n, dtype=torch.float32, requires_grad=True)
+    with torch.enable_grad():
+        sample = m_prev = torch.zeros((), dtype=torch.float32)
+        for i in range(n):
+            x0 = (sample - float(bundle.sigma_cur[i]) * eps[i]) / float(bundle.alpha_cur[i])
+            sample, m_prev = dpm_step(x0, sample, m_prev, bundle, i)
+        (gamma,) = torch.autograd.grad(sample, eps)
+    return gamma * torch.from_numpy(np.asarray(bundle.grad_coef, np.float32))
+
+
 def denoise(
     eps_fn: Callable[[torch.Tensor, int], torch.Tensor],
     latents: torch.Tensor,
     bundle: StepBundle,
     *,
     guidance_scale: float = 7.5,
-) -> torch.Tensor:
-    """Run the denoising chain (no grad).
+    grad_mode: bool = False,
+    return_trajectory: bool = False,
+):
+    """Run the denoising chain.
 
     eps_fn(latents_2B, t) -> eps_2B: the CFG-batched UNet closure, first
-    half uncond, second half cond (reference order)."""
-    sample = latents.float()
-    m_prev = torch.zeros_like(sample)
-    for i in range(len(bundle.t)):
-        eps2 = eps_fn(torch.cat([sample, sample], dim=0), int(bundle.t[i])).float()
-        eps_u, eps_c = eps2.chunk(2, dim=0)
-        eps = eps_u + guidance_scale * (eps_c - eps_u)
-        x0 = (sample - float(bundle.sigma_cur[i]) * eps) / float(bundle.alpha_cur[i])
-        sample, m_prev = dpm_step(x0, sample, m_prev, bundle, i)
+    half uncond, second half cond (reference order).
+
+    grad_mode=False runs without autograd. grad_mode=True reproduces the
+    reference's adjusted direct finetuning: the UNet sees the detached latent
+    and the guided epsilon's gradient is rescaled by the step's `grad_coef`;
+    the parameters eps_fn closes over receive gradients from every step.
+    (The chain is kept whole for autograd: it is the golden of the
+    linearized phase 4, run at small sizes.)
+
+    return_trajectory=True also returns the [T, N, ...] stack of the per-step
+    UNet-input latents, from which the linearized phase 4 resumes."""
+    with torch.set_grad_enabled(grad_mode):
+        sample = latents.float()
+        m_prev = torch.zeros_like(sample)
+        traj = []
+        for i in range(len(bundle.t)):
+            unet_in = sample.detach()
+            if return_trajectory:
+                traj.append(unet_in)
+            eps2 = eps_fn(torch.cat([unet_in, unet_in], dim=0), int(bundle.t[i])).float()
+            eps_u, eps_c = eps2.chunk(2, dim=0)
+            eps = eps_u + guidance_scale * (eps_c - eps_u)
+            if grad_mode:
+                eps = scale_grad(eps, bundle.grad_coef[i])
+            x0 = (sample - float(bundle.sigma_cur[i]) * eps) / float(bundle.alpha_cur[i])
+            sample, m_prev = dpm_step(x0, sample, m_prev, bundle, i)
+    if return_trajectory:
+        return sample, torch.stack(traj)
     return sample

@@ -1,10 +1,14 @@
-"""Stable Diffusion sampling pipeline, no-grad path (counterpart of
+"""Stable Diffusion sampling pipeline (counterpart of
 fairdiff/sampling/pipeline.py).
 
 CLIP text -> CFG UNet ([uncond; cond] in one call per step) inside the
-DPM-Solver++ 2M loop -> VAE decode. The modules hold the weights; LoRA
-adapters are merged functionally per call (`torch.func.functional_call`),
-so the base weights are never modified.
+DPM-Solver++ 2M loop -> VAE decode. The modules hold the frozen weights;
+LoRA adapters are merged functionally per call
+(`torch.func.functional_call`), so the base weights are never modified and
+the merged weights stay differentiable in the adapters. `build_context`,
+`unet_eps` and `decode_images(grad_mode=True)` carry gradients to the
+adapters and inputs when autograd is on; `generate` runs without autograd
+unless `grad_mode=True`.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from typing import Any, Mapping, Optional
 import numpy as np
 import torch
 from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from fairdiff_torch.adapters import lora as lora_lib
 from fairdiff_torch.adapters import prefix as prefix_lib
@@ -79,13 +84,14 @@ class StableDiffusion:
     Weights start uninitialised: call `init_random(seed)` or
     `load_jax(params)` before use."""
 
-    def __init__(self, config: SDConfig = SDConfig.sd15(), *, device: Optional[str] = None):
+    def __init__(self, config: SDConfig = SDConfig.sd15(), *, device: Optional[str] = None,
+                 remat: bool = False):
         self.config = config
         self.device = resolve_device(device)
         self.dtype = getattr(torch, config.dtype)
         with torch.device(self.device):
             self.text_encoder = CLIPTextModel(config.text)
-            self.unet = UNet2DCondition(config.unet)
+            self.unet = UNet2DCondition(config.unet, remat=remat)
             self.vae = AutoencoderKL(config.vae)
         for m in self.models().values():
             m.to(self.dtype).eval().requires_grad_(False)
@@ -179,21 +185,31 @@ class StableDiffusion:
         *,
         unet_weights: Optional[Mapping[str, torch.Tensor]] = None,
     ) -> torch.Tensor:
+        if unet_weights and self.unet.remat and torch.is_grad_enabled():
+            # the recompute in the backward would run after functional_call
+            # has put the frozen weights back
+            raise ValueError("remat recomputes with the module's own weights: no UNet LoRA with remat")
         return functional_call(
             self.unet, dict(unet_weights or {}), (lat2, t, context, key_mask)
         )
 
-    def decode_images(self, latents: torch.Tensor) -> torch.Tensor:
-        """Final latents -> images in [-1, 1], NHWC, fp32. Decodes in chunks
-        of up to 8: the decoder's full-resolution temporaries grow with the
-        batch."""
+    def decode_images(self, latents: torch.Tensor, *, grad_mode: bool = False) -> torch.Tensor:
+        """Final latents -> images in [-1, 1], NHWC, fp32. Without grad_mode
+        it decodes in chunks of up to 8 (the decoder's full-resolution
+        temporaries grow with the batch); with grad_mode one image at a time,
+        each recomputed in the backward (`torch.utils.checkpoint`), so the
+        backward holds one image's decoder activations at a time."""
         latents = latents / self.config.vae.scaling_factor
-        N = latents.shape[0]
-        chunk = next(c for c in (8, 6, 4, 3, 2, 1) if N % c == 0)
-        images = torch.cat([self.vae.decode(lc) for lc in latents.split(chunk)], dim=0)
+        if grad_mode:
+            images = torch.cat([
+                checkpoint(self.vae.decode, lat[None], use_reentrant=False) for lat in latents
+            ])
+        else:
+            N = latents.shape[0]
+            chunk = next(c for c in (8, 6, 4, 3, 2, 1) if N % c == 0)
+            images = torch.cat([self.vae.decode(lc) for lc in latents.split(chunk)], dim=0)
         return images.float().clamp(-1.0, 1.0)
 
-    @torch.no_grad()
     def generate(
         self,
         noises: Any,  # [N, h, w, 4]
@@ -207,24 +223,35 @@ class StableDiffusion:
         te_lora: Optional[Mapping] = None,
         prefix_table: Optional[torch.Tensor] = None,
         guidance_scale: Optional[float] = None,
-    ) -> torch.Tensor:
+        grad_mode: bool = False,
+        return_latents: bool = False,
+    ):
         """encode -> denoise -> decode. Returns images [N, H, W, 3] in
-        [-1, 1], fp32, on the pipeline's device."""
-        noises = torch.as_tensor(noises, device=self.device).float()
-        N = noises.shape[0]
-        gs = self.config.guidance_scale if guidance_scale is None else guidance_scale
-        context, key_mask = self.build_context(
-            cond_ids, uncond_ids, N,
-            cond_mask=cond_mask, uncond_mask=uncond_mask,
-            te_lora=te_lora, prefix_table=prefix_table,
-        )
-        unet_weights = (
-            lora_lib.apply_lora(self.unet, unet_lora) if unet_lora is not None else None
-        )
-        bundle = dpm.make_step_bundle(self.config.solver, self.schedule, num_steps)
+        [-1, 1], fp32, on the pipeline's device.
 
-        def eps_fn(lat2: torch.Tensor, t: int) -> torch.Tensor:
-            return self.unet_eps(lat2, t, context, key_mask, unet_weights=unet_weights)
+        grad_mode=True keeps autograd on through the chain (the reference's
+        adjusted direct finetuning, see `dpm_solver.denoise`) and the decode.
+        return_latents=True returns (images, final latents, trajectory
+        [T, N, h, w, 4] of the per-step UNet inputs)."""
+        with torch.set_grad_enabled(grad_mode):
+            noises = torch.as_tensor(noises, device=self.device).float()
+            N = noises.shape[0]
+            gs = self.config.guidance_scale if guidance_scale is None else guidance_scale
+            context, key_mask = self.build_context(
+                cond_ids, uncond_ids, N,
+                cond_mask=cond_mask, uncond_mask=uncond_mask,
+                te_lora=te_lora, prefix_table=prefix_table,
+            )
+            unet_weights = (
+                lora_lib.apply_lora(self.unet, unet_lora) if unet_lora is not None else None
+            )
+            bundle = dpm.make_step_bundle(self.config.solver, self.schedule, num_steps)
 
-        latents = dpm.denoise(eps_fn, noises, bundle, guidance_scale=gs)
-        return self.decode_images(latents)
+            def eps_fn(lat2: torch.Tensor, t: int) -> torch.Tensor:
+                return self.unet_eps(lat2, t, context, key_mask, unet_weights=unet_weights)
+
+            out = dpm.denoise(eps_fn, noises, bundle, guidance_scale=gs, grad_mode=grad_mode,
+                              return_trajectory=return_latents)
+            latents, traj = out if return_latents else (out, None)
+            images = self.decode_images(latents, grad_mode=grad_mode)
+        return (images, latents, traj) if return_latents else images

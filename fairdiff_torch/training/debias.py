@@ -1,0 +1,422 @@
+"""The fairness-finetuning trainer, exp-1 (counterpart of
+fairdiff/training/debias.py `DebiasTrainer`).
+
+Per optimizer step, one prompt and N noise lanes:
+
+  phase 1  sample with the CURRENT adapters (no grad), face-analyse,
+           classify; keep the final latents and the trajectory
+  phase 2  dynamic targets from the phase-1 probabilities, uncertainty gate
+           (host numpy)
+  phase 3  sample with the FROZEN model -> original features/predictions
+  phase 4  linearized (docs/LINEARIZED-PHASE4.md): dL/dx_final through
+           decode + guidance + loss for each lane chunk; per-step
+           cotangents gamma_t * dL/dx_final; the flat batch of single-step
+           UNet VJPs over (step x lane chunk), whose context cotangents are
+           summed and sent through ONE text-encoder VJP
+  update   finite gate -> AdamW -> EMA
+
+`phase4="chain"` instead differentiates the whole grad-mode sampling chain
+per lane chunk (the reference's autograd semantics); it is the golden of
+the linearized path in the tests. There is no counterpart of the JAX
+trainer's jit programs, AOT warm-up, mesh sharding, evaluation or `fit`.
+
+Deliberate departures: the context cotangent is summed in fp32 (the JAX
+program sums it in the text encoder's dtype, bf16 at SD-1.5 width); the
+step's noises and step count come from `utils.rng` torch generators unless
+passed in.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import time
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from fairdiff_torch.adapters import lora as lora_lib
+from fairdiff_torch.adapters.ema import init_ema, update_ema
+from fairdiff_torch.fairness import losses as loss_lib
+from fairdiff_torch.fairness import targets as targets_lib
+from fairdiff_torch.fairness import weights as weights_lib
+from fairdiff_torch.sampling import dpm_solver as dpm
+from fairdiff_torch.sampling.pipeline import StableDiffusion
+from fairdiff_torch.training import metrics as metrics_lib
+from fairdiff_torch.training.stack import GuidanceStack
+from fairdiff_torch.utils import rng as rng_lib
+from fairdiff_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
+
+
+@dataclasses.dataclass(frozen=True)
+class DebiasConfig:
+    """exp-1's settings (the JAX `DebiasConfig` fields this slice uses): the
+    text-encoder LoRA always trains, the UNet LoRA when `train_unet`;
+    binary rank targets; lanes without a face get image weight 1 and face
+    search only on lanes with a target."""
+
+    train_unet: bool = False
+    lora_rank: int = 50
+    attributes: tuple[str, ...] = ("gender",)
+    target_ratio: float = 0.5
+    uncertainty_thresholds: tuple[float, ...] = (0.2,)
+    learning_rate: float = 5e-5
+    weight_decay: float = 1e-2
+    max_train_steps: int = 10000
+    train_images_per_prompt: int = 24  # lanes per step
+    train_micro_batch: int = 4  # lanes per phase-4 chunk
+    steps_low: int = 19
+    steps_high: int = 23
+    guidance_scale: float = 7.5
+    weight_loss_img: float = 8.0
+    weight_loss_face: float = 1.0
+    factor1: tuple[float, ...] = (0.2,)
+    factor2: tuple[float, ...] = (0.1,)
+    face_confidence_level: float = 0.9
+    ema_decay: float = 0.996
+    seed: int = 42
+
+    def factor_dict(self, which: str) -> dict[str, float]:
+        return dict(zip(self.attributes, self.factor1 if which == "f1" else self.factor2))
+
+
+@dataclasses.dataclass
+class DebiasState:
+    adapters: dict  # {"te_lora": tree, "unet_lora": tree}: fp32 leaves that require grad
+    opt: torch.optim.Optimizer
+    ema: dict
+    step: int
+
+
+class PhaseTimers:
+    """Wall seconds per named phase of the last step, the device synchronised
+    at each exit so a phase's time includes its device work."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.last: dict[str, float] = {}
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.last[name] = time.perf_counter() - t0
+
+
+def match_len(uncond_ids: torch.Tensor, cond_ids: torch.Tensor) -> torch.Tensor:
+    """Pad (with its last column) or cut the unconditional ids to the
+    conditional length, as the reference tokenizes uncond at the cond length."""
+    diff = cond_ids.shape[1] - uncond_ids.shape[1]
+    if diff <= 0:
+        return uncond_ids[:, : cond_ids.shape[1]]
+    return torch.cat([uncond_ids, uncond_ids[:, -1:].expand(-1, diff)], dim=1)
+
+
+def _global_norm(tensors: list[torch.Tensor]) -> float:
+    return float(torch.sqrt(sum((t.detach().float() ** 2).sum() for t in tensors)))
+
+
+class DebiasTrainer:
+    def __init__(
+        self,
+        sd: StableDiffusion,
+        guidance: GuidanceStack,
+        config: DebiasConfig,
+    ):
+        self.sd = sd
+        self.guidance = guidance
+        self.cfg = config
+        self.device = sd.device
+        self.timers = PhaseTimers(sd.device)
+        # inspection hooks for tests: the last step's grads and targets
+        self._last_grads: Optional[dict] = None
+        self._last_targets: Optional[dict] = None
+
+    # ------------------------------------------------------------------
+    def init_state(self, seed: int = 0, adapters: Optional[dict] = None) -> DebiasState:
+        """Fresh LoRA adapters from `seed` (down ~ N(0,1)/rank, up = 0), or
+        the given adapter tree (e.g. `io.from_jax.adapters_from_jax`)."""
+        cfg = self.cfg
+        if adapters is None:
+            g = torch.Generator().manual_seed(seed)
+            adapters = {}
+            if cfg.train_unet:
+                adapters["unet_lora"] = lora_lib.init_lora(
+                    self.sd.unet, lora_lib.unet_attention_targets, cfg.lora_rank, g
+                )
+            adapters["te_lora"] = lora_lib.init_lora(
+                self.sd.text_encoder, lora_lib.text_encoder_targets, cfg.lora_rank, g
+            )
+        adapters = tree_map(
+            lambda x: x.detach().to(self.device, torch.float32).clone().requires_grad_(), adapters
+        )
+        opt = torch.optim.AdamW(
+            tree_leaves(adapters), lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8,
+            weight_decay=cfg.weight_decay,
+        )
+        return DebiasState(adapters, opt, init_ema(adapters), 0)
+
+    # ------------------------------------------------------------------
+    def make_targets(self, probs: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+        cfg = self.cfg
+        th = dict(zip(cfg.attributes, cfg.uncertainty_thresholds))
+        t = targets_lib.binary_rank_targets(probs["gender"], cfg.target_ratio)
+        return {"gender": targets_lib.gate_targets_by_uncertainty(t, th["gender"])}
+
+    def _images_loss(self, images: torch.Tensor, targets: dict, ori: dict):
+        """Composite fairness loss of decoded images (exp-1:1879-1940
+        semantics): fair CE on the attribute logits, the face-region gradient
+        treatment before CLIP/DINO, face realism against the original or the
+        database match, dynamic weights. -> (mean loss, per-lane logs)."""
+        cfg = self.cfg
+        res = self.guidance.analyze(images, include_semantic=False)
+        ind = res.faces.indicators
+        n = images.shape[0]
+        zeros = torch.zeros(n, device=images.device)
+
+        loss_fair = zeros
+        fair_valid = torch.zeros(n, dtype=torch.bool, device=images.device)
+        for name in cfg.attributes:
+            lf, v = loss_lib.fair_ce_loss(res.attrs[name].logits, targets[name], ind)
+            loss_fair = loss_fair + lf
+            fair_valid = fair_valid | v
+
+        tg = {a: targets[a] for a in cfg.attributes}
+        pred_ori = {a: ori["preds"][a] for a in cfg.attributes}
+        hooked = weights_lib.face_region_grad_scale_multi(
+            images, res.faces.bboxes, ori["face_bboxes"], tg, pred_ori, cfg.factor_dict("f2")
+        )
+        clip_feats, dino_feats = self.guidance.semantic_feats(hooked)
+        loss_clip = loss_lib.cosine_loss(clip_feats, ori["clip_feats"]) if clip_feats is not None else zeros
+        loss_dino = loss_lib.cosine_loss(dino_feats, ori["dino_feats"]) if dino_feats is not None else zeros
+
+        if res.face_feats is not None:
+            kept_all = ind
+            face_valid = ind
+            for name in cfg.attributes:
+                kept_all = kept_all & (
+                    (targets[name] == ori["preds"][name])
+                    & (targets[name] != -1)
+                    & (ori["probs_max"][name] >= cfg.face_confidence_level)
+                )
+                face_valid = face_valid & (targets[name] != -1)
+            searched = res.face_feats
+            if self.guidance.face_db is not None:
+                _, searched = self.guidance.face_db.semantic_search(res.face_feats.detach())
+            target_embeds = torch.where(kept_all[:, None], ori["face_feats"], searched)
+            loss_face = loss_lib.cosine_loss(res.face_feats, target_embeds.detach())
+            loss_face = torch.where(face_valid, loss_face, 0.0)
+        else:
+            loss_face = zeros
+            face_valid = torch.zeros(n, dtype=torch.bool, device=images.device)
+
+        dyn_w = weights_lib.dynamic_weights_multi(ind, tg, pred_ori, cfg.factor_dict("f1"), no_face_weight=1.0)
+        out = loss_lib.composite_loss(
+            loss_fair=loss_fair, loss_clip=loss_clip, loss_dino=loss_dino, loss_face=loss_face,
+            dynamic_w=dyn_w, weight_img=cfg.weight_loss_img, weight_face=cfg.weight_loss_face,
+            fair_valid=fair_valid, face_valid=face_valid,
+        )
+        return out.total, {k: v.detach() for k, v in out.logs.items()}
+
+    def _gen_kwargs(self, adapters: dict) -> dict:
+        return {"unet_lora": adapters.get("unet_lora"), "te_lora": adapters.get("te_lora")}
+
+    # -- phase 4 -----------------------------------------------------------
+    def _final_grads(self, x_final, targets, ori, n_chunks):
+        """dL/dx_final [N, ...] (summed chunk-mean losses) and per-lane logs:
+        per lane chunk, the loss of decode(x_final) differentiated in the
+        final latents (decode checkpointed per image)."""
+        m = x_final.shape[0] // n_chunks
+        grads, logs = [], []
+        for j in range(n_chunks):
+            sl = slice(j * m, (j + 1) * m)
+            x = x_final[sl].detach().requires_grad_()
+            with torch.enable_grad():
+                images = self.sd.decode_images(x, grad_mode=True)
+                loss, lg = self._images_loss(
+                    images, _slice_tree(targets, sl), _slice_tree(ori, sl)
+                )
+                (g,) = torch.autograd.grad(loss, x)
+            grads.append(g)
+            logs.append(lg)
+        return torch.cat(grads), {k: torch.cat([lg[k] for lg in logs]) for k in logs[0]}
+
+    def _pair_grads(self, adapters, traj, cot, ts, cond_ids, uncond_ids, p):
+        """Adapter grads from the flat (step x lane-chunk) batch of
+        single-step UNet VJPs of the surrogate <cot_t, guided_eps(x_t)>; the
+        context cotangents are summed over the batch and sent through one
+        text-encoder VJP."""
+        gs = self.cfg.guidance_scale
+        unet_lora = adapters.get("unet_lora")
+        unet_leaves = tree_leaves(unet_lora) if unet_lora is not None else []
+        te_lora = adapters.get("te_lora")
+        with torch.enable_grad():
+            context, key_mask = self.sd.build_context(
+                cond_ids, uncond_ids, p, te_lora=te_lora
+            )
+            ctx_leaf = context.detach().requires_grad_()
+            acc_c = torch.zeros(context.shape, dtype=torch.float32, device=context.device)
+            acc_u = [torch.zeros_like(x) for x in unet_leaves]
+            n = traj.shape[1]
+            for t_idx in range(traj.shape[0]):
+                for j in range(n // p):
+                    sl = slice(j * p, (j + 1) * p)
+                    x = traj[t_idx, sl]
+                    weights = (
+                        lora_lib.apply_lora(self.sd.unet, unet_lora) if unet_lora is not None else None
+                    )
+                    eps2 = self.sd.unet_eps(
+                        torch.cat([x, x]), int(ts[t_idx]), ctx_leaf, key_mask, unet_weights=weights
+                    ).float()
+                    eps_u, eps_c = eps2.chunk(2)
+                    surrogate = ((eps_u + gs * (eps_c - eps_u)) * cot[t_idx, sl]).sum()
+                    g = torch.autograd.grad(surrogate, [ctx_leaf, *unet_leaves])
+                    acc_c += g[0].float()
+                    for a, gi in zip(acc_u, g[1:]):
+                        a += gi
+            grads: dict[str, Any] = {}
+            if unet_lora is not None:
+                grads["unet_lora"] = tree_unflatten(unet_lora, acc_u)
+            if te_lora is not None:
+                te_leaves = tree_leaves(te_lora)
+                g_te = torch.autograd.grad(context, te_leaves, grad_outputs=acc_c.to(context.dtype))
+                grads["te_lora"] = tree_unflatten(te_lora, list(g_te))
+        return grads
+
+    def _chain_grads(self, adapters, noises, cond_ids, uncond_ids, n_steps, targets, ori, n_chunks):
+        """The golden: per lane chunk, autograd through the grad-mode chain
+        (generate with grad_mode=True) and the loss; mean of chunk grads."""
+        leaves = tree_leaves(adapters)
+        acc = [torch.zeros_like(x) for x in leaves]
+        m = noises.shape[0] // n_chunks
+        logs = []
+        for j in range(n_chunks):
+            sl = slice(j * m, (j + 1) * m)
+            with torch.enable_grad():
+                images = self.sd.generate(
+                    noises[sl], cond_ids, uncond_ids, n_steps, guidance_scale=self.cfg.guidance_scale,
+                    grad_mode=True, **self._gen_kwargs(adapters),
+                )
+                loss, lg = self._images_loss(
+                    images, _slice_tree(targets, sl), _slice_tree(ori, sl)
+                )
+                g = torch.autograd.grad(loss, leaves, allow_unused=True)
+            for a, gi in zip(acc, g):
+                if gi is not None:
+                    a += gi
+            logs.append(lg)
+        grads = tree_unflatten(adapters, [a / n_chunks for a in acc])
+        return grads, {k: torch.cat([lg[k] for lg in logs]) for k in logs[0]}
+
+    # ------------------------------------------------------------------
+    def train_step(
+        self,
+        state: DebiasState,
+        prompt_ids: tuple[Any, Any],  # (cond_ids, uncond_ids), each [1, S]
+        *,
+        noises: Optional[torch.Tensor] = None,
+        n_steps: Optional[int] = None,
+        phase4: str = "linear",
+    ) -> tuple[DebiasState, dict]:
+        """One optimizer step. `noises` [N, h, w, 4] and `n_steps` default to
+        the step's draws from `utils.rng`."""
+        cfg, sd, dev = self.cfg, self.sd, self.device
+        step = state.step
+        n, m = cfg.train_images_per_prompt, cfg.train_micro_batch
+        if n % m:
+            raise ValueError(f"train_images_per_prompt {n} must be a multiple of train_micro_batch {m}")
+        if n_steps is None:
+            n_steps = rng_lib.sample_num_denoising_steps(cfg.seed, step, cfg.steps_low, cfg.steps_high)
+        if noises is None:
+            noises = rng_lib.train_noises(cfg.seed, step, sd.latent_shape(n))
+        noises = torch.as_tensor(np.array(noises, np.float32) if not torch.is_tensor(noises) else noises).float().to(dev)
+        cond_ids, uncond_raw = (torch.as_tensor(x).to(dev).long() for x in prompt_ids)
+        uncond_ids = match_len(uncond_raw, cond_ids)
+        adapters = state.adapters
+        gs = cfg.guidance_scale
+        n_chunks = n // m
+
+        # ---- phase 1: current adapters, analyse; keep the trajectory ----
+        with self.timers("phase1_sample_analyze"), torch.no_grad():
+            images1, x_final, traj = sd.generate(
+                noises, cond_ids, uncond_ids, n_steps, guidance_scale=gs, return_latents=True,
+                **self._gen_kwargs(adapters),
+            )
+            res1 = self.guidance.analyze(images1, include_semantic=False, include_face_feats=False)
+            del images1
+        # ---- phase 3: frozen model originals ----
+        with self.timers("phase3_frozen_sample"), torch.no_grad():
+            images3 = sd.generate(noises, cond_ids, uncond_raw, n_steps, guidance_scale=gs)
+            res3 = self.guidance.analyze(images3)
+            del images3
+        # ---- phase 2: dynamic targets (host) ----
+        with self.timers("phase2_targets"):
+            probs_host = {a: res1.attrs[a].probs.cpu().numpy() for a in cfg.attributes}
+            targets = {a: torch.as_tensor(v, device=dev) for a, v in self.make_targets(probs_host).items()}
+        self._last_targets = targets
+        ori = {
+            "face_bboxes": res3.faces.bboxes,
+            "clip_feats": res3.clip_feats,
+            "dino_feats": res3.dino_feats,
+            "face_feats": res3.face_feats,
+            "preds": {a: res3.attrs[a].preds for a in cfg.attributes},
+            "probs_max": {a: res3.attrs[a].probs.amax(dim=-1) for a in cfg.attributes},
+        }
+
+        # ---- phase 4 ----
+        with self.timers("phase4_backward"):
+            if phase4 == "linear":
+                with self.timers("phase4_loss_vjp"):
+                    g_final, logs_st = self._final_grads(x_final, targets, ori, n_chunks)
+                with self.timers("phase4_pair_vjp"):
+                    bundle = dpm.make_step_bundle(sd.config.solver, sd.schedule, n_steps)
+                    gamma = dpm.chain_eps_cotangents(bundle).to(dev)
+                    cot = gamma[:, None, None, None, None] * (g_final / n_chunks)[None]
+                    grads = self._pair_grads(adapters, traj, cot, bundle.t, cond_ids, uncond_ids, m)
+            elif phase4 == "chain":
+                grads, logs_st = self._chain_grads(
+                    adapters, noises, cond_ids, uncond_ids, n_steps, targets, ori, n_chunks
+                )
+            else:
+                raise ValueError(f"phase4 must be 'linear' or 'chain', not {phase4!r}")
+        self._last_grads = grads
+
+        # ---- update: finite gate -> AdamW -> EMA ----
+        decay = min(cfg.ema_decay, (1.0 + step) / (10.0 + step))
+        with self.timers("update"):
+            params, grad_leaves = tree_leaves(adapters), tree_leaves(grads)
+            finite = all(bool(torch.isfinite(g).all()) for g in grad_leaves)
+            if finite:  # optax.apply_if_finite: a non-finite step changes nothing
+                for p_, g_ in zip(params, grad_leaves):
+                    p_.grad = g_.detach()
+                state.opt.step()
+            state.opt.zero_grad(set_to_none=True)
+            update_ema(state.ema, adapters, decay)
+        new_state = DebiasState(adapters, state.opt, state.ema, step + 1)
+
+        logs: dict[str, Any] = {
+            "num_denoising_steps": int(n_steps),
+            "adapter_norm": _global_norm(params),
+            "ema_norm": _global_norm(tree_leaves(state.ema)),
+            "grad_norm": _global_norm(grad_leaves),
+            "grads_finite": finite,
+            "face_rate": float(res1.faces.indicators.float().mean()),
+            **metrics_lib.multi_attr_metrics(
+                probs_host, {a: res1.attrs[a].preds.cpu().numpy() for a in cfg.attributes}
+            ),
+        }
+        for k, v in logs_st.items():
+            v = v.cpu().numpy().reshape(-1)
+            v = v[v != -1] if k in ("loss_fair", "loss_face") else v
+            if len(v):
+                logs[f"train_{k}"] = float(v.mean())
+        return new_state, logs
+
+
+def _slice_tree(tree: Any, sl: slice) -> Any:
+    return tree_map(lambda x: None if x is None else x[sl], tree)

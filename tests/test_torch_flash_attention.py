@@ -9,6 +9,7 @@ sides compute fp32 softmax attention, differing only in summation order
 
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -82,3 +83,72 @@ def test_wrapper_rejects_other_devices_and_bad_shapes():
         tfa.flash_attention(q, k, v)
     with pytest.raises(ValueError, match="disagree"):
         tfa.flash_attention(torch.zeros(1, 8, 2, 4), torch.zeros(1, 8, 3, 4), torch.zeros(1, 8, 3, 4))
+
+
+# -- K1 with lse, K2, K3 and the autograd Function ----------------------------
+# The JAX `_flash_forward(with_lse=True)` and `_flash_backward` run their
+# Pallas kernels in interpret mode; float32 inputs. Tolerances 2e-5 absolute
+# on o, lse and the gradients (fp32 sums over up to 1024 keys in another
+# order; gradients of O(1)).
+
+BWD_SHAPES = [(512, 512, 64), (600, 300, 40), (1024, 77, 80), (1024, 1024, 40)]
+
+
+def _bwd_inputs(s, t, d, seed=4):
+    q, k, v = _qkv(s, t, d, seed=seed)
+    do = np.random.default_rng(seed + 1).normal(size=q.shape).astype(np.float32)
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("s,t,d", BWD_SHAPES)
+def test_lse_and_bwd_plain_match_jax_kernels(monkeypatch, s, t, d):
+    monkeypatch.setattr(pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True))
+    q, k, v, do = _bwd_inputs(s, t, d)
+    jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))
+    jo, jlse = jfa._flash_forward(jq, jk, jv, with_lse=True)  # lse [B*H, s_pad, 128]
+    B, S, H, D = q.shape
+    want_lse = np.asarray(jlse)[:, :S, 0].reshape(B, H, S)
+    want = [np.asarray(x) for x in jfa._flash_backward(jq, jk, jv, jo, jlse, jdo)]
+
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    before = (tfa.launches_lse, tfa.launches_dq, tfa.launches_dkv)
+    o, lse = tfa.flash_attention_lse(tq, tk, tv)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), atol=2e-5)
+    np.testing.assert_allclose(lse.numpy(), want_lse, atol=2e-5)
+    got = tfa.flash_attention_bwd(tq, tk, tv, o, lse, tdo)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(g.numpy(), w, atol=2e-5, err_msg=name)
+    assert (tfa.launches_lse, tfa.launches_dq, tfa.launches_dkv) == before  # CPU: plain versions
+
+
+@pytest.mark.parametrize("s,t,d", [(600, 300, 40), (512, 512, 64)])
+def test_flash_function_grads_match_jax_grad(monkeypatch, s, t, d):
+    """The autograd Function on CPU tensors (plain forward with lse, plain
+    backward) against jax.grad of the custom_vjp `flash_attention`."""
+    monkeypatch.setattr(pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True))
+    q, k, v, do = _bwd_inputs(s, t, d, seed=7)
+    jloss = lambda a, b, c: jnp.sum(jfa.flash_attention(a, b, c) * jnp.asarray(do))
+    want = [np.asarray(x) for x in jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))]
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = tfa.flash_attention(tq, tk, tv)
+    assert isinstance(out.grad_fn, tfa.FlashAttention._backward_cls)
+    (out * torch.from_numpy(do)).sum().backward()
+    for x, w, name in zip((tq, tk, tv), want, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(x.grad.numpy(), w, atol=2e-5, err_msg=name)
+
+
+def test_bf16_bwd_plain_rounds_like_the_tpu_kernels(monkeypatch):
+    """bf16 inputs: p and ds are rounded to bf16 before their products in
+    both; outputs agree to bf16 resolution (2^-8 relative, atol 2e-2 on
+    gradients of magnitude <= 2)."""
+    monkeypatch.setattr(pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True))
+    q, k, v, do = _bwd_inputs(64, 600, 40, seed=9)
+    jq, jk, jv, jdo = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, do))
+    jo, jlse = jfa._flash_forward(jq, jk, jv, with_lse=True)
+    want = [np.asarray(x.astype(jnp.float32)) for x in jfa._flash_backward(jq, jk, jv, jo, jlse, jdo)]
+    tq, tk, tv, tdo = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v, do))
+    o, lse = tfa.flash_attention_lse(tq, tk, tv)
+    got = tfa.flash_attention_bwd(tq, tk, tv, o, lse, tdo)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        np.testing.assert_allclose(g.float().numpy(), w, atol=2e-2, rtol=1e-2)

@@ -18,7 +18,7 @@ from jax.experimental import pallas as pl
 
 import fairdiff.models.unet2d as junet
 import fairdiff.ops.geglu as jgeglu
-from fairdiff_torch.io.from_jax import load_jax_params
+from fairdiff_torch.io.from_jax import load_jax_params, state_dict_from_jax
 from fairdiff_torch.models.unet2d import FeedForwardGEGLU
 from fairdiff_torch.ops import geglu as tgeglu
 
@@ -71,3 +71,54 @@ def test_wrapper_rejects_bad_weights():
         tgeglu.geglu(x, torch.zeros(16, 8, dtype=torch.float64), torch.zeros(16))
     with pytest.raises(ValueError, match="cuda or cpu"):
         tgeglu.geglu(x.to("meta"), torch.zeros(16, 8, device="meta"), torch.zeros(16, device="meta"))
+
+
+# -- K5 and the autograd Function ---------------------------------------------
+
+
+def _dx_inputs(m, d, inner, seed=2):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(m, d)).astype(np.float32)
+    w = (rng.normal(size=(d, 2 * inner)) * d**-0.5).astype(np.float32)  # JAX [d, 2I]
+    b = (rng.normal(size=(2 * inner,)) * 0.1).astype(np.float32)
+    dy = rng.normal(size=(m, inner)).astype(np.float32)
+    tw = state_dict_from_jax({"proj": {"kernel": w, "bias": b}})["proj.weight"]  # torch [2I, d]
+    return x, w, b, dy, tw
+
+
+@pytest.mark.parametrize("m,d,inner", [(8, 16, 64), (37, 24, 128), (300, 32, 512)])
+def test_dx_plain_matches_jax_dx_kernel(monkeypatch, m, d, inner):
+    """`geglu_dx_plain` against the JAX `_geglu_dx` Pallas kernel
+    (interpret mode). Tolerance 2e-5 as above: fp32 products, the JAX
+    kernel's A&S erf."""
+    _interpret(monkeypatch)
+    x, w, b, dy, tw = _dx_inputs(m, d, inner)
+    want = np.asarray(jgeglu._geglu_dx(*map(jnp.asarray, (x, w, b, dy))))
+    before = tgeglu.launches_dx
+    got = tgeglu.geglu_dx(torch.from_numpy(x), tw, torch.from_numpy(b), torch.from_numpy(dy))
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=2e-5)
+    assert tgeglu.launches_dx == before  # CPU tensors take the plain version
+
+
+@pytest.mark.parametrize("frozen", [True, False])
+def test_function_grads_match_jax_grad(monkeypatch, frozen):
+    """`FusedGEGLU` on CPU tensors against jax.grad of the custom_vjp
+    `fused_geglu`: dx always; dW and db only when the weights require grad
+    (the frozen UNet's feed-forward does not ask for them)."""
+    _interpret(monkeypatch)
+    x, w, b, dy, tw = _dx_inputs(2 * 7, 16, 64, seed=5)
+    x3 = x.reshape(2, 7, 16)
+    jloss = lambda a, ww, bb: jnp.sum(jgeglu.fused_geglu(a, ww, bb) * jnp.asarray(dy).reshape(2, 7, -1))
+    jdx, jdw, jdb = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (x3, w, b)))
+    tx = torch.from_numpy(x3).requires_grad_()
+    tw.requires_grad_(not frozen)
+    tb = torch.from_numpy(b).requires_grad_(not frozen)
+    y = tgeglu.geglu(tx, tw, tb)
+    assert isinstance(y.grad_fn, tgeglu.FusedGEGLU._backward_cls)
+    (y * torch.from_numpy(dy).reshape(2, 7, -1)).sum().backward()
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jdx), atol=2e-5, rtol=2e-5)
+    if frozen:
+        assert tw.grad is None and tb.grad is None
+    else:  # torch's dW is the JAX [d, 2I] one transposed
+        np.testing.assert_allclose(tw.grad.numpy().T, np.asarray(jdw), atol=1e-4, rtol=2e-5)
+        np.testing.assert_allclose(tb.grad.numpy(), np.asarray(jdb), atol=1e-4, rtol=2e-5)

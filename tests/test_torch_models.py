@@ -124,6 +124,32 @@ def test_unet_matches_jax():
     assert rel_err(_to_np(got), np.asarray(want)) < 1e-4
 
 
+def test_unet_context_vjp_with_remat_matches_jax():
+    """The gradient of <w, eps> with respect to the context (the phase-4
+    pair VJP's path to the text encoder) through the remat UNet, against
+    jax.grad through the JAX module built with remat=True. Tolerance as the
+    forward, 1e-4 relative L2."""
+    cfg = UNetConfig.tiny()
+    jm = JUNet(JSDConfig.tiny().unet, remat=True)
+    rng = np.random.default_rng(10)
+    lat = rng.normal(size=(2, 8, 8, 4)).astype(np.float32)
+    t = np.array([500, 500], np.int32)
+    ctx = rng.normal(size=(2, 5, cfg.cross_attention_dim)).astype(np.float32)
+    mask = np.array([[1, 1, 1, 0, 0], [1, 1, 1, 1, 1]], np.int32)
+    w = rng.normal(size=(2, 8, 8, 4)).astype(np.float32)
+    shapes = jax.eval_shape(
+        jm.init, jax.random.key(0), jnp.asarray(lat), jnp.asarray(t), jnp.asarray(ctx)
+    )["params"]
+    params = random_tree(shapes, seed=4)
+    want = jax.grad(lambda c: jnp.sum(jm.apply({"params": params}, jnp.asarray(lat), jnp.asarray(t), c,
+                                               jnp.asarray(mask)) * w))(jnp.asarray(ctx))
+    tm = load_jax_params(UNet2DCondition(cfg, remat=True), params).requires_grad_(False)
+    tctx = torch.from_numpy(ctx).requires_grad_()
+    out = tm(torch.from_numpy(lat), torch.from_numpy(t), tctx, torch.from_numpy(mask))
+    (out * torch.from_numpy(w)).sum().backward()
+    assert rel_err(tctx.grad.numpy(), np.asarray(want)) < 1e-4
+
+
 @pytest.fixture(scope="module")
 def vae_pair():
     jm = JVAE(JSDConfig.tiny().vae)
