@@ -1,10 +1,12 @@
 // Flash attention (non-causal) for Hopper, sm_90a: the forward (K1, with or
-// without lse) and the split backward (K2 dq, K3 dk/dv).
+// without lse), the split backward (K2 dq, K3 dk/dv) and the merged backward
+// (K6 dq+dk+dv in one pass).
 //
 // Replaces: fairdiff/ops/flash_attention.py `_flash_forward` (Pallas bodies
 // `_flash_kernel` and `_flash_kernel_pipe`, identical maths; `with_lse` for
-// the backward), `_dq_pallas` (`_bwd_dq_kernel`) and `_dkv_pallas`
-// (`_bwd_dkv_kernel`). The backward is described above its kernels below.
+// the backward), `_dq_pallas` (`_bwd_dq_kernel`), `_dkv_pallas`
+// (`_bwd_dkv_kernel`) and `_flash_backward_merged` (`_bwd_merged_kernel`).
+// The backward kernels are described above them below.
 //
 // Computes o = softmax(scale * q k^T) v for q [B,S,H,D], k/v [B,T,H,D], all
 // contiguous, read in place with a row stride of H*D (no relayout copy and no
@@ -35,6 +37,7 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 using fd::ldmatrix_x4;
+using fd::ldmatrix_x2_trans;
 using fd::ldmatrix_x4_trans;
 using fd::mma_16816;
 using fd::pack_bf16;
@@ -48,14 +51,15 @@ constexpr int MAX_D = 128;
 // bf16: register-resident tiles on mma.sync
 // ---------------------------------------------------------------------------
 
-// rows [row0, row0 + 64) of a [*, D] bf16 slab (row stride `stride`) into a
-// [64 x LD] shared tile whose first DP columns are written; rows >= n_rows and
-// columns >= D are zero. `vec`: D % 8 == 0 and 16-byte aligned rows.
-template <int DP, int LD>
+// rows [row0, row0 + ROWS) of a [*, D] bf16 slab (row stride `stride`) into a
+// [ROWS x LD] shared tile whose first DP columns are written, by NTH threads;
+// rows >= n_rows and columns >= D are zero. `vec`: D % 8 == 0 and 16-byte
+// aligned rows.
+template <int DP, int LD, int ROWS = BM, int NTH = NTHREADS>
 __device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* src, long stride,
                                                int row0, int n_rows, int D, bool vec) {
   constexpr int CHUNKS = DP / 8;  // 16-byte chunks a row
-  for (int idx = threadIdx.x; idx < BM * CHUNKS; idx += NTHREADS) {
+  for (int idx = threadIdx.x; idx < ROWS * CHUNKS; idx += NTH) {
     const int r = idx / CHUNKS, c = (idx % CHUNKS) * 8;
     uint4 val = make_uint4(0, 0, 0, 0);
     if (row0 + r < n_rows) {
@@ -492,6 +496,202 @@ __global__ void __launch_bounds__(NTHREADS)
 }
 
 // ---------------------------------------------------------------------------
+// bf16 merged backward (K6)
+// ---------------------------------------------------------------------------
+//
+// Replaces `_flash_backward_merged` (Pallas body `_bwd_merged_kernel`): dq,
+// dk and dv in one pass. One block owns a 128-key tile (eight warps of 16
+// keys, K3's transposed arrangement) and loops over every 64-row q tile:
+// s^T, dp^T, p and ds are computed once, dv += p^T dO and dk += ds^T q stay
+// in registers as in K3, and this key tile's dq contribution scale * ds k is
+// added into an fp32 [B, S, H, D] buffer that the wrapper zeroes and casts
+// once. Five [S,T]-sized products instead of K2+K3's seven.
+//
+// On the TPU, dq sums across the key blocks of a sequential grid axis in
+// one VMEM-resident block. Here the key blocks run in parallel, so the sum
+// is made with atomicAdd (fp32 red in L2); its order, and so dq's last bits,
+// change from run to run. The atomics move (T / 128) * S * D * 4 bytes a
+// head, which is why a block takes 128 keys and not K3's 64: at
+// [8,4096,8,40] that is 1.3 GB a call, the same order as the tensor-core
+// bound. ds^T goes through shared memory ([128 keys x 64 q], bf16) so that
+// the dq product can take ds with the q rows as its M dimension: each warp
+// owns 16 q rows and half of the 8-wide head-dim tiles.
+constexpr int BN6 = 128;  // keys per block of the merged kernel
+constexpr int NT6 = 256;  // eight warps, 16 keys each
+
+template <int DP>
+__global__ void __launch_bounds__(NT6)
+    flash_bwd_merged_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                                 const float* __restrict__ lse, const float* __restrict__ delta,
+                                 bf16* __restrict__ dk, bf16* __restrict__ dv,
+                                 float* __restrict__ dq32, int S, int T_, int H, int D,
+                                 float scale, bool vec) {
+  constexpr int LD = DP + 8;
+  constexpr int LDS = BM + 8;  // ds^T row stride
+  constexpr int KS = DP / 16;
+  constexpr int NO = DP / 8;
+  constexpr int NS = BM / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sK = reinterpret_cast<bf16*>(smem);  // [BN6 x LD]
+  bf16* sV = sK + BN6 * LD;                  // [BN6 x LD]
+  bf16* sQ = sV + BN6 * LD;                  // [BM x LD]
+  bf16* sDO = sQ + BM * LD;                  // [BM x LD]
+  bf16* sDS = sDO + BM * LD;                 // [BN6 x LDS] ds^T, bf16
+  float* sLse = reinterpret_cast<float*>(sDS + BN6 * LDS);  // [BM]
+  float* sDlt = sLse + BM;                                  // [BM]
+
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int k0 = blockIdx.x * BN6;
+  const long stride = (long)H * D;
+  const long qoff = (long)b * S * stride + (long)h * D;
+  const long koff = (long)b * T_ * stride + (long)h * D;
+  const float* lseb = lse + (long)blockIdx.y * S;
+  const float* dltb = delta + (long)blockIdx.y * S;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int quad_row = lane / 4, quad_col = (lane % 4) * 2;
+  // this thread's two keys (rows of the transposed scores)
+  const bool key_ok[2] = {k0 + warp * 16 + quad_row < T_, k0 + warp * 16 + quad_row + 8 < T_};
+  // the dq product: this warp's 16 q rows and its half of the head-dim tiles
+  const int mrow = (warp % 4) * 16, nhalf = warp / 4;
+
+  load_tile_bf16<DP, LD, BN6, NT6>(sK, k + koff, stride, k0, T_, D, vec);
+  load_tile_bf16<DP, LD, BN6, NT6>(sV, v + koff, stride, k0, T_, D, vec);
+  __syncthreads();
+  uint32_t kf[KS][4], vf[KS][4];  // this warp's 16 keys as A fragments
+  #pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    const int off = (warp * 16 + lane % 16) * LD + ks * 16 + (lane / 16) * 8;
+    ldmatrix_x4(kf[ks], sK + off);
+    ldmatrix_x4(vf[ks], sV + off);
+  }
+
+  float dkacc[NO][4], dvacc[NO][4];
+  #pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    #pragma unroll
+    for (int e = 0; e < 4; ++e) dkacc[n][e] = dvacc[n][e] = 0.0f;
+  }
+
+  for (int q0 = 0; q0 < S; q0 += BM) {
+    __syncthreads();  // every warp is done with the previous q tile and ds^T
+    load_tile_bf16<DP, LD, BM, NT6>(sQ, q + qoff, stride, q0, S, D, vec);
+    load_tile_bf16<DP, LD, BM, NT6>(sDO, dout + qoff, stride, q0, S, D, vec);
+    for (int r = threadIdx.x; r < BM; r += NT6) {
+      sLse[r] = q0 + r < S ? lseb[q0 + r] : 0.0f;
+      sDlt[r] = q0 + r < S ? dltb[q0 + r] : 0.0f;
+    }
+    __syncthreads();
+
+    float sacc[NS][4], dpacc[NS][4];
+    #pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      #pragma unroll
+      for (int e = 0; e < 4; ++e) sacc[j][e] = dpacc[j][e] = 0.0f;
+    }
+    #pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      #pragma unroll
+      for (int j2 = 0; j2 < NS / 2; ++j2) {
+        const int off = (j2 * 16 + lane % 8 + (lane / 16) * 8) * LD + ks * 16 + ((lane / 8) % 2) * 8;
+        uint32_t qb[4], ob[4];
+        ldmatrix_x4(qb, sQ + off);
+        ldmatrix_x4(ob, sDO + off);
+        mma_16816(sacc[2 * j2], kf[ks], qb[0], qb[1]);
+        mma_16816(sacc[2 * j2 + 1], kf[ks], qb[2], qb[3]);
+        mma_16816(dpacc[2 * j2], vf[ks], ob[0], ob[1]);
+        mma_16816(dpacc[2 * j2 + 1], vf[ks], ob[2], ob[3]);
+      }
+    }
+    #pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      #pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = j * 8 + quad_col + (e & 1);  // q row within the tile
+        const float p = (q0 + c < S && key_ok[e / 2]) ? expf(sacc[j][e] * scale - sLse[c]) : 0.0f;
+        sacc[j][e] = p;
+        dpacc[j][e] = p * (dpacc[j][e] - sDlt[c]);
+      }
+    }
+    // dv += bf16(p)^T dO, dk += bf16(ds)^T q (as K3); ds^T to shared memory
+    #pragma unroll
+    for (int kk = 0; kk < BM / 16; ++kk) {
+      const uint32_t pa[4] = {
+          pack_bf16(sacc[2 * kk][0], sacc[2 * kk][1]),
+          pack_bf16(sacc[2 * kk][2], sacc[2 * kk][3]),
+          pack_bf16(sacc[2 * kk + 1][0], sacc[2 * kk + 1][1]),
+          pack_bf16(sacc[2 * kk + 1][2], sacc[2 * kk + 1][3]),
+      };
+      const uint32_t da[4] = {
+          pack_bf16(dpacc[2 * kk][0], dpacc[2 * kk][1]),
+          pack_bf16(dpacc[2 * kk][2], dpacc[2 * kk][3]),
+          pack_bf16(dpacc[2 * kk + 1][0], dpacc[2 * kk + 1][1]),
+          pack_bf16(dpacc[2 * kk + 1][2], dpacc[2 * kk + 1][3]),
+      };
+      bf16* ds_row = sDS + (warp * 16 + quad_row) * LDS + kk * 16 + quad_col;
+      *reinterpret_cast<uint32_t*>(ds_row) = da[0];
+      *reinterpret_cast<uint32_t*>(ds_row + 8 * LDS) = da[1];
+      *reinterpret_cast<uint32_t*>(ds_row + 8) = da[2];
+      *reinterpret_cast<uint32_t*>(ds_row + 8 * LDS + 8) = da[3];
+      #pragma unroll
+      for (int np = 0; np < NO / 2; ++np) {
+        const int off = (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * LD + np * 16 + (lane / 16) * 8;
+        uint32_t ob[4], qb[4];
+        ldmatrix_x4_trans(ob, sDO + off);
+        ldmatrix_x4_trans(qb, sQ + off);
+        mma_16816(dvacc[2 * np], pa, ob[0], ob[1]);
+        mma_16816(dvacc[2 * np + 1], pa, ob[2], ob[3]);
+        mma_16816(dkacc[2 * np], da, qb[0], qb[1]);
+        mma_16816(dkacc[2 * np + 1], da, qb[2], qb[3]);
+      }
+    }
+    __syncthreads();  // ds^T of all 128 keys is in shared memory
+
+    // dq[mrow .. mrow + 16, this warp's head-dim tiles] += scale * ds . k over
+    // the block's 128 keys; ds from ds^T by ldmatrix.trans
+    float qacc[NO / 2][4];
+    #pragma unroll
+    for (int i = 0; i < NO / 2; ++i) qacc[i][0] = qacc[i][1] = qacc[i][2] = qacc[i][3] = 0.0f;
+    #pragma unroll
+    for (int kk = 0; kk < BN6 / 16; ++kk) {
+      uint32_t af[4];
+      ldmatrix_x4_trans(af, sDS + (kk * 16 + lane % 8 + (lane / 16) * 8) * LDS + mrow +
+                                ((lane / 8) % 2) * 8);
+      #pragma unroll
+      for (int i = 0; i < NO / 2; ++i) {
+        uint32_t bk[2];
+        ldmatrix_x2_trans(bk, sK + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * LD +
+                                  (nhalf + 2 * i) * 8);
+        mma_16816(qacc[i], af, bk[0], bk[1]);
+      }
+    }
+    #pragma unroll
+    for (int i = 0; i < NO / 2; ++i) {
+      #pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = q0 + mrow + quad_row + (e / 2) * 8;
+        const int col = (nhalf + 2 * i) * 8 + quad_col + (e & 1);
+        if (row < S && col < D) atomicAdd(dq32 + qoff + (long)row * stride + col, qacc[i][e] * scale);
+      }
+    }
+  }
+
+  #pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    #pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = k0 + warp * 16 + quad_row + (e / 2) * 8;
+      const int col = n * 8 + quad_col + (e & 1);
+      if (row < T_ && col < D) {
+        const long off = koff + (long)row * stride + col;
+        dk[off] = __float2bfloat16(dkacc[n][e] * scale);
+        dv[off] = __float2bfloat16(dvacc[n][e]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // fp32: the simple versions, every tile through shared memory
 // ---------------------------------------------------------------------------
 
@@ -727,6 +927,78 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
+// K6 in fp32: the dk/dv kernel above (64 keys a block, shared-memory
+// limited) plus each q step's dq contribution scale * ds k, added into dq32
+// with atomicAdd
+__global__ void __launch_bounds__(NTHREADS)
+    flash_bwd_merged_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                const float* __restrict__ v, const float* __restrict__ dout,
+                                const float* __restrict__ lse, const float* __restrict__ delta,
+                                float* __restrict__ dk, float* __restrict__ dv,
+                                float* __restrict__ dq32, int S, int T_, int H, int D,
+                                float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* sK = reinterpret_cast<float*>(smem);  // [BN x D]
+  float* sV = sK + BN * D;                     // [BN x D]
+  float* sDK = sV + BN * D;                    // [BN x D] accumulators
+  float* sDV = sDK + BN * D;                   // [BN x D]
+  float* sQ = sDV + BN * D;                    // [FQ x D]
+  float* sDO = sQ + FQ * D;                    // [FQ x D]
+  float* sP = sDO + FQ * D;                    // [BN x FQ] p^T
+  float* sDS = sP + BN * FQ;                   // [BN x FQ] dp^T, then ds^T
+  float* sLse = sDS + BN * FQ;                 // [FQ]
+  float* sDlt = sLse + FQ;                     // [FQ]
+
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int k0 = blockIdx.x * BN;
+  const long stride = (long)H * D;
+  const long qoff = (long)b * S * stride + (long)h * D;
+  const long koff = (long)b * T_ * stride + (long)h * D;
+  const int tid = threadIdx.x;
+
+  load_tile_f32(sK, k + koff, stride, k0, BN, T_, D);
+  load_tile_f32(sV, v + koff, stride, k0, BN, T_, D);
+  for (int idx = tid; idx < BN * D; idx += NTHREADS) sDK[idx] = sDV[idx] = 0.0f;
+  for (int q0 = 0; q0 < S; q0 += FQ) {
+    __syncthreads();
+    load_tile_f32(sQ, q + qoff, stride, q0, FQ, S, D);
+    load_tile_f32(sDO, dout + qoff, stride, q0, FQ, S, D);
+    for (int r = tid; r < FQ; r += NTHREADS) {
+      sLse[r] = q0 + r < S ? lse[(long)blockIdx.y * S + q0 + r] : 0.0f;
+      sDlt[r] = q0 + r < S ? delta[(long)blockIdx.y * S + q0 + r] : 0.0f;
+    }
+    __syncthreads();
+    mm_nt(sK, D, sQ, D, sP, FQ, BN, FQ, D);
+    mm_nt(sV, D, sDO, D, sDS, FQ, BN, FQ, D);
+    __syncthreads();
+    for (int idx = tid; idx < BN * FQ; idx += NTHREADS) {
+      const int r = idx / FQ, c = idx % FQ;
+      const float p = (q0 + c < S && k0 + r < T_) ? expf(sP[idx] * scale - sLse[c]) : 0.0f;
+      sP[idx] = p;
+      sDS[idx] = p * (sDS[idx] - sDlt[c]);
+    }
+    __syncthreads();
+    mm_nn(sP, FQ, sDO, D, sDV, D, BN, D, FQ, true);
+    mm_nn(sDS, FQ, sQ, D, sDK, D, BN, D, FQ, true);
+    for (int idx = tid; idx < FQ * D; idx += NTHREADS) {
+      const int c = idx / D, d = idx % D;
+      if (q0 + c >= S) continue;
+      float s = 0.0f;
+      for (int r = 0; r < BN; ++r) s = fmaf(sDS[r * FQ + c], sK[r * D + d], s);
+      atomicAdd(dq32 + qoff + (long)(q0 + c) * stride + d, s * scale);
+    }
+  }
+  __syncthreads();
+  for (int idx = tid; idx < BN * D; idx += NTHREADS) {
+    const int r = idx / D;
+    if (k0 + r < T_) {
+      const long off = koff + (long)(k0 + r) * stride + idx % D;
+      dk[off] = sDK[idx] * scale;
+      dv[off] = sDV[idx];
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
@@ -774,6 +1046,20 @@ int launch_dkv_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* dou
   const dim3 grid((T_ + BN - 1) / BN, B * H);
   flash_dkv_bf16_kernel<DP><<<grid, NTHREADS, smem, stream>>>(q, k, v, dout, lse, delta, dk, dv,
                                                               S, T_, H, D, scale, vec);
+  return (int)cudaGetLastError();
+}
+
+template <int DP>
+int launch_bwd_merged_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
+                           const float* lse, const float* delta, bf16* dk, bf16* dv, float* dq32,
+                           int B, int S, int T_, int H, int D, float scale, cudaStream_t stream) {
+  const size_t smem = sizeof(bf16) * ((2 * BN6 + 2 * BM) * (DP + 8) + BN6 * (BM + 8)) +
+                      sizeof(float) * 2 * BM;
+  if (int err = set_smem(flash_bwd_merged_bf16_kernel<DP>, smem)) return err;
+  const bool vec = D % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout);
+  const dim3 grid((T_ + BN6 - 1) / BN6, B * H);
+  flash_bwd_merged_bf16_kernel<DP><<<grid, NT6, smem, stream>>>(
+      q, k, v, dout, lse, delta, dk, dv, dq32, S, T_, H, D, scale, vec);
   return (int)cudaGetLastError();
 }
 
@@ -901,5 +1187,41 @@ extern "C" int fd_flash_dkv_f32(const void* q, const void* k, const void* v, con
       static_cast<const float*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv), S, T,
       H, D, scale);
+  return (int)cudaGetLastError();
+}
+
+// K6: dk, dv and the fp32 dq sum in one pass; dq32 [B, S, H, D] must be zero
+extern "C" int fd_flash_bwd_merged_bf16(const void* q, const void* k, const void* v,
+                                        const void* dout, const void* lse, const void* delta,
+                                        void* dk, void* dv, void* dq32, int B, int S, int T,
+                                        int H, int D, float scale, void* stream) {
+  if (bad_shape(B, S, T, H, D)) return (int)cudaErrorInvalidValue;
+  const auto* qq = static_cast<const bf16*>(q);
+  const auto* kk = static_cast<const bf16*>(k);
+  const auto* vv = static_cast<const bf16*>(v);
+  const auto* dd = static_cast<const bf16*>(dout);
+  const auto* ll = static_cast<const float*>(lse);
+  const auto* de = static_cast<const float*>(delta);
+  auto* gk = static_cast<bf16*>(dk);
+  auto* gv = static_cast<bf16*>(dv);
+  auto* gq = static_cast<float*>(dq32);
+  auto st = static_cast<cudaStream_t>(stream);
+  FD_DISPATCH_DP(D, launch_bwd_merged_bf16<DP>(qq, kk, vv, dd, ll, de, gk, gv, gq, B, S, T, H, D,
+                                               scale, st));
+}
+
+extern "C" int fd_flash_bwd_merged_f32(const void* q, const void* k, const void* v,
+                                       const void* dout, const void* lse, const void* delta,
+                                       void* dk, void* dv, void* dq32, int B, int S, int T, int H,
+                                       int D, float scale, void* stream) {
+  if (bad_shape(B, S, T, H, D)) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_dkv_f32(D);
+  if (int err = set_smem(flash_bwd_merged_f32_kernel, smem)) return err;
+  const dim3 grid((T + BN - 1) / BN, B * H);
+  flash_bwd_merged_f32_kernel<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv),
+      static_cast<float*>(dq32), S, T, H, D, scale);
   return (int)cudaGetLastError();
 }

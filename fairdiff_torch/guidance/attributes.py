@@ -37,6 +37,18 @@ def celeba_slices() -> AttributeSlices:
     return AttributeSlices(extract)
 
 
+def fairface_gender_race_slices() -> AttributeSlices:
+    """FairFace 6-logit head: gender [:, :2], race [:, 2:6]."""
+    return AttributeSlices(lambda logits: {"gender": logits[:, :2], "race": logits[:, 2:6]})
+
+
+def fairface_gender_race_age_slices() -> AttributeSlices:
+    """FairFace 8-logit head: gender, race (4), age (2)."""
+    return AttributeSlices(
+        lambda logits: {"gender": logits[:, :2], "race": logits[:, 2:6], "age": logits[:, 6:8]}
+    )
+
+
 def classify_faces(
     classifier_fn: Callable[[torch.Tensor], torch.Tensor],
     face_chips: torch.Tensor,  # [N, S, S, 3]

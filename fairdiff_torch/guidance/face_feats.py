@@ -9,8 +9,11 @@ fairdiff/guidance/face_feats.py).
 
 from __future__ import annotations
 
+import pickle
+from pathlib import Path
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -34,6 +37,18 @@ class FaceFeatsDB(NamedTuple):
     feats: torch.Tensor  # [M, D] L2-normalised
     genders: torch.Tensor  # [M] int32
     extra: dict  # e.g. {"race": [M]}
+
+    @classmethod
+    def from_pickle(cls, path: str | Path, device: torch.device | str = "cpu") -> "FaceFeatsDB":
+        """A reference `face_feats.pkl`: (feats, genders, logits) for exp-1 or
+        (feats, genders, g_logits, races, r_logits) for exp-3 and later."""
+        with open(path, "rb") as f:
+            data = pickle.load(f)
+        feats = torch.tensor(np.asarray(data[0], np.float32), device=device)
+        feats = feats / feats.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+        as_ids = lambda x: torch.tensor(np.asarray(x).reshape(-1).astype(np.int32), device=device)
+        extra = {"race": as_ids(data[3])} if len(data) >= 5 else {}
+        return cls(feats, as_ids(data[1]), extra)
 
     def semantic_search(self, queries: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """Top-1 cosine match: queries [Q, D] -> (indices [Q], feats [Q, D])."""

@@ -6,10 +6,17 @@ The port's modules name their submodules after the same paths, so each
 leaf maps by name:
 
     Dense kernel [in, out]      -> Linear.weight [out, in]
-    Conv kernel HWIO            -> Conv2d.weight OIHW
-    LayerNorm/GroupNorm scale   -> .weight      (bias -> .bias)
+    Conv kernel HWIO            -> Conv2d.weight OIHW (a depthwise kernel,
+                                   HWIO with I = 1, -> [O, 1, H, W])
+    LayerNorm/GroupNorm/BN scale -> .weight     (bias -> .bias)
     Embed embedding             -> Embedding.weight
-    position_embedding          -> position_embedding
+    any other leaf              -> the same name: CLIP's position_embedding
+                                   and class_embedding, DINOv2's cls_token,
+                                   position_embeddings and layer_scale1/2,
+                                   FrozenBatchNorm's mean and var (buffers)
+
+`jax_tree_from_module` goes the other way, to write weight files in the
+JAX package's layout (a guidance directory made from seeded weights).
 """
 
 from __future__ import annotations
@@ -82,3 +89,25 @@ def adapters_from_jax(tree: Mapping) -> dict[str, Any]:
     require grad, the trainable leaves of the port's trainer. LoRA leaves
     keep the JAX orientation (`adapters.lora` merges them as JAX does)."""
     return tree_map(lambda v: torch.tensor(np.asarray(v, dtype=np.float32)).requires_grad_(), tree)
+
+
+def jax_tree_from_module(module: nn.Module) -> dict[str, Any]:
+    """The module's parameters and buffers as a JAX parameter tree of numpy
+    fp32 arrays (the inverse of `state_dict_from_jax`)."""
+    tree: dict[str, Any] = {}
+    for prefix, m in module.named_modules():
+        for name, t in [*m.named_parameters(recurse=False), *m.named_buffers(recurse=False)]:
+            arr = t.detach().float().cpu().numpy()
+            if name == "weight" and isinstance(m, nn.Linear):
+                name, arr = "kernel", arr.T
+            elif name == "weight" and isinstance(m, nn.Conv2d):
+                name, arr = "kernel", arr.transpose(2, 3, 1, 0)
+            elif name == "weight" and isinstance(m, nn.Embedding):
+                name = "embedding"
+            elif name == "weight":
+                name = "scale"
+            node = tree
+            for part in prefix.split(".") if prefix else []:
+                node = node.setdefault(part, {})
+            node[name] = np.ascontiguousarray(arr)
+    return tree

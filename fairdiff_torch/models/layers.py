@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from fairdiff_torch.ops.flash_attention import FLASH_MIN_KV, flash_attention
+from fairdiff_torch.ops.group_norm import fused_group_norm_silu
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -37,12 +38,14 @@ def dot_product_attention(
     k: torch.Tensor,  # [B, T, H, D]
     v: torch.Tensor,  # [B, T, H, D]
     bias: Optional[torch.Tensor] = None,  # additive, broadcastable to [B,H,S,T]
+    flash_bwd: str = "split",
 ) -> torch.Tensor:
     """Multi-head attention core -> [B, S, H, D]. The kernel runs where the
     JAX package routes to its flash kernel (no bias, T >= FLASH_MIN_KV) and
-    the tensors are on CUDA; everything else takes the plain path."""
+    the tensors are on CUDA, with the backward `flash_bwd` names (checked by
+    `flash_attention`); everything else takes the plain path."""
     if bias is None and k.shape[1] >= FLASH_MIN_KV and q.is_cuda:
-        return flash_attention(q, k, v)
+        return flash_attention(q, k, v, flash_bwd)
     scale = q.shape[-1] ** -0.5
     # fp32 logits from the activation-type operands (exact products, as
     # preferred_element_type=float32 in the JAX einsum)
@@ -51,6 +54,25 @@ def dot_product_attention(
         logits = logits + bias.float()
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.matmul(probs, v.transpose(1, 2)).transpose(1, 2)
+
+
+class FusedGroupNorm(nn.Module):
+    """GroupNorm over the channel-last axis of [B, ..., C] with an optional
+    fused SiLU (counterpart of fairdiff/models/layers.py `FusedGroupNorm`):
+    `weight` and `bias` [C] kept in fp32, fp32 statistics, kernel K7 on
+    CUDA. Opt-in, as in the JAX package: no model of the port uses it."""
+
+    def __init__(self, num_channels: int, num_groups: int = 32, eps: float = 1e-5,
+                 use_silu: bool = False):
+        super().__init__()
+        self.num_groups, self.eps, self.use_silu = num_groups, eps, use_silu
+        self.weight = nn.Parameter(torch.ones(num_channels))
+        self.bias = nn.Parameter(torch.zeros(num_channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return fused_group_norm_silu(
+            x, self.weight.float(), self.bias.float(), self.num_groups, self.eps, self.use_silu
+        )
 
 
 class MultiHeadAttention(nn.Module):

@@ -7,7 +7,8 @@ tokens. Submodule names follow the JAX parameter tree (`down_0_resnet_0`,
 The self-attention of the 1024- and 4096-token latents runs the
 flash-attention kernels on CUDA, and every feed-forward runs the fused
 GEGLU kernels on CUDA; both through autograd Functions where a gradient is
-wanted. `remat=True` recomputes each resnet and transformer block in the
+wanted; `flash_bwd` ("split": K2 + K3, "merged": K6) picks the
+flash backward. `remat=True` recomputes each resnet and transformer block in the
 backward instead of keeping its activations (`torch.utils.checkpoint`, the
 counterpart of `nn.remat` in the JAX module).
 """
@@ -24,6 +25,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from fairdiff_torch.models.layers import dot_product_attention, expand_padding_mask
+from fairdiff_torch.ops.flash_attention import check_flash_bwd
 from fairdiff_torch.ops.geglu import geglu
 
 
@@ -113,10 +115,12 @@ class ResnetBlock2D(nn.Module):
 class CrossAttention(nn.Module):
     """diffusers-style attention (to_q/to_k/to_v biasless, to_out biased)."""
 
-    def __init__(self, query_dim: int, heads: int, context_dim: Optional[int] = None):
+    def __init__(self, query_dim: int, heads: int, context_dim: Optional[int] = None,
+                 flash_bwd: str = "split"):
         super().__init__()
         context_dim = context_dim or query_dim
         self.heads = heads
+        self.flash_bwd = check_flash_bwd(flash_bwd)
         self.to_q = nn.Linear(query_dim, query_dim, bias=False)
         self.to_k = nn.Linear(context_dim, query_dim, bias=False)
         self.to_v = nn.Linear(context_dim, query_dim, bias=False)
@@ -137,7 +141,7 @@ class CrossAttention(nn.Module):
         # masking pad keys makes the static-77 context equal to the
         # reference's compact-length cross-attention
         bias = None if context_mask is None else expand_padding_mask(context_mask)
-        out = dot_product_attention(q, k, v, bias).reshape(B, S, C)
+        out = dot_product_attention(q, k, v, bias, self.flash_bwd).reshape(B, S, C)
         return self.to_out(out)
 
 
@@ -155,13 +159,13 @@ class FeedForwardGEGLU(nn.Module):
 
 
 class BasicTransformerBlock(nn.Module):
-    def __init__(self, dim: int, heads: int, context_dim: int):
+    def __init__(self, dim: int, heads: int, context_dim: int, flash_bwd: str = "split"):
         super().__init__()
         # eps 1e-5: torch's LayerNorm default, as diffusers uses
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn1 = CrossAttention(dim, heads)
+        self.attn1 = CrossAttention(dim, heads, flash_bwd=flash_bwd)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn2 = CrossAttention(dim, heads, context_dim)
+        self.attn2 = CrossAttention(dim, heads, context_dim, flash_bwd)
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
         self.ff = FeedForwardGEGLU(dim)
 
@@ -175,11 +179,12 @@ class BasicTransformerBlock(nn.Module):
 class Transformer2D(nn.Module):
     """Spatial transformer: GN -> 1x1 proj -> block -> 1x1 proj + residual."""
 
-    def __init__(self, channels: int, heads: int, context_dim: int, groups: int = 32):
+    def __init__(self, channels: int, heads: int, context_dim: int, groups: int = 32,
+                 flash_bwd: str = "split"):
         super().__init__()
         self.norm = nn.GroupNorm(groups, channels, eps=1e-6)
         self.proj_in = nn.Conv2d(channels, channels, 1)
-        self.transformer_blocks_0 = BasicTransformerBlock(channels, heads, context_dim)
+        self.transformer_blocks_0 = BasicTransformerBlock(channels, heads, context_dim, flash_bwd)
         self.proj_out = nn.Conv2d(channels, channels, 1)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor,
@@ -217,10 +222,12 @@ class UNet2DCondition(nn.Module):
             context [B,T,768], key mask [B,T] or None) -> eps [B,H,W,4] NHWC
     """
 
-    def __init__(self, config: UNetConfig = UNetConfig.sd15(), remat: bool = False):
+    def __init__(self, config: UNetConfig = UNetConfig.sd15(), remat: bool = False,
+                 flash_bwd: str = "split"):
         super().__init__()
         self.config = cfg = config
         self.remat = remat
+        self.flash_bwd = flash_bwd  # checked by each CrossAttention
         ch = cfg.block_out_channels
         heads, ctx, groups, eps = (
             cfg.attention_head_dim, cfg.cross_attention_dim, cfg.norm_num_groups, cfg.norm_eps,
@@ -239,14 +246,14 @@ class UNet2DCondition(nn.Module):
                 add(f"down_{i}_resnet_{j}", ResnetBlock2D(cur, out_ch, groups, eps, temb_dim))
                 cur = out_ch
                 if cfg.cross_attn_down[i]:
-                    add(f"down_{i}_attn_{j}", Transformer2D(cur, heads, ctx, groups))
+                    add(f"down_{i}_attn_{j}", Transformer2D(cur, heads, ctx, groups, flash_bwd))
                 skip_ch.append(cur)
             if i < len(ch) - 1:
                 add(f"down_{i}_downsample", Downsample2D(cur))
                 skip_ch.append(cur)
 
         add("mid_resnet_0", ResnetBlock2D(cur, cur, groups, eps, temb_dim))
-        add("mid_attn_0", Transformer2D(cur, heads, ctx, groups))
+        add("mid_attn_0", Transformer2D(cur, heads, ctx, groups, flash_bwd))
         add("mid_resnet_1", ResnetBlock2D(cur, cur, groups, eps, temb_dim))
 
         for i, out_ch in enumerate(reversed(ch)):
@@ -255,7 +262,7 @@ class UNet2DCondition(nn.Module):
                     ResnetBlock2D(cur + skip_ch.pop(), out_ch, groups, eps, temb_dim))
                 cur = out_ch
                 if cfg.cross_attn_up[i]:
-                    add(f"up_{i}_attn_{j}", Transformer2D(cur, heads, ctx, groups))
+                    add(f"up_{i}_attn_{j}", Transformer2D(cur, heads, ctx, groups, flash_bwd))
             if i < len(ch) - 1:
                 add(f"up_{i}_upsample", Upsample2D(cur))
 

@@ -1,21 +1,27 @@
 """Flash attention: forward (kernel K1, with or without lse), backward
-(kernels K2 dq and K3 dk/dv), their plain PyTorch versions and the
-autograd Function that joins them.
+(kernels K2 dq and K3 dk/dv, or the merged K6), their plain PyTorch
+versions and the autograd Function that joins them.
 
 Counterpart of fairdiff/ops/flash_attention.py: `_flash_forward` (K1, and
 with `with_lse=True` the forward of the custom_vjp), `_dq_pallas` (K2),
-`_dkv_pallas` (K3), `_flash_backward` and the `custom_vjp` `flash_attention`
-(`_fa_fwd` / `_fa_bwd`). The CUDA kernels are `csrc/flash_attention.cu`;
-they read q/k/v/dO in the JAX package's [B, S, H, D] layout straight from
-memory, so no wrapper makes a relayout copy. lse is [B, H, S] fp32 (the TPU
-kernel's lane-broadcast [B*H, S_pad, 128] layout is a TPU tiling artefact).
+`_dkv_pallas` (K3), `_flash_backward_merged` (K6), `_flash_backward` and the
+`custom_vjp` `flash_attention` (`_fa_fwd` / `_fa_bwd`). The JAX package picks
+the merged backward with the environment variable FAIRDIFF_FLASH_BWD=merged,
+read at trace time; here it is the explicit argument
+`flash_bwd="split" | "merged"`. K6 sums dq across key blocks with atomics, so
+its dq differs from run to run in the last bits.
+
+The CUDA kernels are `csrc/flash_attention.cu`; they read q/k/v/dO in the
+JAX package's [B, S, H, D] layout straight from memory, so no wrapper makes
+a relayout copy. lse is [B, H, S] fp32 (the TPU kernel's lane-broadcast
+[B*H, S_pad, 128] layout is a TPU tiling artefact).
 delta = rowsum(dO * o) is plain PyTorch, as it is XLA outside the kernels
 in the JAX package (`_bwd_operands`).
 
 On a CPU tensor every wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises. `flash_attention` is the entry point the
 models call: where a gradient is wanted it goes through `FlashAttention`
-(forward with lse, backward through K2 and K3), otherwise it runs the
+(forward with lse, backward through K2 and K3 or K6), otherwise it runs the
 lse-free forward. A CUDA tensor that needs a gradient never gets an output
 without a `grad_fn`: the low-level forward wrappers raise instead.
 """
@@ -35,11 +41,15 @@ from fairdiff_torch.kernels import build
 FLASH_MIN_KV = 512
 
 # kernel launches, counted where each kernel is launched: K1 without lse
-# (generation), K1 with lse (the forward of a gradient pass), K2, K3
+# (generation), K1 with lse (the forward of a gradient pass), K2, K3, K6
 launches = 0
 launches_lse = 0
 launches_dq = 0
 launches_dkv = 0
+launches_merged = 0
+
+# the backward routes: K2 + K3, or K6
+FLASH_BWD = ("split", "merged")
 
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
@@ -48,7 +58,7 @@ _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 def _kernel(name: str, dtype: torch.dtype):
     """The C entry `fd_flash_<name>_<dtype>`; argtypes from its pointer count."""
     fn = getattr(build.load("flash_attention"), f"fd_flash_{name}_{_DTYPES[dtype]}")
-    n_ptr = {"fwd": 4, "fwd_lse": 5, "dq": 7, "dkv": 8}[name]
+    n_ptr = {"fwd": 4, "fwd_lse": 5, "dq": 7, "dkv": 8, "bwd_merged": 9}[name]
     fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -250,12 +260,42 @@ def flash_attention_bwd(
     return (flash_attention_dq(q, k, v, do, lse, delta), *flash_attention_dkv(q, k, v, do, lse, delta))
 
 
+def flash_attention_bwd_merged(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K6: (dq, dk, dv) in one pass, the same function as
+    `flash_attention_bwd` (plain version `flash_attention_bwd_plain` on the
+    CPU). dq is summed over key blocks in an fp32 buffer and rounded once to
+    q's type, as the JAX default FAIRDIFF_MERGED_DQ32=1."""
+    global launches_merged
+    if o.shape != q.shape:
+        raise ValueError(f"want o {tuple(q.shape)}, got {tuple(o.shape)}")
+    delta = attention_delta(o, do)
+    _check_bwd(q, k, v, do, lse, delta)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do)
+    dq32 = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("bwd_merged", [q, k, v, do, lse, delta, dk, dv, dq32], q, k.shape[1])
+    launches_merged += 1
+    return dq32.to(q.dtype), dk, dv
+
+
+def check_flash_bwd(flash_bwd: str) -> str:
+    if flash_bwd not in FLASH_BWD:
+        raise ValueError(f"flash_bwd must be one of {FLASH_BWD}, not {flash_bwd!r}")
+    return flash_bwd
+
+
 class FlashAttention(torch.autograd.Function):
     """Counterpart of the JAX custom_vjp: forward with lse (K1), backward
-    through K2 and K3. The residuals are q, k, v, o and lse."""
+    through K2 and K3 (`flash_bwd="split"`) or K6 (`"merged"`). The
+    residuals are q, k, v, o and lse."""
 
     @staticmethod
-    def forward(ctx, q, k, v):
+    def forward(ctx, q, k, v, flash_bwd="split"):
+        ctx.flash_bwd = flash_bwd  # checked by `flash_attention`
         o, lse = flash_attention_lse(q, k, v)
         ctx.save_for_backward(q, k, v, o, lse)
         return o
@@ -263,12 +303,17 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        return flash_attention_bwd(q, k, v, o, lse, do.contiguous())
+        bwd = {"split": flash_attention_bwd, "merged": flash_attention_bwd_merged}[ctx.flash_bwd]
+        return (*bwd(q, k, v, o, lse, do.contiguous()), None)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, flash_bwd: str = "split"
+) -> torch.Tensor:
     """Non-causal o = softmax(D**-0.5 q k^T) v; q [B,S,H,D], k/v [B,T,H,D].
-    Differentiable where a gradient is wanted (through `FlashAttention`)."""
+    Differentiable where a gradient is wanted (through `FlashAttention`,
+    whose backward `flash_bwd` selects)."""
+    check_flash_bwd(flash_bwd)
     if _needs_grad(q, k, v):
-        return FlashAttention.apply(q, k, v)
+        return FlashAttention.apply(q, k, v, flash_bwd)
     return _forward(q, k, v, with_lse=False)[0]

@@ -82,16 +82,17 @@ class StableDiffusion:
     """The three models on one device in the config's dtype.
 
     Weights start uninitialised: call `init_random(seed)` or
-    `load_jax(params)` before use."""
+    `load_jax(params)` before use. `flash_bwd` picks the UNet's flash
+    backward ("split": K2 + K3, "merged": K6)."""
 
     def __init__(self, config: SDConfig = SDConfig.sd15(), *, device: Optional[str] = None,
-                 remat: bool = False):
+                 remat: bool = False, flash_bwd: str = "split"):
         self.config = config
         self.device = resolve_device(device)
         self.dtype = getattr(torch, config.dtype)
         with torch.device(self.device):
             self.text_encoder = CLIPTextModel(config.text)
-            self.unet = UNet2DCondition(config.unet, remat=remat)
+            self.unet = UNet2DCondition(config.unet, remat=remat, flash_bwd=flash_bwd)
             self.vae = AutoencoderKL(config.vae)
         for m in self.models().values():
             m.to(self.dtype).eval().requires_grad_(False)

@@ -1,15 +1,17 @@
 """Fairness-finetuning CLI, exp-1 (counterpart of
 fairdiff/tools/train_debias.py).
 
-Runs SD-1.5 at full width (or the tiny config) on seeded random weights with
-the synthetic guidance stack, which is what the JAX CLI runs when no model
-or guidance directory is given. Prints one JSON log line per step and saves
-the adapters and their EMA as `.npz` under `<output_dir>/exported/`.
+Runs SD-1.5 at full width (or the tiny config) on seeded random weights,
+with the guidance stack of `--guidance_dir` (`training.model_zoo`, frozen
+weights in the SD dtype) or, without one, the synthetic stack, as the JAX
+CLI does. `--flash_bwd merged` sends the UNet's flash backward through K6
+instead of K2 + K3. Prints one JSON log line per step and saves the adapters
+and their EMA as `.npz` under `<output_dir>/exported/`.
 
 Usage:
   python -m fairdiff_torch.tools.train_debias --max_train_steps 2
   python -m fairdiff_torch.tools.train_debias --device cpu --tiny_smoke 1 \
-      --max_train_steps 2 --output_dir outputs/debias
+      --max_train_steps 2 --output_dir outputs/debias [--guidance_dir DIR]
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from fairdiff_torch.io.prompts import load_occupation_prompts
 from fairdiff_torch.io.tokenizer import load_tokenizer
 from fairdiff_torch.sampling.pipeline import SDConfig, StableDiffusion
 from fairdiff_torch.training.debias import DebiasState, DebiasTrainer
+from fairdiff_torch.training.model_zoo import load_guidance_stack
 from fairdiff_torch.training.presets import PRESETS
 from fairdiff_torch.training.synthetic import synthetic_stack
 
@@ -46,6 +49,8 @@ class TrainCLIConfig:
     sd_config: str = "sd15"  # "sd15" or "tiny"
     tiny_smoke: bool = False  # tiny model and a 2-step, 4-lane step on the CPU
     prompts_json: str = ""
+    guidance_dir: str = ""  # "" = the synthetic stack
+    flash_bwd: str = "split"  # the UNet's flash backward: "split" (K2 + K3) or "merged" (K6)
     output_dir: str = "outputs/debias"
     seed: int = 42
     # overrides of the preset (0 = the preset's value)
@@ -64,7 +69,7 @@ def build_trainer(cfg: TrainCLIConfig) -> DebiasTrainer:
         overrides.update(steps_low=cfg.steps, steps_high=cfg.steps)
     dcfg = PRESETS[cfg.experiment](**overrides)
     if cfg.tiny_smoke:
-        sd = StableDiffusion(SDConfig.tiny(), device=cfg.device or None)
+        sd = StableDiffusion(SDConfig.tiny(), device=cfg.device or None, flash_bwd=cfg.flash_bwd)
         dcfg = dataclasses.replace(
             dcfg, steps_low=2, steps_high=2,
             train_images_per_prompt=min(dcfg.train_images_per_prompt, 4),
@@ -72,9 +77,14 @@ def build_trainer(cfg: TrainCLIConfig) -> DebiasTrainer:
         )
     else:
         arch = {"sd15": SDConfig.sd15, "tiny": SDConfig.tiny}[cfg.sd_config]()
-        sd = StableDiffusion(arch, device=cfg.device or None, remat=cfg.sd_config != "tiny")
+        sd = StableDiffusion(arch, device=cfg.device or None, remat=cfg.sd_config != "tiny",
+                             flash_bwd=cfg.flash_bwd)
     sd.init_random(cfg.seed)
-    return DebiasTrainer(sd, synthetic_stack(dcfg.attributes, device=sd.device), dcfg)
+    if cfg.guidance_dir:
+        guidance = load_guidance_stack(cfg.guidance_dir, dcfg.attributes, dtype=sd.dtype, device=sd.device)
+    else:
+        guidance = synthetic_stack(dcfg.attributes, device=sd.device)
+    return DebiasTrainer(sd, guidance, dcfg)
 
 
 def tokenize_prompts(sd: StableDiffusion, tokenizer, prompts: list[str]) -> list[tuple]:

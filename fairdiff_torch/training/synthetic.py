@@ -85,4 +85,5 @@ def synthetic_stack(
         face_db=FaceFeatsDB(feats, torch.zeros(8, dtype=torch.int32, device=device), {}),
         chip_size=32,
         aligned_size=32,
+        img_size_small=0,
     )

@@ -152,3 +152,58 @@ def test_bf16_bwd_plain_rounds_like_the_tpu_kernels(monkeypatch):
     for g, w in zip(got, want):
         assert g.dtype == torch.bfloat16
         np.testing.assert_allclose(g.float().numpy(), w, atol=2e-2, rtol=1e-2)
+
+
+# -- the merged backward (K6) and the flash_bwd route ---------------------------
+# The JAX `flash_attention` with FAIRDIFF_FLASH_BWD=merged runs
+# `_flash_backward_merged` (Pallas, interpret mode) in its custom_vjp; the
+# port's `flash_bwd="merged"` runs K6's plain version on CPU tensors. Float32,
+# 2e-5 absolute as above (the merged kernel sums dq over key blocks in
+# another order).
+
+
+@pytest.mark.parametrize("s,t,d", [(600, 300, 40), (512, 512, 64), (1024, 77, 80)])
+def test_merged_route_grads_match_jax_merged(monkeypatch, s, t, d):
+    monkeypatch.setattr(pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True))
+    monkeypatch.setenv("FAIRDIFF_FLASH_BWD", "merged")
+    q, k, v, do = _bwd_inputs(s, t, d, seed=11)
+    jloss = lambda a, b, c: jnp.sum(jfa.flash_attention(a, b, c) * jnp.asarray(do))
+    want = [np.asarray(x) for x in jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))]
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    before = (tfa.launches_merged, tfa.launches_dq, tfa.launches_dkv)
+    (tfa.flash_attention(tq, tk, tv, flash_bwd="merged") * torch.from_numpy(do)).sum().backward()
+    for x, w, name in zip((tq, tk, tv), want, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(x.grad.numpy(), w, atol=2e-5, err_msg=name)
+    assert (tfa.launches_merged, tfa.launches_dq, tfa.launches_dkv) == before  # CPU: plain version
+
+
+def test_merged_plain_matches_jax_merged_kernel(monkeypatch):
+    """`flash_attention_bwd_merged` on CPU tensors against the JAX
+    `_flash_backward_merged` on the same o and lse (ragged S and T)."""
+    monkeypatch.setattr(pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True))
+    q, k, v, do = _bwd_inputs(200, 129, 40, seed=13)
+    jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))
+    jo, jlse = jfa._flash_forward(jq, jk, jv, with_lse=True)
+    want = [np.asarray(x) for x in jfa._flash_backward_merged(jq, jk, jv, jo, jlse, jdo)]
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    o, lse = tfa.flash_attention_lse(tq, tk, tv)
+    got = tfa.flash_attention_bwd_merged(tq, tk, tv, o, lse, tdo)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(g.numpy(), w, atol=2e-5, err_msg=name)
+
+
+def test_bad_flash_bwd_raises():
+    q, k, v = (torch.zeros(1, 8, 2, 4) for _ in range(3))
+    with pytest.raises(ValueError, match="flash_bwd"):
+        tfa.flash_attention(q, k, v, flash_bwd="recompute")
+    from fairdiff_torch.models.unet2d import CrossAttention, UNet2DCondition, UNetConfig
+    from fairdiff_torch.sampling.pipeline import SDConfig, StableDiffusion
+
+    with pytest.raises(ValueError, match="flash_bwd"):
+        CrossAttention(8, 2, flash_bwd="Merged")
+    with pytest.raises(ValueError, match="flash_bwd"):
+        UNet2DCondition(UNetConfig.tiny(), flash_bwd="")
+    with pytest.raises(ValueError, match="flash_bwd"):
+        StableDiffusion(SDConfig.tiny(), device="cpu", flash_bwd="fused")
+    unet = StableDiffusion(SDConfig.tiny(), device="cpu", flash_bwd="merged").unet
+    assert {m.flash_bwd for m in unet.modules() if hasattr(m, "to_q")} == {"merged"}

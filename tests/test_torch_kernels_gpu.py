@@ -10,14 +10,18 @@ rounding noise (~2e-3 of the output's scale), so the limits are set against
 that scale: every element within 0.1 * rms(plain) + 1e-2 * |plain|, rel L2
 within 1e-2 (a kernel that drops a 64-key or 32-deep tile moves the output
 by 1e-1 or more), and the kernel's rel L2 error against the fp64 version at
-most 1.5 times the plain bf16 version's.
+most 1.5 times the plain bf16 version's. K6 (the merged backward) sums dq
+over key blocks with atomics in no fixed order: only summation order differs
+from the plain version and K2, so the same limits hold.
 """
 
 import pytest
 import torch
 
+from fairdiff_torch.models.layers import FusedGroupNorm
 from fairdiff_torch.ops import flash_attention as fa
 from fairdiff_torch.ops import geglu as gg
+from fairdiff_torch.ops import group_norm as gn
 
 pytestmark = pytest.mark.gpu
 
@@ -163,3 +167,84 @@ def test_functions_carry_gradients_on_the_card(cuda):
     assert gg.launches_dx == before + 1 and x.grad is not None
     with pytest.raises(RuntimeError, match="grad_fn"):
         gg._forward(x, w, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,t,h,d", FLASH_SHAPES + [(200, 129, 2, 40)])
+def test_flash_merged_bwd_kernel_matches_plain_and_split(cuda, dtype, s, t, h, d):
+    """K6 against its plain version (the same function as K2 + K3) and
+    against K2 + K3 on the same inputs, at S and T that are not multiples of
+    64 (and T = 129: a second 128-key block with one key)."""
+    q, k, v, do = _qkv_do(cuda, dtype, s, t, h, d)
+    o, lse = fa.flash_attention_lse(q, k, v)
+    before = (fa.launches_merged, fa.launches_dq, fa.launches_dkv)
+    got = fa.flash_attention_bwd_merged(q, k, v, o, lse, do)
+    assert (fa.launches_merged, fa.launches_dq, fa.launches_dkv) == (before[0] + 1, *before[1:])
+    assert all(g.dtype == dtype and g.shape == x.shape for g, x in zip(got, (q, k, v)))
+    plain = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
+    split = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    qd, kd, vd, dod = (x.double() for x in (q, k, v, do))
+    o_exact, lse_exact = fa.flash_attention_lse_plain(qd, kd, vd)
+    exact = fa.flash_attention_bwd_plain(qd, kd, vd, o_exact, lse_exact, dod)
+    for g, p_, sp, e in zip(got, plain, split, exact):
+        assert_matches(g, p_, e, f32_tol=dict(atol=1e-4, rtol=1e-4))
+        assert_matches(g, sp, e, f32_tol=dict(atol=1e-4, rtol=1e-4))
+
+
+def test_flash_merged_route_through_autograd(cuda):
+    """flash_bwd="merged" sends the autograd backward through K6 only."""
+    q, k, v, do = (x.requires_grad_() for x in _qkv_do(cuda, torch.bfloat16, 64, 600, 2, 40))
+    before = (fa.launches_merged, fa.launches_dq, fa.launches_dkv)
+    fa.flash_attention(q, k, v, flash_bwd="merged").backward(do.detach())
+    assert (fa.launches_merged, fa.launches_dq, fa.launches_dkv) == (before[0] + 1, *before[1:])
+    assert all(x.grad is not None and torch.isfinite(x.grad).all() for x in (q, k, v))
+    with pytest.raises(ValueError, match="flash_bwd"):
+        fa.flash_attention(q, k, v, flash_bwd="recompute")
+
+
+GN_CASES = [((2, 8, 8, 960), 32), ((2, 8, 8, 2560), 32), ((3, 64, 320), 32), ((1, 5, 7, 48), 4),
+            ((2, 1, 1, 64), 8), ((8, 4096, 40), 8)]
+
+
+@pytest.mark.parametrize("silu", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,groups", GN_CASES)
+def test_group_norm_kernel_matches_plain(cuda, dtype, shape, groups, silu):
+    """K7 against its plain version: C = 960 and 2560 at 64 rows, ragged row
+    counts, a single row, fp32 and bf16, with and without SiLU. The input
+    carries a trend along the rows, so a kernel that drops rows from the
+    statistics is seen."""
+    C = shape[-1]
+    rows = torch.linspace(0.0, 3.0, int(torch.tensor(shape[1:-1]).prod()), device="cuda")
+    x = (torch.randn(shape, generator=cuda, device="cuda") + rows.reshape(1, *shape[1:-1], 1)).to(dtype)
+    w = 1.0 + 0.1 * torch.randn(C, generator=cuda, device="cuda")
+    b = 0.1 * torch.randn(C, generator=cuda, device="cuda")
+    before = gn.launches
+    got = gn.fused_group_norm_silu(x, w, b, groups, 1e-5, silu)
+    assert gn.launches == before + 1 and got.dtype == dtype and got.shape == x.shape
+    exact = gn.group_norm_silu_plain(x.double(), w.double(), b.double(), groups, 1e-5, silu)
+    assert_matches(got, gn.group_norm_silu_plain(x, w, b, groups, 1e-5, silu), exact)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_norm_module_gradients_match_plain(cuda, dtype):
+    """FusedGroupNorm on the card: K7 forward, the plain version's autograd
+    recomputed in the backward; its gradients in x, weight and bias equal the
+    plain route's (the same computation)."""
+    module = FusedGroupNorm(960, 32, 1e-5, use_silu=True).cuda()
+    with torch.no_grad():
+        module.weight.add_(0.1 * torch.randn(960, generator=cuda, device="cuda"))
+    x = torch.randn(2, 8, 8, 960, generator=cuda, device="cuda").to(dtype).requires_grad_()
+    dy = torch.randn(x.shape, generator=cuda, device="cuda").to(dtype)
+    before = gn.launches
+    module(x).backward(dy)
+    assert gn.launches == before + 1
+    xp, wp, bp = (t.detach().clone().requires_grad_() for t in (x, module.weight, module.bias))
+    gn.group_norm_silu_plain(xp, wp, bp, 32, 1e-5, True).backward(dy)
+    for got, want in ((x.grad, xp.grad), (module.weight.grad, wp.grad), (module.bias.grad, bp.grad)):
+        torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+    with pytest.raises(ValueError, match="groups"):
+        gn.fused_group_norm_silu(x.detach()[..., :900], module.weight[:900].detach(),
+                                 module.bias[:900].detach(), 32, 1e-5)
+    with pytest.raises(RuntimeError, match="grad_fn"):
+        gn._forward(x, module.weight, module.bias, 32, 1e-5, True)

@@ -147,3 +147,33 @@ def test_train_debias_cli_on_cpu(tmp_path, capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_debias.main(dataclasses.replace(cfg, device=""))
+
+
+def test_train_debias_cli_with_guidance_dir_on_cpu(tmp_path, capsys):
+    """--guidance_dir loads the real-architecture stack (a seeded directory
+    whose detector finds a face in every lane) and --flash_bwd merged
+    selects K6's route; two tiny steps train the adapters."""
+    from chip_smoke import seed_guidance_dir
+
+    gdir = seed_guidance_dir(tmp_path / "guidance")
+    cfg = train_debias.parse_args([
+        "--device", "cpu", "--tiny_smoke", "1", "--max_train_steps", "2", "--guidance_dir", str(gdir),
+        "--flash_bwd", "merged", "--output_dir", str(tmp_path / "out"),
+    ])
+    trainer = train_debias.build_trainer(cfg)
+    assert trainer.guidance.face_embed_fn is not None and trainer.sd.unet.flash_bwd == "merged"
+    state = train_debias.main(cfg)
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines() if x.startswith("{")]
+    assert [x["step"] for x in lines] == [1, 2] and state.step == 2
+    for x in lines:
+        assert x["face_rate"] == 1.0 and x["grads_finite"] and x["grad_norm"] > 0
+    ups = []
+
+    def collect(node):  # every LoRA `up` leaf: it starts at 0
+        for k, v in node.items():
+            collect(v) if isinstance(v, dict) else ups.append(v) if k == "up" else None
+
+    collect(load_adapters(tmp_path / "out" / "exported" / "te_lora.npz"))
+    assert ups and all(np.abs(a).max() > 0 for a in ups)
+    with pytest.raises(ValueError, match="flash_bwd"):
+        train_debias.build_trainer(dataclasses.replace(cfg, flash_bwd="both"))
