@@ -21,8 +21,9 @@ Phases (any failure raises and exits non-zero):
   7. kernels-bwd: the training kernels K1 with lse, K2 (dq), K3 (dk/dv) and
      K5 (GEGLU dx), bf16 and fp32, each against its plain version at the
      phase-4 shapes (a pair VJP's CFG batch of 2p = 8 rows) and a ragged
-     shape, with phase 3's limits and dropped-tile controls, and with
-     kernel, plain and library times and the bound;
+     shape, with phase 3's limits and dropped-tile controls, K3 and K6 each
+     run twice (dk, dv bit-equal), and with kernel, plain and library times,
+     the bound and the kernel's factor over both;
   8. unet-vjp: one full-width SD-1.5 pair VJP (8 rows, bf16, remat), every
      K2, K3 and K5 launch held against its plain version on its operands,
      the context gradient against the plain routes and an fp32 run, launch
@@ -553,7 +554,8 @@ def _flash_bwd_checks(q, k, v, do, fwd=None, grads=None):
     return out, (o, lse, delta), grads
 
 
-# keys a block of the merged backward (K6) owns: its unit of key work
+# keys a block of the key-block backward (K3 and K6, one wgmma kernel) owns:
+# K6's unit of key work, whose dq tile one bulk reduce-add adds
 MERGED_BLOCK_KEYS = 128
 
 
@@ -562,8 +564,8 @@ def _merged_checks(q, k, v, o, lse, do, got, split=None):
     (`flash_attention_bwd_plain`, the same rounding points) and, where given,
     against K2/K3's outputs `split` on the same inputs, with the limits of
     phase 3. Controls drop the last 128-key tile (dq: the block of keys whose
-    contribution the atomics add) or the last 64-row q tile (dk, dv: the
-    block's loop unit) from the plain version."""
+    contribution one bulk reduce-add adds) or the last 64-row q tile (dk, dv:
+    the block's loop unit) from the plain version."""
     from fairdiff_torch.ops import flash_attention as fa
 
     S, T = q.shape[1], k.shape[1]
@@ -594,7 +596,7 @@ def _merged_rerun(got, again, t: int) -> dict:
     """K6's second run `again` on the same inputs (T = `t` keys) against its
     first run `got`. A block
     keeps its key tile's dk and dv in registers and sums them over the q
-    tiles in a fixed order, so they must be bit-equal. dq's fp32 atomics add
+    tiles in a fixed order, so they must be bit-equal. dq's fp32 reduce-adds add
     the key blocks' contributions in any order: two runs may differ by the
     fp32 reordering of that sum (allowed: blocks x fp32 eps x max|dq|, with
     64-key blocks counted, the fp32 body's unit) plus one ulp of dq's type
@@ -609,6 +611,16 @@ def _merged_rerun(got, again, t: int) -> dict:
              dq_worst=(diff / allow).max().item())
     r["failed"] = [f for f, bad in (("dk not bit-equal", not r["dk_equal"]), ("dv not bit-equal", not r["dv_equal"]),
                                     (f"dq diff {r['dq_worst']:.3f}x its allowance", not r["dq_worst"] <= 1.0)) if bad]
+    return r
+
+
+def _dkv_rerun(got, again) -> dict:
+    """K3's second run on the same inputs: each block writes its keys' dk and
+    dv once, summed over the q tiles in a fixed order, so both are
+    bit-equal."""
+    r = dict(dk_equal=bool(torch.equal(got[0], again[0])), dv_equal=bool(torch.equal(got[1], again[1])))
+    r["failed"] = [f for f, bad in (("dk not bit-equal", not r["dk_equal"]),
+                                    ("dv not bit-equal", not r["dv_equal"])) if bad]
     return r
 
 
@@ -644,6 +656,7 @@ def phase_kernels_bwd() -> dict[str, dict]:
     checks: dict[str, dict] = {}
     f32_rel: dict[str, float] = {}
     reruns: dict[str, dict] = {}  # K6 run twice on the same inputs
+    dkv_reruns: dict[str, dict] = {}  # K3 run twice
     B = PAIR_ROWS
     for label, qs, kvs in (
         ("self4096", (B, 4096, 8, 40), (B, 4096, 8, 40)),
@@ -653,6 +666,7 @@ def phase_kernels_bwd() -> dict[str, dict]:
         q, do = (torch.randn(qs, generator=g, device="cuda", dtype=bf) for _ in range(2))
         k, v = (torch.randn(kvs, generator=g, device="cuda", dtype=bf) for _ in range(2))
         got, (o, lse, delta), split = _flash_bwd_checks(q, k, v, do)
+        dkv_reruns[label] = _dkv_rerun(split[1:], fa.flash_attention_dkv(q, k, v, do, lse, delta))
         merged = fa.flash_attention_bwd_merged(q, k, v, o, lse, do)
         got.update(_merged_checks(q, k, v, o, lse, do, merged, split))
         reruns[f"bf16/{label}"] = _merged_rerun(merged, fa.flash_attention_bwd_merged(q, k, v, o, lse, do), kvs[1])
@@ -710,15 +724,16 @@ def phase_kernels_bwd() -> dict[str, dict]:
                 4 * flops, qkv_bytes + 2.0 * b * s * h * d + 2.0 * 2 * b * t * h * d + 8.0 * b * h * s, exps))),
         )
         # K6's function reads q, k, v, dO, lse and delta once and writes dq,
-        # dk and dv once. Its fp32 dq atomics (one contribution a 128-key
-        # block) are this design's cost, not bytes the function needs: they
-        # stay out of the bound and are logged beside it
+        # dk and dv once. Its fp32 dq reduce-adds (one [64-row, D] tile a
+        # 128-key block and q tile, into a buffer padded to 64 rows) are this
+        # design's cost, not bytes the function needs: they stay out of the
+        # bound and are logged beside it
         rows[f"flash_attention_bwd_merged/{label}"] = dict(
             shape=f"q{list(qs)} kv{list(kvs)} bf16",
             ms=time_ms(lambda: fa.flash_attention_bwd_merged(q, k, v, o, lse, do)),
             plain_ms=time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do), iters=3),
             library_ms=sdpa_bwd,
-            atomic_gb=4.0 * -(-t // MERGED_BLOCK_KEYS) * b * s * h * d / 1e9,
+            reduce_gb=4.0 * -(-t // MERGED_BLOCK_KEYS) * b * h * -(-s // fa.DQ_ROWS) * fa.DQ_ROWS * d / 1e9,
             **dict(zip(("bound_ms", "bound_by"), bound(
                 5 * flops, qkv_bytes + 2.0 * b * s * h * d + 8.0 * b * h * s
                 + 2.0 * (b * s * h * d + 2 * b * t * h * d), exps))),
@@ -761,14 +776,19 @@ def phase_kernels_bwd() -> dict[str, dict]:
             f"| fp32 body rel L2 {f32_rel[key]:.3e}")
     for key, r in rows.items():
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        atomics = f" | dq atomics {r['atomic_gb']:.3f} GB (not in the bound)" if "atomic_gb" in r else ""
+        reduce = f" | dq reduce-adds {r['reduce_gb']:.3f} GB (not in the bound)" if "reduce_gb" in r else ""
+        factors = f" | {r['ms'] / r['bound_ms']:.1f}x bound" + (
+            "" if r["library_ms"] is None else f", {r['ms'] / r['library_ms']:.2f}x library")
         log(f"[kernels-bwd] {key:28s} {r['shape']:44s} kernel_ms {r['ms']:.4f} plain_ms "
-            f"{r['plain_ms']:.4f} library_ms {lib} bound_ms {r['bound_ms']:.4f} ({r['bound_by']}){atomics}")
+            f"{r['plain_ms']:.4f} library_ms {lib} bound_ms {r['bound_ms']:.4f} ({r['bound_by']}){factors}{reduce}")
+    for key, r in dkv_reruns.items():
+        log(f"[kernels-bwd] K3 run twice, bf16/{key}: dk, dv bit-equal {r['dk_equal']}, {r['dv_equal']}")
     for key, r in reruns.items():
         log(f"[kernels-bwd] K6 run twice, {key}: {_rerun_line(r)}")
     failed = {key: c["failed"] for key, c in checks.items() if c["failed"]}
     failed.update({key: f"fp32 body rel L2 {v:.3e}" for key, v in f32_rel.items() if not v <= F32_REL_L2_TOL})
     failed.update({f"K6 rerun {key}": r["failed"] for key, r in reruns.items() if r["failed"]})
+    failed.update({f"K3 rerun {key}": r["failed"] for key, r in dkv_reruns.items() if r["failed"]})
     if failed:
         raise AssertionError(f"backward kernel checks failed: {failed}")
     # the summary's max_abs_err: the kernel's worst element against its plain version
@@ -922,7 +942,7 @@ PAIR_VJP_LAUNCHES = {"flash_attention": 2, "flash_attention_lse": 18, "flash_att
 # the same with flash_bwd="merged": K6 takes K2's and K3's 9 launches
 PAIR_VJP_LAUNCHES_MERGED = dict(PAIR_VJP_LAUNCHES, flash_attention_dq=0, flash_attention_dkv=0,
                                 flash_attention_bwd_merged=9)
-# two runs of the merged pair VJP differ where K6's atomics summed dq in
+# two runs of the merged pair VJP differ where K6's reduce-adds summed dq in
 # another order and a bf16 rounding of dq flipped; every bf16 rounding after
 # that point then differs too, so two runs differ by the bf16 noise of the
 # whole backward, as the kernels and the plain routes do (rel L2 1.4e-2 on an
@@ -1035,7 +1055,7 @@ def phase_unet_vjp(power: str, flash_bwd: str = "split") -> dict:
     e_kp, e_k, e_p = rel_l2(kern, plain), rel_l2(kern, exact), rel_l2(plain, exact)
     e_d = rel_l2(dropped, exact)
     # the split kernels sum in a fixed order: two runs agree bit for bit; K6's
-    # atomics do not, so the merged route is held to a tolerance instead
+    # reduce-adds do not, so the merged route is held to a tolerance instead
     e_rerun = rel_l2(kern2, kern)
     rerun_ok = (e_rerun <= MERGED_RERUN_REL_L2_TOL and rel_l2(kern2, exact) <= UNET_BF16_ACCURACY_RATIO * e_p
                 if merged else bool(torch.equal(kern, kern2)))
@@ -1044,7 +1064,7 @@ def phase_unet_vjp(power: str, flash_bwd: str = "split") -> dict:
         f"<= {UNET_BF16_ACCURACY_RATIO} x plain); dropped-tile control vs fp32 {e_d:.3e} (ratio "
         f"{e_d / e_p:.3f}, must exceed {UNET_BF16_ACCURACY_RATIO}); two runs of the kernels: rel L2 "
         f"{e_rerun:.3e}, bit-equal {bool(torch.equal(kern, kern2))}"
-        + (f" (tol {MERGED_RERUN_REL_L2_TOL:.0e}: K6's atomic dq order)" if merged else ""))
+        + (f" (tol {MERGED_RERUN_REL_L2_TOL:.0e}: K6's dq summation order)" if merged else ""))
     log(f"{tag} {seconds:.3f} s for one VJP after a warm-up, peak memory {peak_gib:.2f} GiB "
         f"above the weights; launches {ran} (want {want}) on {power}")
     failed = [f"{name} launch {i} {pt}: {r[pt]['failed'] if pt else r['failed']}"

@@ -26,13 +26,6 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_b
                : "r"(smem_addr(p)));
 }
 
-// two 8x8 b16 matrices, transposed; lanes 0-15 give the row addresses
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const __nv_bfloat16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
-
 // c[16x8] += a[16x16] . b[16x8], bf16 in, fp32 accumulate
 __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
                                           uint32_t b0, uint32_t b1) {

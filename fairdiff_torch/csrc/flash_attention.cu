@@ -6,7 +6,8 @@
 // `_flash_kernel` and `_flash_kernel_pipe`, identical maths; `with_lse` for
 // the backward), `_dq_pallas` (`_bwd_dq_kernel`), `_dkv_pallas`
 // (`_bwd_dkv_kernel`) and `_flash_backward_merged` (`_bwd_merged_kernel`).
-// The backward kernels are described above them below.
+// The backward kernels are described above them below; K3 and K6 are one
+// Hopper kernel (wgmma products, tiles fed by TMA).
 //
 // Computes o = softmax(scale * q k^T) v for q [B,S,H,D], k/v [B,T,H,D], all
 // contiguous, read in place with a row stride of H*D (no relayout copy and no
@@ -31,13 +32,17 @@
 // The fp32 kernel is the simple version (every tile through shared memory,
 // CUDA-core fmaf); it serves the full-precision parity check, not the hot
 // path.
+#include <cuda.h>  // CUtensorMap (the encoder is found at run time)
+
+#include <cstring>
+
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 using fd::ldmatrix_x4;
-using fd::ldmatrix_x2_trans;
 using fd::ldmatrix_x4_trans;
 using fd::mma_16816;
 using fd::pack_bf16;
@@ -51,15 +56,14 @@ constexpr int MAX_D = 128;
 // bf16: register-resident tiles on mma.sync
 // ---------------------------------------------------------------------------
 
-// rows [row0, row0 + ROWS) of a [*, D] bf16 slab (row stride `stride`) into a
-// [ROWS x LD] shared tile whose first DP columns are written, by NTH threads;
-// rows >= n_rows and columns >= D are zero. `vec`: D % 8 == 0 and 16-byte
-// aligned rows.
-template <int DP, int LD, int ROWS = BM, int NTH = NTHREADS>
+// rows [row0, row0 + BM) of a [*, D] bf16 slab (row stride `stride`) into a
+// [BM x LD] shared tile whose first DP columns are written; rows >= n_rows
+// and columns >= D are zero. `vec`: D % 8 == 0 and 16-byte aligned rows.
+template <int DP, int LD>
 __device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* src, long stride,
                                                int row0, int n_rows, int D, bool vec) {
   constexpr int CHUNKS = DP / 8;  // 16-byte chunks a row
-  for (int idx = threadIdx.x; idx < ROWS * CHUNKS; idx += NTH) {
+  for (int idx = threadIdx.x; idx < BM * CHUNKS; idx += NTHREADS) {
     const int r = idx / CHUNKS, c = (idx % CHUNKS) * 8;
     uint4 val = make_uint4(0, 0, 0, 0);
     if (row0 + r < n_rows) {
@@ -216,7 +220,7 @@ __global__ void __launch_bounds__(NTHREADS)
 }
 
 // ---------------------------------------------------------------------------
-// bf16 backward (K2, K3)
+// bf16 backward: K2 (dq) here, K3 and K6 in the key-block section below
 // ---------------------------------------------------------------------------
 //
 // Computes, for o = softmax(scale q k^T) v with lse = m + log l from the
@@ -225,24 +229,22 @@ __global__ void __launch_bounds__(NTHREADS)
 //   p  = exp(scale q k^T - lse)            fp32, recomputed per tile
 //   dp = dO v^T                            fp32 accumulate
 //   ds = p * (dp - delta)                  rounded to bf16
-//   dq = scale * ds k        (K2)          fp32 accumulate, rounded once
-//   dv = bf16(p)^T dO,  dk = scale * ds^T q   (K3)
+//   dq = scale * ds k        (K2, K6)      fp32 accumulate, rounded once
+//   dv = bf16(p)^T dO,  dk = scale * ds^T q   (K3, K6)
 // the rounding points of the TPU kernels. The split design of the JAX
 // package is kept: K2 owns a 64-row q tile and loops over key tiles, K3
-// owns a 64-key tile and loops over q tiles, so every output is written
-// once by one block, with no atomics and a fixed summation order.
+// owns a key tile and loops over q tiles, so every output is written once
+// by one block, with no atomics and a fixed summation order.
 //
-// What bounds them on this card: K2 does three products per tile pair (S,
-// dP, dS.K) and K3 four (S^T, dP^T, P^T.dO, dS^T.Q), 2*S*T*D flops each,
-// against reads of q, k, v, dO once and writes of dq or dk/dv once, so the
-// tensor cores bound them at D = 80; at D = 40 the exp unit (S*T exp, at
-// ~3.9 T/s) is the larger bound. Both keep their operand fragments and
-// accumulators in registers (mma.sync m16n8k16 with ldmatrix, as K1):
-// the accumulator layout of one product is the A-operand layout of the
-// next, so p and ds go from registers to the next mma with one bf16 pack.
-// D is zero-padded to a multiple of 16 in shared memory only; keys past T
-// and q rows past S get p = 0, and neither is stored. Not yet done:
-// cp.async/TMA double buffering and wgmma.
+// K2: three products per tile pair (S, dP, dS.K), 2*S*T*D flops each,
+// against reads of q, k, v, dO once and a write of dq once, so the tensor
+// cores bound it at D = 80; at D = 40 the exp unit (S*T exp, at ~3.9 T/s)
+// is the larger bound. It keeps its operand fragments and accumulators in
+// registers (mma.sync m16n8k16 with ldmatrix, as K1): the accumulator
+// layout of one product is the A-operand layout of the next, so ds goes
+// from registers to the next mma with one bf16 pack. D is zero-padded to a
+// multiple of 16 in shared memory only; keys past T get p = 0. Not yet
+// done: cp.async/TMA double buffering and wgmma.
 
 template <int DP>
 __global__ void __launch_bounds__(NTHREADS)
@@ -362,334 +364,539 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
-template <int DP>
-__global__ void __launch_bounds__(NTHREADS)
-    flash_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                          const float* __restrict__ lse, const float* __restrict__ delta,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int T_, int H,
-                          int D, float scale, bool vec) {
-  constexpr int LD = DP + 8;
-  constexpr int KS = DP / 16;
-  constexpr int NO = DP / 8;
-  constexpr int NS = BM / 8;  // 8-wide q column tiles of the transposed scores
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);  // [BN x LD]
-  bf16* sV = sK + BN * LD;                   // [BN x LD]
-  bf16* sQ = sV + BN * LD;                   // [BM x LD]
-  bf16* sDO = sQ + BM * LD;                  // [BM x LD]
-  float* sLse = reinterpret_cast<float*>(sDO + BM * LD);  // [BM]
-  float* sDlt = sLse + BM;                                // [BM]
+// ---------------------------------------------------------------------------
+// bf16 key-block backward on wgmma and TMA: K3 (dk, dv) and K6 (dq, dk, dv)
+// ---------------------------------------------------------------------------
+//
+// Replaces `_dkv_pallas` (Pallas body `_bwd_dkv_kernel`) as K3 and
+// `_flash_backward_merged` (`_bwd_merged_kernel`) as K6: one template,
+// `WITH_DQ` false or true. K6 is K3 plus the dq product.
+//
+// What bounds it on this card: K3 does four products per (key, q) tile pair
+// (S^T, dP^T, P^T.dO, dS^T.Q) and K6 five (plus dS.K), 2*S*T*D flops each,
+// against reads of q, k, v, dO once and writes of dk, dv (and dq) once, so
+// the tensor cores bound it at D = 80; at D = 40 the exp unit (S*T exp) is
+// within 1.3-1.6x of that bound, so the exponentials are one MUFU op each
+// (exp2 with log2(e) folded into the scale and into lse).
+//
+// Design (a warp-specialised block: two key warpgroups, K6's dq warpgroup,
+// a producer warpgroup):
+// - One block owns BK = 128 keys. Their K and V tiles come into shared
+//   memory once, by TMA, and stay there. Each of the two key warpgroups
+//   owns 64 keys, wgmma's M.
+// - One producer warp streams the 64-row q and dO tiles (TMA) and the lse
+//   and delta rows (1-D bulk copies) through a ring of STAGES slots, each
+//   marked full and empty by an mbarrier, so no consumer waits on a load it
+//   could have overlapped.
+// - Every product is a wgmma: S^T = K Q^T and dP^T = V dO^T with both
+//   operands in shared memory; dV += bf16(P^T) dO and dK += bf16(dS^T) Q
+//   with A from registers (the accumulator of the first pair becomes the A
+//   fragment of the second with one bf16 pack, as on mma.sync). The two
+//   warpgroups drift apart where nothing joins them, so one's exponentials
+//   run beside the other's products.
+// - K6: the key warpgroups write dS^T (bf16, the plain version's rounding)
+//   into one of two shared buffers, each marked full and empty by an
+//   mbarrier, and go on; a warpgroup of its own computes dQ_tile = dS K
+//   over all BK keys (one wgmma chain, both operands read MN-major), stages
+//   the fp32 tile in shared memory and adds it into dq's fp32 buffer
+//   [B, H, S_pad, D] with one bulk reduce-add (cp.reduce.async.bulk, in
+//   L2). No barrier joins the
+//   two key warpgroups, as in K3. The reduce-adds' order across key blocks,
+//   and so dq's last bits, change from run to run; dk and dv are written
+//   once, by one block, in a fixed order, and are bit-equal.
+// - Layout (the D = 40 crux): a bf16 row of D = 40 is 80 bytes, which fits
+//   no swizzle span. Tiles are kept as column blocks of 16 head-dim values
+//   (32 bytes a row, 32-byte swizzle), each loaded by TMA from a 4-D map
+//   over (D, H, rows, B) with a 16-wide box at d = 0, 16, 32, ...; the last
+//   box's columns past D are out of bounds, and TMA fills them with zeros,
+//   the zero pad the products need. Rows past S or T are zero too. dk and
+//   dv leave by TMA stores through the same maps, which clip rows and
+//   columns. A layout TMA cannot address (a row stride that is not a
+//   multiple of 16 bytes, as D = 20 at H = 3, or an unaligned base) takes
+//   the same kernel with the producer issuing zero-filling cp.async (plain
+//   loads for an odd D) and plain stores of dk and dv.
+// - Keys at or past T and q rows at or past S get p = 0 and ds = 0.
+// - Sizes, from runs on an H100: BK = 128 (two warpgroups at wgmma's M of
+//   64; a third does not fit the registers at D = 40), BQ = 64 (the score
+//   products' N; 128 would need 64 more accumulator registers a thread), a
+//   ring of 3 slots (2 and 4 were no faster; 2 above DP = 96, for shared
+//   memory). K6's dq in a warpgroup of its own beat the key warpgroups
+//   computing it between two block-wide barriers, each taking half its
+//   columns; each key warpgroup adding its own keys' dq (twice the
+//   reduce-add bytes) was slower. Registers (setmaxnreg): key warpgroups
+//   232 in K3 and 192 in K6 (the dq warpgroup 96, the producer 40 or 32).
+namespace kv {
 
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int k0 = blockIdx.x * BN;
-  const long stride = (long)H * D;
-  const long qoff = (long)b * S * stride + (long)h * D;
-  const long koff = (long)b * T_ * stride + (long)h * D;
-  const float* lseb = lse + (long)blockIdx.y * S;
-  const float* dltb = delta + (long)blockIdx.y * S;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int quad_row = lane / 4, quad_col = (lane % 4) * 2;
+constexpr int BK = 128;      // keys a block
+constexpr int BQ = 64;       // q rows a tile of the ring
+constexpr int NWG = 2;       // key warpgroups, 64 keys each
+constexpr int NCONS = NWG * 128;
+// + K6's dq warpgroup, + the producer warpgroup (one warp works)
+template <bool WITH_DQ>
+constexpr int NTHR = NCONS + (WITH_DQ ? 256 : 128);
+constexpr float LOG2E = 1.4426950408889634f;
+// mode bits of a launch
+constexpr int TMA = 1;        // tiles by TMA, dk/dv by TMA stores
+constexpr int LSE_BULK = 2;   // lse and delta rows by 1-D bulk copies
+constexpr int PAIRS = 4;      // fallback: 4-byte cp.async (even D, aligned)
 
-  load_tile_bf16<DP, LD>(sK, k + koff, stride, k0, T_, D, vec);
-  load_tile_bf16<DP, LD>(sV, v + koff, stride, k0, T_, D, vec);
-  __syncthreads();
-  uint32_t kf[KS][4], vf[KS][4];  // this warp's 16 keys as A fragments
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+// one box of a 4-D tensor map (d, h, row, b) into shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap& map, int d, int h, int row,
+                                         int b, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(&map)), "r"(d), "r"(h), "r"(row), "r"(b), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store(const CUtensorMap& map, int d, int h, int row, int b,
+                                          uint32_t src) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%1, %2, %3, %4}], [%5];\n"
+      ::"l"(reinterpret_cast<uint64_t>(&map)), "r"(d), "r"(h), "r"(row), "r"(b), "r"(src)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+__device__ __forceinline__ void bulk_reduce_add(float* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n"
+               ::"l"(dst), "r"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
+// generic-proxy shared-memory writes made visible to the async proxy (wgmma, TMA)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_wait() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+// pins registers that an in-flight wgmma reads or writes in place: the
+// compiler may neither move their other uses across this point nor reuse them
+template <int R>
+__device__ __forceinline__ void keep(float (&r)[R]) {
   #pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    const int off = (warp * 16 + lane % 16) * LD + ks * 16 + (lane / 16) * 8;
-    ldmatrix_x4(kf[ks], sK + off);
-    ldmatrix_x4(vf[ks], sV + off);
-  }
-
-  float dkacc[NO][4], dvacc[NO][4];
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void keep(uint32_t (&r)[R][4]) {
   #pragma unroll
-  for (int n = 0; n < NO; ++n) {
-    #pragma unroll
-    for (int e = 0; e < 4; ++e) dkacc[n][e] = dvacc[n][e] = 0.0f;
-  }
+  for (int i = 0; i < R; ++i)
+    asm volatile("" : "+r"(r[i][0]), "+r"(r[i][1]), "+r"(r[i][2]), "+r"(r[i][3])::"memory");
+}
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+// wgmma shared-memory descriptor for the 32-byte swizzle (layout type 3);
+// lbo and sbo in bytes
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (3ull << 62);
+}
+// byte offset of element (r, c) in a tile of `rows` rows kept as column
+// blocks of 16 bf16 (32-byte rows) with TMA's 32-byte swizzle: address bit
+// 4 (which 16-byte half) flips with bit 7 (r / 4 odd)
+__device__ __forceinline__ uint32_t swz(int r, int c, int rows) {
+  return (c / 16) * rows * 32 + r * 32 + ((((c % 16) / 8) ^ ((r >> 2) & 1)) << 4) + (c % 8) * 2;
+}
 
-  for (int q0 = 0; q0 < S; q0 += BM) {
-    __syncthreads();  // every warp is done with the previous q tile
-    load_tile_bf16<DP, LD>(sQ, q + qoff, stride, q0, S, D, vec);
-    load_tile_bf16<DP, LD>(sDO, dout + qoff, stride, q0, S, D, vec);
-    for (int r = threadIdx.x; r < BM; r += NTHREADS) {
-      sLse[r] = q0 + r < S ? lseb[q0 + r] : 0.0f;
-      sDlt[r] = q0 + r < S ? dltb[q0 + r] : 0.0f;
-    }
-    __syncthreads();
-
-    // transposed scores s^t = k q^T and dp^t = v dO^T: rows are this warp's
-    // keys, columns the tile's q rows
-    float sacc[NS][4], dpacc[NS][4];
-    #pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      #pragma unroll
-      for (int e = 0; e < 4; ++e) sacc[j][e] = dpacc[j][e] = 0.0f;
-    }
-    #pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      #pragma unroll
-      for (int j2 = 0; j2 < NS / 2; ++j2) {
-        const int off = (j2 * 16 + lane % 8 + (lane / 16) * 8) * LD + ks * 16 + ((lane / 8) % 2) * 8;
-        uint32_t qb[4], ob[4];
-        ldmatrix_x4(qb, sQ + off);
-        ldmatrix_x4(ob, sDO + off);
-        mma_16816(sacc[2 * j2], kf[ks], qb[0], qb[1]);
-        mma_16816(sacc[2 * j2 + 1], kf[ks], qb[2], qb[3]);
-        mma_16816(dpacc[2 * j2], vf[ks], ob[0], ob[1]);
-        mma_16816(dpacc[2 * j2 + 1], vf[ks], ob[2], ob[3]);
-      }
-    }
-    #pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = j * 8 + quad_col + (e & 1);  // q row within the tile
-        const float p = q0 + c < S ? expf(sacc[j][e] * scale - sLse[c]) : 0.0f;
-        sacc[j][e] = p;
-        dpacc[j][e] = p * (dpacc[j][e] - sDlt[c]);
-      }
-    }
-    // dv += bf16(p)^T dO, dk += bf16(ds)^T q, both A operands from registers
-    #pragma unroll
-    for (int kk = 0; kk < BM / 16; ++kk) {
-      const uint32_t pa[4] = {
-          pack_bf16(sacc[2 * kk][0], sacc[2 * kk][1]),
-          pack_bf16(sacc[2 * kk][2], sacc[2 * kk][3]),
-          pack_bf16(sacc[2 * kk + 1][0], sacc[2 * kk + 1][1]),
-          pack_bf16(sacc[2 * kk + 1][2], sacc[2 * kk + 1][3]),
-      };
-      const uint32_t da[4] = {
-          pack_bf16(dpacc[2 * kk][0], dpacc[2 * kk][1]),
-          pack_bf16(dpacc[2 * kk][2], dpacc[2 * kk][3]),
-          pack_bf16(dpacc[2 * kk + 1][0], dpacc[2 * kk + 1][1]),
-          pack_bf16(dpacc[2 * kk + 1][2], dpacc[2 * kk + 1][3]),
-      };
-      #pragma unroll
-      for (int np = 0; np < NO / 2; ++np) {
-        const int off = (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * LD + np * 16 + (lane / 16) * 8;
-        uint32_t ob[4], qb[4];
-        ldmatrix_x4_trans(ob, sDO + off);
-        ldmatrix_x4_trans(qb, sQ + off);
-        mma_16816(dvacc[2 * np], pa, ob[0], ob[1]);
-        mma_16816(dvacc[2 * np + 1], pa, ob[2], ob[3]);
-        mma_16816(dkacc[2 * np], da, qb[0], qb[1]);
-        mma_16816(dkacc[2 * np + 1], da, qb[2], qb[3]);
-      }
-    }
-  }
-
-  #pragma unroll
-  for (int n = 0; n < NO; ++n) {
-    #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = k0 + warp * 16 + quad_row + (e / 2) * 8;
-      const int col = n * 8 + quad_col + (e & 1);
-      if (row < T_ && col < D) {
-        const long off = koff + (long)row * stride + col;
-        dk[off] = __float2bfloat16(dkacc[n][e] * scale);
-        dv[off] = __float2bfloat16(dvacc[n][e]);
-      }
+// the fallback producer: rows [row0, row0 + ROWS) of a [*, D] slab (row
+// stride `stride`) into the swizzled tile at `dst` by the 32 lanes of one
+// warp; zero outside the slab and past D
+template <int DP, int ROWS>
+__device__ __forceinline__ void copy_tile(uint32_t dst, const bf16* src, long stride, int row0,
+                                          int n_rows, int D, bool pairs, int lane) {
+  constexpr int NP = DP / 2;  // bf16 pairs a row
+  for (int idx = lane; idx < ROWS * NP; idx += 32) {
+    const int r = idx / NP, c = (idx % NP) * 2;
+    const bool row_ok = row0 + r < n_rows;
+    const bf16* g = src + (long)(row0 + r) * stride + c;
+    const uint32_t a = dst + swz(r, c, ROWS);
+    if (pairs) {
+      cp_async4(a, row_ok && c < D ? g : src, row_ok && c < D);
+    } else {
+      const auto* u = reinterpret_cast<const unsigned short*>(g);
+      const uint32_t lo = row_ok && c < D ? u[0] : 0u, hi = row_ok && c + 1 < D ? u[1] : 0u;
+      st_shared(a, lo | (hi << 16));
     }
   }
 }
 
-// ---------------------------------------------------------------------------
-// bf16 merged backward (K6)
-// ---------------------------------------------------------------------------
-//
-// Replaces `_flash_backward_merged` (Pallas body `_bwd_merged_kernel`): dq,
-// dk and dv in one pass. One block owns a 128-key tile (eight warps of 16
-// keys, K3's transposed arrangement) and loops over every 64-row q tile:
-// s^T, dp^T, p and ds are computed once, dv += p^T dO and dk += ds^T q stay
-// in registers as in K3, and this key tile's dq contribution scale * ds k is
-// added into an fp32 [B, S, H, D] buffer that the wrapper zeroes and casts
-// once. Five [S,T]-sized products instead of K2+K3's seven.
-//
-// On the TPU, dq sums across the key blocks of a sequential grid axis in
-// one VMEM-resident block. Here the key blocks run in parallel, so the sum
-// is made with atomicAdd (fp32 red in L2); its order, and so dq's last bits,
-// change from run to run. The atomics move (T / 128) * S * D * 4 bytes a
-// head, which is why a block takes 128 keys and not K3's 64: at
-// [8,4096,8,40] that is 1.3 GB a call, the same order as the tensor-core
-// bound. ds^T goes through shared memory ([128 keys x 64 q], bf16) so that
-// the dq product can take ds with the q rows as its M dimension: each warp
-// owns 16 q rows and half of the 8-wide head-dim tiles.
-constexpr int BN6 = 128;  // keys per block of the merged kernel
-constexpr int NT6 = 256;  // eight warps, 16 keys each
+// shared memory of one block, in bytes from a 1024-aligned base
+template <int DP, bool WITH_DQ>
+struct Smem {
+  static constexpr int NB = DP / 16;                          // column blocks
+  static constexpr int STAGES = DP <= 96 ? 3 : 2;
+  static constexpr int KV = DP * BK * 2;                      // K (or V) tile
+  static constexpr int TILE = DP * BQ * 2;                    // q (or dO) tile
+  static constexpr int STAGE = 2 * TILE + 1024;               // q, dO, lse, delta
+  static constexpr int K = 0, V = KV, RING = 2 * KV;
+  static constexpr int DS = RING + STAGES * STAGE;            // K6: 2 x dS^T [BK x BQ]
+  static constexpr int DQ = DS + (WITH_DQ ? 2 * BK * BQ * 2 : 0);  // K6: fp32 [BQ x D]
+  static constexpr int BAR = DQ + (WITH_DQ ? BQ * DP * 4 : 0);
+  static constexpr int BYTES = BAR + 8 * (5 + 2 * STAGES) + 1024;  // + alignment slack
+  static_assert(BYTES <= 232448, "shared memory");
+};
 
-template <int DP>
-__global__ void __launch_bounds__(NT6)
-    flash_bwd_merged_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                                 const float* __restrict__ lse, const float* __restrict__ delta,
-                                 bf16* __restrict__ dk, bf16* __restrict__ dv,
-                                 float* __restrict__ dq32, int S, int T_, int H, int D,
-                                 float scale, bool vec) {
-  constexpr int LD = DP + 8;
-  constexpr int LDS = BM + 8;  // ds^T row stride
-  constexpr int KS = DP / 16;
-  constexpr int NO = DP / 8;
-  constexpr int NS = BM / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);  // [BN6 x LD]
-  bf16* sV = sK + BN6 * LD;                  // [BN6 x LD]
-  bf16* sQ = sV + BN6 * LD;                  // [BM x LD]
-  bf16* sDO = sQ + BM * LD;                  // [BM x LD]
-  bf16* sDS = sDO + BM * LD;                 // [BN6 x LDS] ds^T, bf16
-  float* sLse = reinterpret_cast<float*>(sDS + BN6 * LDS);  // [BM]
-  float* sDlt = sLse + BM;                                  // [BM]
+struct Maps {
+  CUtensorMap q, dout, k, v, dk, dv;
+};
 
+template <int DP, bool WITH_DQ>
+__global__ void __launch_bounds__(NTHR<WITH_DQ>, 1)
+    flash_bwd_kv_kernel(const __grid_constant__ Maps maps, const bf16* __restrict__ q,
+                        const bf16* __restrict__ k, const bf16* __restrict__ v,
+                        const bf16* __restrict__ dout, const float* __restrict__ lse,
+                        const float* __restrict__ delta, bf16* __restrict__ dk,
+                        bf16* __restrict__ dv, float* __restrict__ dq32, int S, int T_, int H,
+                        int D, float scale, int mode) {
+  using L = Smem<DP, WITH_DQ>;
+  constexpr int NB = L::NB, STAGES = L::STAGES;
+  constexpr int PRODUCER = NWG + (WITH_DQ ? 1 : 0);  // warpgroup index
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - fd::smem_addr(smem_raw) % 1024) % 1024);
+  const uint32_t base = fd::smem_addr(smem);
+  const uint32_t sK = base + L::K, sV = base + L::V;
+  const uint32_t bar_kv = base + L::BAR;
+  auto bar_full = [&](int s) { return bar_kv + 8 * (1 + s); };
+  auto bar_empty = [&](int s) { return bar_kv + 8 * (1 + STAGES + s); };
+  // K6: dS^T buffer b written by the key warpgroups / read by the dq warpgroup
+  auto bar_ds_full = [&](int b) { return bar_kv + 8 * (1 + 2 * STAGES + b); };
+  auto bar_ds_empty = [&](int b) { return bar_kv + 8 * (3 + 2 * STAGES + b); };
+  auto s_ds = [&](int b) { return base + L::DS + b * BK * BQ * 2; };
+  auto s_q = [&](int s) { return base + L::RING + s * L::STAGE; };
+  auto s_do = [&](int s) { return s_q(s) + L::TILE; };
+  auto s_lse = [&](int s) { return reinterpret_cast<float*>(smem + L::RING + s * L::STAGE + 2 * L::TILE); };
+  auto s_dlt = [&](int s) { return s_lse(s) + BQ; };
+
+  const bool tma = mode & TMA, lse_bulk = mode & LSE_BULK;
+  const bool lanes_arrive = !tma || !lse_bulk;  // the producer's lanes arrive on `full`
   const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int k0 = blockIdx.x * BN6;
+  const int k0 = blockIdx.x * BK;
   const long stride = (long)H * D;
   const long qoff = (long)b * S * stride + (long)h * D;
   const long koff = (long)b * T_ * stride + (long)h * D;
-  const float* lseb = lse + (long)blockIdx.y * S;
-  const float* dltb = delta + (long)blockIdx.y * S;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int quad_row = lane / 4, quad_col = (lane % 4) * 2;
-  // this thread's two keys (rows of the transposed scores)
-  const bool key_ok[2] = {k0 + warp * 16 + quad_row < T_, k0 + warp * 16 + quad_row + 8 < T_};
-  // the dq product: this warp's 16 q rows and its half of the head-dim tiles
-  const int mrow = (warp % 4) * 16, nhalf = warp / 4;
+  const int n_tiles = (S + BQ - 1) / BQ;
+  const int wg = threadIdx.x / 128;
 
-  load_tile_bf16<DP, LD, BN6, NT6>(sK, k + koff, stride, k0, T_, D, vec);
-  load_tile_bf16<DP, LD, BN6, NT6>(sV, v + koff, stride, k0, T_, D, vec);
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, tma ? 1 : 32);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_full(s), (tma ? 1 : 0) + (lanes_arrive ? 32 : 0));
+      mbar_init(bar_empty(s), NCONS);
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(bar_ds_full(b), NCONS);
+      mbar_init(bar_ds_empty(b), 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-  uint32_t kf[KS][4], vf[KS][4];  // this warp's 16 keys as A fragments
-  #pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    const int off = (warp * 16 + lane % 16) * LD + ks * 16 + (lane / 16) * 8;
-    ldmatrix_x4(kf[ks], sK + off);
-    ldmatrix_x4(vf[ks], sV + off);
-  }
 
-  float dkacc[NO][4], dvacc[NO][4];
-  #pragma unroll
-  for (int n = 0; n < NO; ++n) {
-    #pragma unroll
-    for (int e = 0; e < 4; ++e) dkacc[n][e] = dvacc[n][e] = 0.0f;
-  }
-
-  for (int q0 = 0; q0 < S; q0 += BM) {
-    __syncthreads();  // every warp is done with the previous q tile and ds^T
-    load_tile_bf16<DP, LD, BM, NT6>(sQ, q + qoff, stride, q0, S, D, vec);
-    load_tile_bf16<DP, LD, BM, NT6>(sDO, dout + qoff, stride, q0, S, D, vec);
-    for (int r = threadIdx.x; r < BM; r += NT6) {
-      sLse[r] = q0 + r < S ? lseb[q0 + r] : 0.0f;
-      sDlt[r] = q0 + r < S ? dltb[q0 + r] : 0.0f;
+  if (wg == PRODUCER) {
+    // ---- producer ----
+    if constexpr (WITH_DQ) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 32;\n");
+    } else {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     }
-    __syncthreads();
-
-    float sacc[NS][4], dpacc[NS][4];
-    #pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      #pragma unroll
-      for (int e = 0; e < 4; ++e) sacc[j][e] = dpacc[j][e] = 0.0f;
+    if (threadIdx.x % 128 >= 32) return;
+    const int lane = threadIdx.x % 32;
+    const bool pairs = mode & PAIRS;
+    if (tma) {
+      if (lane == 0) {
+        mbar_expect_tx(bar_kv, 2 * L::KV);
+        for (int cb = 0; cb < NB; ++cb) {
+          tma_load(sK + cb * BK * 32, maps.k, 16 * cb, h, k0, b, bar_kv);
+          tma_load(sV + cb * BK * 32, maps.v, 16 * cb, h, k0, b, bar_kv);
+        }
+      }
+    } else {
+      copy_tile<DP, BK>(sK, k + koff, stride, k0, T_, D, pairs, lane);
+      copy_tile<DP, BK>(sV, v + koff, stride, k0, T_, D, pairs, lane);
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      fence_async_smem();
+      mbar_arrive(bar_kv);
     }
-    #pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      #pragma unroll
-      for (int j2 = 0; j2 < NS / 2; ++j2) {
-        const int off = (j2 * 16 + lane % 8 + (lane / 16) * 8) * LD + ks * 16 + ((lane / 8) % 2) * 8;
-        uint32_t qb[4], ob[4];
-        ldmatrix_x4(qb, sQ + off);
-        ldmatrix_x4(ob, sDO + off);
-        mma_16816(sacc[2 * j2], kf[ks], qb[0], qb[1]);
-        mma_16816(sacc[2 * j2 + 1], kf[ks], qb[2], qb[3]);
-        mma_16816(dpacc[2 * j2], vf[ks], ob[0], ob[1]);
-        mma_16816(dpacc[2 * j2 + 1], vf[ks], ob[2], ob[3]);
+    const float* lse_b = lse + (long)blockIdx.y * S;
+    const float* dlt_b = delta + (long)blockIdx.y * S;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % STAGES, q0 = it * BQ, rows = min(BQ, S - q0);
+      mbar_wait(bar_empty(s), ((it / STAGES) & 1) ^ 1);
+      if (tma) {
+        if (lane == 0) {
+          mbar_expect_tx(bar_full(s), 2 * L::TILE + (lse_bulk ? 8 * rows : 0));
+          for (int cb = 0; cb < NB; ++cb) {
+            tma_load(s_q(s) + cb * BQ * 32, maps.q, 16 * cb, h, q0, b, bar_full(s));
+            tma_load(s_do(s) + cb * BQ * 32, maps.dout, 16 * cb, h, q0, b, bar_full(s));
+          }
+          if (lse_bulk) {
+            bulk_load(fd::smem_addr(s_lse(s)), lse_b + q0, 4 * rows, bar_full(s));
+            bulk_load(fd::smem_addr(s_dlt(s)), dlt_b + q0, 4 * rows, bar_full(s));
+          }
+        }
+      } else {
+        copy_tile<DP, BQ>(s_q(s), q + qoff, stride, q0, S, D, pairs, lane);
+        copy_tile<DP, BQ>(s_do(s), dout + qoff, stride, q0, S, D, pairs, lane);
+      }
+      if (!lse_bulk) {
+        for (int r = lane; r < BQ; r += 32) {
+          s_lse(s)[r] = r < rows ? lse_b[q0 + r] : 0.0f;
+          s_dlt(s)[r] = r < rows ? dlt_b[q0 + r] : 0.0f;
+        }
+      }
+      if (lanes_arrive) {
+        if (!tma) {
+          asm volatile("cp.async.wait_all;\n" ::: "memory");
+          fence_async_smem();
+        }
+        mbar_arrive(bar_full(s));
       }
     }
+    return;
+  }
+
+  if constexpr (WITH_DQ) {
+    if (wg == NWG) {
+      // ---- K6's dq warpgroup: dq[tile] = scale dS K over the block's BK
+      // keys, A = dS^T and B = K both read MN-major; the fp32 tile is staged
+      // in shared memory and added into dq32 by one bulk reduce-add ----
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 96;\n");
+      const int t = threadIdx.x % 128, wi = t / 32, lane = t % 32;
+      float* s_dq = reinterpret_cast<float*>(smem + L::DQ);
+      const long dq_row0 = (long)blockIdx.y * n_tiles * BQ;  // dq32 is [B, H, S_pad, D]
+      for (int it = 0; it < n_tiles; ++it) {
+        const int b = it & 1;
+        mbar_wait(bar_ds_full(b), (it >> 1) & 1);
+        float acc[DP / 2];
+        #pragma unroll
+        for (int i = 0; i < DP / 2; ++i) acc[i] = 0.0f;
+        keep(acc);
+        wg_fence();
+        #pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          fd::Gmma<DP>::template ss<1, 1>(acc, desc(s_ds(b) + kk * 512, BK * 32, 256),
+                                          desc(sK + kk * 512, BK * 32, 256), 1);
+        wg_commit();
+        wg_wait();
+        keep(acc);
+        mbar_arrive(bar_ds_empty(b));  // the key warpgroups may overwrite dS^T buffer b
+        if (t == 0) bulk_wait_read();  // the previous tile's reduce-add has read s_dq
+        named_sync(1, 128);
+        // a thread holds column pairs: 8-byte stores (conflict-free at D = 40) where D is even
+        #pragma unroll
+        for (int j = 0; j < DP / 8; ++j) {
+          #pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int row = 16 * wi + lane / 4 + hf * 8, col = 8 * j + 2 * (lane % 4);
+            const float x = acc[4 * j + 2 * hf] * scale, y = acc[4 * j + 2 * hf + 1] * scale;
+            if (D % 2 == 0) {
+              if (col < D) *reinterpret_cast<float2*>(s_dq + row * D + col) = make_float2(x, y);
+            } else {
+              if (col < D) s_dq[row * D + col] = x;
+              if (col + 1 < D) s_dq[row * D + col + 1] = y;
+            }
+          }
+        }
+        fence_async_smem();
+        named_sync(2, 128);  // the fp32 dq tile is in shared memory
+        if (t == 0) {
+          bulk_reduce_add(dq32 + (dq_row0 + it * BQ) * D, fd::smem_addr(s_dq), BQ * D * 4);
+          bulk_commit();
+        }
+      }
+      if (t == 0) bulk_wait();  // shared memory outlives the last reduce-add
+      return;
+    }
+  }
+
+  // ---- key warpgroups: warpgroup `wg` owns keys k0 + 64 wg .. + 64 ----
+  if constexpr (WITH_DQ) {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 192;\n");
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  }
+  const int ct = threadIdx.x;  // 0 .. NCONS - 1
+  const int wi = (ct % 128) / 32, lane = ct % 32;
+  const int r_lo = 64 * wg + 16 * wi + lane / 4;  // this thread's two key rows: r_lo, r_lo + 8
+  const bool key_ok[2] = {k0 + r_lo < T_, k0 + r_lo + 8 < T_};
+  const bool k_partial = k0 + BK > T_;
+  const float sl2 = scale * LOG2E;
+  const uint32_t a_k = sK + wg * 64 * 32, a_v = sV + wg * 64 * 32;
+
+  float dkacc[DP / 2], dvacc[DP / 2];
+  #pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dkacc[i] = dvacc[i] = 0.0f;
+  mbar_wait(bar_kv, 0);
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % STAGES, q0 = it * BQ;
+    mbar_wait(bar_full(s), (it / STAGES) & 1);
+
+    // S^T = K Q^T and dP^T = V dO^T: rows this warpgroup's keys, columns the tile's q rows
+    float sacc[BQ / 2], dpacc[BQ / 2];
+    keep(sacc);
+    keep(dpacc);
+    wg_fence();
     #pragma unroll
-    for (int j = 0; j < NS; ++j) {
+    for (int ks = 0; ks < NB; ++ks)
+      fd::Gmma<BQ>::template ss<0, 0>(sacc, desc(a_k + ks * BK * 32, 16, 256),
+                                      desc(s_q(s) + ks * BQ * 32, 16, 256), ks > 0);
+    #pragma unroll
+    for (int ks = 0; ks < NB; ++ks)
+      fd::Gmma<BQ>::template ss<0, 0>(dpacc, desc(a_v + ks * BK * 32, 16, 256),
+                                      desc(s_do(s) + ks * BQ * 32, 16, 256), ks > 0);
+    wg_commit();
+    wg_wait();
+    keep(sacc);
+    keep(dpacc);
+
+    // p = exp2(scale log2e s - log2e lse), ds = p (dp - delta); masked where a
+    // key or a q row is out of range (select, not product: the stale lse and
+    // delta past S are not finite for sure)
+    const float* lse_s = s_lse(s);
+    const float* dlt_s = s_dlt(s);
+    const bool masked = k_partial || q0 + BQ > S;
+    #pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      const int c = 8 * j + 2 * (lane % 4);
+      const float2 lv = *reinterpret_cast<const float2*>(lse_s + c);
+      const float2 dl = *reinterpret_cast<const float2*>(dlt_s + c);
       #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int c = j * 8 + quad_col + (e & 1);  // q row within the tile
-        const float p = (q0 + c < S && key_ok[e / 2]) ? expf(sacc[j][e] * scale - sLse[c]) : 0.0f;
-        sacc[j][e] = p;
-        dpacc[j][e] = p * (dpacc[j][e] - sDlt[c]);
+        const float l2 = (e & 1) ? lv.y : lv.x, dd = (e & 1) ? dl.y : dl.x;
+        float p = ex2(fmaf(sacc[4 * j + e], sl2, -l2 * LOG2E));
+        float ds = p * (dpacc[4 * j + e] - dd);
+        if (masked) {
+          const bool ok = q0 + c + (e & 1) < S && key_ok[e / 2];
+          p = ok ? p : 0.0f;
+          ds = ok ? ds : 0.0f;
+        }
+        sacc[4 * j + e] = p;
+        dpacc[4 * j + e] = ds;
       }
     }
-    // dv += bf16(p)^T dO, dk += bf16(ds)^T q (as K3); ds^T to shared memory
+    uint32_t pa[BQ / 16][4], da[BQ / 16][4];
     #pragma unroll
-    for (int kk = 0; kk < BM / 16; ++kk) {
-      const uint32_t pa[4] = {
-          pack_bf16(sacc[2 * kk][0], sacc[2 * kk][1]),
-          pack_bf16(sacc[2 * kk][2], sacc[2 * kk][3]),
-          pack_bf16(sacc[2 * kk + 1][0], sacc[2 * kk + 1][1]),
-          pack_bf16(sacc[2 * kk + 1][2], sacc[2 * kk + 1][3]),
-      };
-      const uint32_t da[4] = {
-          pack_bf16(dpacc[2 * kk][0], dpacc[2 * kk][1]),
-          pack_bf16(dpacc[2 * kk][2], dpacc[2 * kk][3]),
-          pack_bf16(dpacc[2 * kk + 1][0], dpacc[2 * kk + 1][1]),
-          pack_bf16(dpacc[2 * kk + 1][2], dpacc[2 * kk + 1][3]),
-      };
-      bf16* ds_row = sDS + (warp * 16 + quad_row) * LDS + kk * 16 + quad_col;
-      *reinterpret_cast<uint32_t*>(ds_row) = da[0];
-      *reinterpret_cast<uint32_t*>(ds_row + 8 * LDS) = da[1];
-      *reinterpret_cast<uint32_t*>(ds_row + 8) = da[2];
-      *reinterpret_cast<uint32_t*>(ds_row + 8 * LDS + 8) = da[3];
+    for (int kk = 0; kk < BQ / 16; ++kk) {
       #pragma unroll
-      for (int np = 0; np < NO / 2; ++np) {
-        const int off = (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * LD + np * 16 + (lane / 16) * 8;
-        uint32_t ob[4], qb[4];
-        ldmatrix_x4_trans(ob, sDO + off);
-        ldmatrix_x4_trans(qb, sQ + off);
-        mma_16816(dvacc[2 * np], pa, ob[0], ob[1]);
-        mma_16816(dvacc[2 * np + 1], pa, ob[2], ob[3]);
-        mma_16816(dkacc[2 * np], da, qb[0], qb[1]);
-        mma_16816(dkacc[2 * np + 1], da, qb[2], qb[3]);
+      for (int i = 0; i < 4; ++i) {
+        pa[kk][i] = fd::pack_bf16(sacc[8 * kk + 2 * i], sacc[8 * kk + 2 * i + 1]);
+        da[kk][i] = fd::pack_bf16(dpacc[8 * kk + 2 * i], dpacc[8 * kk + 2 * i + 1]);
       }
     }
-    __syncthreads();  // ds^T of all 128 keys is in shared memory
+    if constexpr (WITH_DQ) {
+      // dS^T [BK keys x BQ q] to buffer it % 2, column blocks of 16 q, once
+      // the dq warpgroup is done with the tile that used it before
+      const int b = it & 1;
+      mbar_wait(bar_ds_empty(b), ((it >> 1) & 1) ^ 1);
+      #pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        #pragma unroll
+        for (int i = 0; i < 4; ++i)
+          st_shared(s_ds(b) + swz(r_lo + (i & 1) * 8, 16 * kk + (i / 2) * 8 + 2 * (lane % 4), BK), da[kk][i]);
+      }
+      fence_async_smem();
+      mbar_arrive(bar_ds_full(b));
+    }
+    // dV += bf16(P^T) dO, dK += bf16(dS^T) Q: A from registers, B (dO, Q) MN-major
+    wg_fence();
+    #pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      fd::Gmma<DP>::template rs<1>(dvacc, pa[kk], desc(s_do(s) + kk * 512, BQ * 32, 256), 1);
+    #pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      fd::Gmma<DP>::template rs<1>(dkacc, da[kk], desc(s_q(s) + kk * 512, BQ * 32, 256), 1);
+    wg_commit();
 
-    // dq[mrow .. mrow + 16, this warp's head-dim tiles] += scale * ds . k over
-    // the block's 128 keys; ds from ds^T by ldmatrix.trans
-    float qacc[NO / 2][4];
+    wg_wait();
+    keep(pa);
+    keep(da);
+    keep(dvacc);
+    keep(dkacc);
+    mbar_arrive(bar_empty(s));  // q, dO, lse and delta of slot s are free
+  }
+
+  // ---- epilogue: dk = scale dK, dv = dV, bf16, each written once ----
+  if constexpr (WITH_DQ) {
+    // the dq warpgroup's last product, the last reader of K, is done
+    mbar_wait(bar_ds_empty((n_tiles - 1) & 1), ((n_tiles - 1) >> 1) & 1);
+  }
+  if (tma) {
+    named_sync(3, NCONS);  // no wgmma reads K or V any more: their tiles take dk and dv
     #pragma unroll
-    for (int i = 0; i < NO / 2; ++i) qacc[i][0] = qacc[i][1] = qacc[i][2] = qacc[i][3] = 0.0f;
-    #pragma unroll
-    for (int kk = 0; kk < BN6 / 16; ++kk) {
-      uint32_t af[4];
-      ldmatrix_x4_trans(af, sDS + (kk * 16 + lane % 8 + (lane / 16) * 8) * LDS + mrow +
-                                ((lane / 8) % 2) * 8);
+    for (int j = 0; j < DP / 8; ++j) {
       #pragma unroll
-      for (int i = 0; i < NO / 2; ++i) {
-        uint32_t bk[2];
-        ldmatrix_x2_trans(bk, sK + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * LD +
-                                  (nhalf + 2 * i) * 8);
-        mma_16816(qacc[i], af, bk[0], bk[1]);
+      for (int hf = 0; hf < 2; ++hf) {
+        const uint32_t off = swz(r_lo + 8 * hf, 8 * j + 2 * (lane % 4), BK);
+        st_shared(sK + off, fd::pack_bf16(dkacc[4 * j + 2 * hf] * scale, dkacc[4 * j + 2 * hf + 1] * scale));
+        st_shared(sV + off, fd::pack_bf16(dvacc[4 * j + 2 * hf], dvacc[4 * j + 2 * hf + 1]));
       }
     }
+    fence_async_smem();
+    named_sync(4, NCONS);
+    if (ct == 0) {
+      for (int cb = 0; cb < NB; ++cb) {
+        tma_store(maps.dk, 16 * cb, h, k0, b, sK + cb * BK * 32);
+        tma_store(maps.dv, 16 * cb, h, k0, b, sV + cb * BK * 32);
+      }
+      bulk_commit();
+    }
+  } else {
     #pragma unroll
-    for (int i = 0; i < NO / 2; ++i) {
+    for (int j = 0; j < DP / 8; ++j) {
       #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int row = q0 + mrow + quad_row + (e / 2) * 8;
-        const int col = (nhalf + 2 * i) * 8 + quad_col + (e & 1);
-        if (row < S && col < D) atomicAdd(dq32 + qoff + (long)row * stride + col, qacc[i][e] * scale);
+        const int row = k0 + r_lo + (e / 2) * 8, col = 8 * j + 2 * (lane % 4) + (e & 1);
+        if (row < T_ && col < D) {
+          const long off = koff + (long)row * stride + col;
+          dk[off] = __float2bfloat16(dkacc[4 * j + e] * scale);
+          dv[off] = __float2bfloat16(dvacc[4 * j + e]);
+        }
       }
     }
   }
-
-  #pragma unroll
-  for (int n = 0; n < NO; ++n) {
-    #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = k0 + warp * 16 + quad_row + (e / 2) * 8;
-      const int col = n * 8 + quad_col + (e & 1);
-      if (row < T_ && col < D) {
-        const long off = koff + (long)row * stride + col;
-        dk[off] = __float2bfloat16(dkacc[n][e] * scale);
-        dv[off] = __float2bfloat16(dvacc[n][e]);
-      }
-    }
-  }
+  if (ct == 0) bulk_wait();  // shared memory outlives the TMA stores that read it
 }
+
+}  // namespace kv
 
 // ---------------------------------------------------------------------------
 // fp32: the simple versions, every tile through shared memory
@@ -928,8 +1135,9 @@ __global__ void __launch_bounds__(NTHREADS)
 }
 
 // K6 in fp32: the dk/dv kernel above (64 keys a block, shared-memory
-// limited) plus each q step's dq contribution scale * ds k, added into dq32
-// with atomicAdd
+// limited) plus each q step's dq contribution scale * ds k, added with
+// atomicAdd into dq32 [B, H, S_pad, D] (S_pad: S rounded up to 64, the
+// layout of the bf16 body's bulk adds)
 __global__ void __launch_bounds__(NTHREADS)
     flash_bwd_merged_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                 const float* __restrict__ v, const float* __restrict__ dout,
@@ -955,6 +1163,7 @@ __global__ void __launch_bounds__(NTHREADS)
   const long qoff = (long)b * S * stride + (long)h * D;
   const long koff = (long)b * T_ * stride + (long)h * D;
   const int tid = threadIdx.x;
+  const long s_pad = (S + kv::BQ - 1) / kv::BQ * kv::BQ;
 
   load_tile_f32(sK, k + koff, stride, k0, BN, T_, D);
   load_tile_f32(sV, v + koff, stride, k0, BN, T_, D);
@@ -985,7 +1194,7 @@ __global__ void __launch_bounds__(NTHREADS)
       if (q0 + c >= S) continue;
       float s = 0.0f;
       for (int r = 0; r < BN; ++r) s = fmaf(sDS[r * FQ + c], sK[r * D + d], s);
-      atomicAdd(dq32 + qoff + (long)(q0 + c) * stride + d, s * scale);
+      atomicAdd(dq32 + ((long)blockIdx.y * s_pad + q0 + c) * D + d, s * scale);
     }
   }
   __syncthreads();
@@ -1036,30 +1245,69 @@ int launch_dq_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* dout
   return (int)cudaGetLastError();
 }
 
-template <int DP>
-int launch_dkv_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
-                    const float* lse, const float* delta, bf16* dk, bf16* dv, int B, int S,
-                    int T_, int H, int D, float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(bf16) * 4 * BM * (DP + 8) + sizeof(float) * 2 * BM;
-  if (int err = set_smem(flash_dkv_bf16_kernel<DP>, smem)) return err;
-  const bool vec = D % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout);
-  const dim3 grid((T_ + BN - 1) / BN, B * H);
-  flash_dkv_bf16_kernel<DP><<<grid, NTHREADS, smem, stream>>>(q, k, v, dout, lse, delta, dk, dv,
-                                                              S, T_, H, D, scale, vec);
-  return (int)cudaGetLastError();
+// cuTensorMapEncodeTiled is a driver-API call; it is reached through the
+// runtime's driver entry point, so the library links no -lcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
+                                                                      : nullptr;
+  }();
+  return fn;
 }
 
-template <int DP>
-int launch_bwd_merged_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
-                           const float* lse, const float* delta, bf16* dk, bf16* dv, float* dq32,
-                           int B, int S, int T_, int H, int D, float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(bf16) * ((2 * BN6 + 2 * BM) * (DP + 8) + BN6 * (BM + 8)) +
-                      sizeof(float) * 2 * BM;
-  if (int err = set_smem(flash_bwd_merged_bf16_kernel<DP>, smem)) return err;
-  const bool vec = D % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout);
-  const dim3 grid((T_ + BN6 - 1) / BN6, B * H);
-  flash_bwd_merged_bf16_kernel<DP><<<grid, NT6, smem, stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, dq32, S, T_, H, D, scale, vec);
+// a bf16 [B, N, H, D] tensor as a 4-D map (d, h, row, b) with a box of 16
+// head-dim values x `rows` rows and the 32-byte swizzle; out-of-bounds
+// elements read as zero and are not written
+bool tensor_map(CUtensorMap* map, const void* base, int B, int N, int H, int D, int rows) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)N, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {2ull * D, 2ull * H * D, 2ull * N * H * D};
+  const cuuint32_t box[4] = {16, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+                unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// K3 (dq32 == nullptr) or K6: TMA where every tensor is 16-byte aligned and
+// its row stride (H * D * 2 bytes) and head stride (D * 2) are multiples of
+// 16 bytes; otherwise the same kernel's cp.async producer
+template <int DP, bool WITH_DQ>
+int launch_bwd_kv(const bf16* q, const bf16* k, const bf16* v, const bf16* dout, const float* lse,
+                  const float* delta, bf16* dk, bf16* dv, float* dq32, int B, int S, int T_, int H,
+                  int D, float scale, cudaStream_t stream) {
+  auto kernel = kv::flash_bwd_kv_kernel<DP, WITH_DQ>;
+  const size_t smem = kv::Smem<DP, WITH_DQ>::BYTES;
+  if (int err = set_smem(kernel, smem)) return err;
+  const auto aligned4 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 4 == 0; };
+  const bool tma = D % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout) &&
+                   aligned16(dk) && aligned16(dv);
+  const bool lse_bulk = tma && S % 4 == 0 && aligned16(lse) && aligned16(delta);
+  const bool pairs = D % 2 == 0 && aligned4(q) && aligned4(k) && aligned4(v) && aligned4(dout);
+  kv::Maps maps;
+  memset(&maps, 0, sizeof(maps));
+  if (tma && !(tensor_map(&maps.q, q, B, S, H, D, kv::BQ) && tensor_map(&maps.dout, dout, B, S, H, D, kv::BQ) &&
+               tensor_map(&maps.k, k, B, T_, H, D, kv::BK) && tensor_map(&maps.v, v, B, T_, H, D, kv::BK) &&
+               tensor_map(&maps.dk, dk, B, T_, H, D, kv::BK) && tensor_map(&maps.dv, dv, B, T_, H, D, kv::BK)))
+    return (int)cudaErrorInvalidValue;
+  const int mode = (tma ? kv::TMA : 0) | (lse_bulk ? kv::LSE_BULK : 0) | (pairs ? kv::PAIRS : 0);
+  const dim3 grid((T_ + kv::BK - 1) / kv::BK, B * H);
+  kernel<<<grid, kv::NTHR<WITH_DQ>, smem, stream>>>(maps, q, k, v, dout, lse, delta, dk, dv, dq32, S, T_, H, D,
+                                           scale, mode);
   return (int)cudaGetLastError();
 }
 
@@ -1158,7 +1406,8 @@ extern "C" int fd_flash_dkv_bf16(const void* q, const void* k, const void* v, co
   auto* gk = static_cast<bf16*>(dk);
   auto* gv = static_cast<bf16*>(dv);
   auto st = static_cast<cudaStream_t>(stream);
-  FD_DISPATCH_DP(D, launch_dkv_bf16<DP>(qq, kk, vv, dd, ll, de, gk, gv, B, S, T, H, D, scale, st));
+  FD_DISPATCH_DP(D, (launch_bwd_kv<DP, false>(qq, kk, vv, dd, ll, de, gk, gv, nullptr, B, S, T, H,
+                                                  D, scale, st)));
 }
 
 extern "C" int fd_flash_dq_f32(const void* q, const void* k, const void* v, const void* dout,
@@ -1190,7 +1439,8 @@ extern "C" int fd_flash_dkv_f32(const void* q, const void* k, const void* v, con
   return (int)cudaGetLastError();
 }
 
-// K6: dk, dv and the fp32 dq sum in one pass; dq32 [B, S, H, D] must be zero
+// K6: dk, dv and the fp32 dq sum in one pass; dq32 [B, H, S_pad, D] (S_pad: S
+// rounded up to 64) must be zero
 extern "C" int fd_flash_bwd_merged_bf16(const void* q, const void* k, const void* v,
                                         const void* dout, const void* lse, const void* delta,
                                         void* dk, void* dv, void* dq32, int B, int S, int T,
@@ -1206,8 +1456,8 @@ extern "C" int fd_flash_bwd_merged_bf16(const void* q, const void* k, const void
   auto* gv = static_cast<bf16*>(dv);
   auto* gq = static_cast<float*>(dq32);
   auto st = static_cast<cudaStream_t>(stream);
-  FD_DISPATCH_DP(D, launch_bwd_merged_bf16<DP>(qq, kk, vv, dd, ll, de, gk, gv, gq, B, S, T, H, D,
-                                               scale, st));
+  FD_DISPATCH_DP(D, (launch_bwd_kv<DP, true>(qq, kk, vv, dd, ll, de, gk, gv, gq, B, S, T, H, D,
+                                             scale, st)));
 }
 
 extern "C" int fd_flash_bwd_merged_f32(const void* q, const void* k, const void* v,

@@ -8,8 +8,10 @@ with `with_lse=True` the forward of the custom_vjp), `_dq_pallas` (K2),
 `custom_vjp` `flash_attention` (`_fa_fwd` / `_fa_bwd`). The JAX package picks
 the merged backward with the environment variable FAIRDIFF_FLASH_BWD=merged,
 read at trace time; here it is the explicit argument
-`flash_bwd="split" | "merged"`. K6 sums dq across key blocks with atomics, so
-its dq differs from run to run in the last bits.
+`flash_bwd="split" | "merged"`. K6 sums dq across key blocks with fp32
+reduce-adds in no fixed order, so its dq differs from run to run in the
+last bits. K3 and K6 are one Hopper kernel (wgmma products, tiles fed by
+TMA).
 
 The CUDA kernels are `csrc/flash_attention.cu`; they read q/k/v/dO in the
 JAX package's [B, S, H, D] layout straight from memory, so no wrapper makes
@@ -50,6 +52,10 @@ launches_merged = 0
 
 # the backward routes: K2 + K3, or K6
 FLASH_BWD = ("split", "merged")
+# K6 sums dq in an fp32 buffer [B, H, S_pad, D], S_pad a multiple of its
+# kernel's 64-row q tile, so that every tile's bulk add is one whole
+# contiguous span
+DQ_ROWS = 64
 
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
@@ -267,7 +273,8 @@ def flash_attention_bwd_merged(
     """K6: (dq, dk, dv) in one pass, the same function as
     `flash_attention_bwd` (plain version `flash_attention_bwd_plain` on the
     CPU). dq is summed over key blocks in an fp32 buffer and rounded once to
-    q's type, as the JAX default FAIRDIFF_MERGED_DQ32=1."""
+    q's type, as the JAX default FAIRDIFF_MERGED_DQ32=1; the kernel adds each
+    key block's tile with a bulk reduce-add, in no fixed order."""
     global launches_merged
     if o.shape != q.shape:
         raise ValueError(f"want o {tuple(q.shape)}, got {tuple(o.shape)}")
@@ -275,11 +282,13 @@ def flash_attention_bwd_merged(
     _check_bwd(q, k, v, do, lse, delta)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do)
-    dq32 = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    B, S, H, D = q.shape
+    dq32 = torch.zeros(B, H, -(-S // DQ_ROWS) * DQ_ROWS, D, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("bwd_merged", [q, k, v, do, lse, delta, dk, dv, dq32], q, k.shape[1])
     launches_merged += 1
-    return dq32.to(q.dtype), dk, dv
+    # the one cast of dq, with the transpose back to [B, S, H, D]
+    return torch.empty_like(q).copy_(dq32[:, :, :S].transpose(1, 2)), dk, dv
 
 
 def check_flash_bwd(flash_bwd: str) -> str:

@@ -11,7 +11,7 @@ that scale: every element within 0.1 * rms(plain) + 1e-2 * |plain|, rel L2
 within 1e-2 (a kernel that drops a 64-key or 32-deep tile moves the output
 by 1e-1 or more), and the kernel's rel L2 error against the fp64 version at
 most 1.5 times the plain bf16 version's. K6 (the merged backward) sums dq
-over key blocks with atomics in no fixed order: only summation order differs
+over key blocks with bulk reduce-adds in no fixed order: only summation order differs
 from the plain version and K2, so the same limits hold.
 """
 
@@ -189,6 +189,41 @@ def test_flash_merged_bwd_kernel_matches_plain_and_split(cuda, dtype, s, t, h, d
     for g, p_, sp, e in zip(got, plain, split, exact):
         assert_matches(g, p_, e, f32_tol=dict(atol=1e-4, rtol=1e-4))
         assert_matches(g, sp, e, f32_tol=dict(atol=1e-4, rtol=1e-4))
+
+
+# the edges of the key-block backward (K3 and K6, one wgmma kernel fed by TMA):
+# layouts TMA cannot address (a 40-byte head stride at D = 20, H = 3; an odd
+# head dim), S shorter than its ring of three 64-row q tiles, T off its
+# 128-key tile, and the UNet's two path shapes at B*H = 64, as (B, S, T, H, D)
+KV_EDGE_SHAPES = [(2, 33, 70, 3, 20), (2, 9, 40, 1, 7), (2, 100, 256, 2, 40), (2, 64, 300, 2, 80),
+                  (1, 150, 1000, 3, 64), (8, 4096, 4096, 8, 40), (8, 1024, 1024, 8, 80)]
+
+
+@pytest.mark.parametrize("b,s,t,h,d", KV_EDGE_SHAPES)
+def test_flash_key_block_bwd_edges(cuda, b, s, t, h, d):
+    """K3 and K6 against the plain backward at the key-block kernel's edges,
+    and each run twice: dk and dv are written once, by one block, in a fixed
+    order, so both runs are bit-equal. The reference is fp64, or fp32 at the
+    UNet shapes (an fp64 [B, H, S, T] there is 8.6 GB a tensor)."""
+    mk = lambda n: torch.randn(b, n, h, d, generator=cuda, device="cuda", dtype=torch.bfloat16)
+    q, k, v, do = mk(s), mk(t), mk(t), mk(s)
+    o, lse = fa.flash_attention_lse(q, k, v)
+    delta = fa.attention_delta(o, do)
+    before = (fa.launches_dkv, fa.launches_merged)
+    dkv = fa.flash_attention_dkv(q, k, v, do, lse, delta)
+    merged = fa.flash_attention_bwd_merged(q, k, v, o, lse, do)
+    assert (fa.launches_dkv, fa.launches_merged) == (before[0] + 1, before[1] + 1)
+    plain = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
+    xd = torch.float32 if b * h * s * t > 2**26 else torch.float64
+    qx, kx, vx, dox = (x.to(xd) for x in (q, k, v, do))
+    o_x, lse_x = fa.flash_attention_lse_plain(qx, kx, vx)
+    exact = fa.flash_attention_bwd_plain(qx, kx, vx, o_x, lse_x, dox)
+    for g, p_, e in zip((*merged, *dkv), (*plain, *plain[1:]), (*exact, *exact[1:])):
+        assert_matches(g, p_, e)
+    again = fa.flash_attention_dkv(q, k, v, do, lse, delta)
+    assert torch.equal(dkv[0], again[0]) and torch.equal(dkv[1], again[1])
+    again = fa.flash_attention_bwd_merged(q, k, v, o, lse, do)
+    assert torch.equal(merged[1], again[1]) and torch.equal(merged[2], again[2])
 
 
 def test_flash_merged_route_through_autograd(cuda):
