@@ -8,8 +8,9 @@ Phases (any failure raises and exits non-zero):
   2. build: the three CUDA sources of fairdiff_torch/csrc with nvcc (sm_90a);
   3. each kernel against its plain PyTorch version on the card, in bf16, at
      the shapes the SD-1.5 path gives it (CFG batch of N=2 images), both
-     against an fp32 reference, with a dropped-tile control, and with
-     kernel, plain and library times and the datasheet bound;
+     against an fp32 reference, with a dropped-tile control, K1 run twice
+     (bit-equal), and with kernel, plain and library times, the datasheet
+     bound and the kernel's factor over both;
   4. one full-width SD-1.5 UNet forward in fp32 on the card (kernels)
      against the same weights and inputs on the CPU (plain versions), then
      the same forward in bf16 on the card, kernels against the plain routes;
@@ -21,8 +22,9 @@ Phases (any failure raises and exits non-zero):
   7. kernels-bwd: the training kernels K1 with lse, K2 (dq), K3 (dk/dv) and
      K5 (GEGLU dx), bf16 and fp32, each against its plain version at the
      phase-4 shapes (a pair VJP's CFG batch of 2p = 8 rows) and a ragged
-     shape, with phase 3's limits and dropped-tile controls, K3 and K6 each
-     run twice (dk, dv bit-equal), and with kernel, plain and library times,
+     shape, with phase 3's limits and dropped-tile controls, K1 with lse,
+     K2, K3 and K6 each run twice (o, lse, dq, dk, dv bit-equal; K6's dq
+     within its summation order), and with kernel, plain and library times,
      the bound and the kernel's factor over both;
   8. unet-vjp: one full-width SD-1.5 pair VJP (8 rows, bf16, remat), every
      K2, K3 and K5 launch held against its plain version on its operands,
@@ -85,9 +87,9 @@ N_IMAGES = 2  # CFG batch 2N = 4 in phase 3
 #   the whole output ||got - ref|| / ||ref|| <= KERNEL_REL_L2_TOL;
 #   against an fp32 reference on the same inputs, the kernel's rel L2 error
 #   is at most ACCURACY_RATIO times the plain bf16 version's.
-# A control drops the last tile (64 keys for K1, a 32-deep slice of d for
-# K4) from the plain version; its rel L2 must exceed KERNEL_REL_L2_TOL, so
-# the check is shown to see a kernel that skips a tile.
+# A control drops the last tile (the kernel's last key tile for K1, a
+# 32-deep slice of d for K4) from the plain version; its rel L2 must exceed
+# KERNEL_REL_L2_TOL, so the check is shown to see a kernel that skips a tile.
 ELEM_ATOL_RMS = 0.1
 ELEM_RTOL = 1e-2
 KERNEL_REL_L2_TOL = 1e-2
@@ -106,6 +108,13 @@ UNET_REL_L2_TOL = 1e-3
 # must break.
 UNET_BF16_REL_L2_TOL = 3e-2
 UNET_BF16_ACCURACY_RATIO = 1.1
+
+
+def key_tile(d: int) -> int:
+    """Keys a tile of the query-block kernels' K/V ring at head dim `d`
+    (csrc/flash_attention.cu `qb::KEY_TILE`): 128 up to 80, 64 above. The
+    dropped-tile controls of o and dq drop the kernel's last tile."""
+    return 128 if d <= 80 else 64
 
 
 def log(msg: str) -> None:
@@ -194,7 +203,7 @@ def phase_build() -> None:
         lib = build.library_path(name)
         log_file = lib.with_name(lib.name + ".log")
         for line in log_file.read_text().splitlines() if log_file.exists() else []:
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "wgmma" in line:  # ptxas serialising wgmma warns
                 log(f"[build] {name}: {line.strip()}")
 
 
@@ -219,11 +228,15 @@ def phase_kernels() -> dict[str, dict]:
         v = torch.randn(kvs, generator=g, device="cuda", dtype=bf)
         got, ref = fa.flash_attention(q, k, v), fa.flash_attention_plain(q, k, v)
         t = kvs[1]
-        last = (t - 1) // 64 * 64  # first key of the kernel's last 64-key tile
+        last = (t - 1) // key_tile(qs[3]) * key_tile(qs[3])  # first key of the kernel's last tile
         checks = compare(
             got, ref, fa.flash_attention_plain(q.float(), k.float(), v.float()),
             fa.flash_attention_plain(q, k[:, :last].contiguous(), v[:, :last].contiguous()),
         )
+        # each output element is written once by one block: a second run is bit-equal
+        checks["rerun_equal"] = bool(torch.equal(fa.flash_attention(q, k, v), got))
+        if not checks["rerun_equal"]:
+            checks["failed"].append("rerun not bit-equal")
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         b, s, h, d = qs
         bound_ms, bound_by = bound(
@@ -264,15 +277,15 @@ def phase_kernels() -> dict[str, dict]:
         )
     log(f"[kernels] limits: element {ELEM_ATOL_RMS} * rms(ref) + {ELEM_RTOL} * |ref| "
         f"(elem_use = worst element's share of it), rel L2 {KERNEL_REL_L2_TOL}, kernel vs "
-        f"fp32 <= {ACCURACY_RATIO} x plain vs fp32, dropped-tile control > {KERNEL_REL_L2_TOL}")
+        f"fp32 <= {ACCURACY_RATIO} x plain vs fp32, dropped-tile control > {KERNEL_REL_L2_TOL} "
+        f"(K1: its last key tile, {key_tile(40)} keys at D <= 80; GEGLU: the last 32-deep slice "
+        f"of d); K1 run twice must be bit-equal")
     for key, r in rows.items():
-        lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        rerun = f" | rerun bit-equal {r['rerun_equal']}" if "rerun_equal" in r else ""
         log(f"[kernels] {key:22s} {r['shape']:34s} max_abs {r['max_abs_err']:.3e} "
             f"(ref rms {r['ref_rms']:.3e}, elem_use {r['elem_use']:.3f}) rel_l2 "
             f"{r['rel_l2']:.3e} | vs fp32: kernel {r['kernel_vs_f32']:.3e} plain "
-            f"{r['plain_vs_f32']:.3e} | control {r['control_rel_l2']:.3e} | kernel_ms "
-            f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms {lib} bound_ms "
-            f"{r['bound_ms']:.4f} ({r['bound_by']})")
+            f"{r['plain_vs_f32']:.3e} | control {r['control_rel_l2']:.3e}{rerun} | {_times(r)}")
     failed = {key: r["failed"] for key, r in rows.items() if r["failed"]}
     if failed:
         raise AssertionError(f"kernel checks failed: {failed}")
@@ -520,14 +533,14 @@ PAIR_ROWS = 8
 
 def _flash_bwd_checks(q, k, v, do, fwd=None, grads=None):
     """K1 with lse, K2 and K3 on one input set, each against its plain
-    version; controls drop the last 64-key tile (o, dq) or the last 64-row q
-    tile (dk, dv) from the plain version. `fwd` = (o, lse) and `grads` =
-    (dq, dk, dv) are the kernels' outputs where the caller has them; else
-    the kernels run here."""
+    version; controls drop the kernel's last key tile (o: K1's, dq: K2's,
+    the same size) or the last 64-row q tile (dk, dv) from the plain
+    version. `fwd` = (o, lse) and `grads` = (dq, dk, dv) are the kernels'
+    outputs where the caller has them; else the kernels run here."""
     from fairdiff_torch.ops import flash_attention as fa
 
     S, T = q.shape[1], k.shape[1]
-    last_k, last_q = (T - 1) // 64 * 64, (S - 1) // 64 * 64
+    last_k, last_q = (T - 1) // key_tile(q.shape[3]) * key_tile(q.shape[3]), (S - 1) // 64 * 64
     o, lse = fwd if fwd is not None else fa.flash_attention_lse(q, k, v)
     o_p, lse_p = fa.flash_attention_lse_plain(q, k, v)
     qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
@@ -624,6 +637,28 @@ def _dkv_rerun(got, again) -> dict:
     return r
 
 
+def _query_block_rerun(q, k, v, do, o, lse, delta, dq) -> dict:
+    """K1 with lse and K2 run again on the same inputs: every o, lse and dq
+    element is written once, by one block, summed over the key tiles in a
+    fixed order, so both runs are bit-equal."""
+    from fairdiff_torch.ops import flash_attention as fa
+
+    o2, lse2 = fa.flash_attention_lse(q, k, v)
+    r = dict(o_equal=bool(torch.equal(o, o2)), lse_equal=bool(torch.equal(lse, lse2)),
+             dq_equal=bool(torch.equal(dq, fa.flash_attention_dq(q, k, v, do, lse, delta))))
+    r["failed"] = [f"{name} not bit-equal" for name in ("o", "lse", "dq") if not r[f"{name}_equal"]]
+    return r
+
+
+def _times(r: dict) -> str:
+    """A row's times, its bound and the kernel's factor over the bound and
+    over the library call."""
+    lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+    return (f"kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms {lib} bound_ms "
+            f"{r['bound_ms']:.4f} ({r['bound_by']}) | {r['ms'] / r['bound_ms']:.1f}x bound"
+            + ("" if r["library_ms"] is None else f", {r['ms'] / r['library_ms']:.2f}x library"))
+
+
 def _rerun_line(r: dict) -> str:
     return (f"dk, dv bit-equal {r['dk_equal']}, {r['dv_equal']}; dq differs in {r['dq_differ']} of {r['dq_n']} "
             f"elements, {r['dq_over_ulp']} by more than 1 ulp, worst diff {r['dq_worst']:.3f}x its allowance")
@@ -657,6 +692,7 @@ def phase_kernels_bwd() -> dict[str, dict]:
     f32_rel: dict[str, float] = {}
     reruns: dict[str, dict] = {}  # K6 run twice on the same inputs
     dkv_reruns: dict[str, dict] = {}  # K3 run twice
+    q_reruns: dict[str, dict] = {}  # K1 with lse and K2 run twice
     B = PAIR_ROWS
     for label, qs, kvs in (
         ("self4096", (B, 4096, 8, 40), (B, 4096, 8, 40)),
@@ -667,6 +703,7 @@ def phase_kernels_bwd() -> dict[str, dict]:
         k, v = (torch.randn(kvs, generator=g, device="cuda", dtype=bf) for _ in range(2))
         got, (o, lse, delta), split = _flash_bwd_checks(q, k, v, do)
         dkv_reruns[label] = _dkv_rerun(split[1:], fa.flash_attention_dkv(q, k, v, do, lse, delta))
+        q_reruns[label] = _query_block_rerun(q, k, v, do, o, lse, delta, split[0])
         merged = fa.flash_attention_bwd_merged(q, k, v, o, lse, do)
         got.update(_merged_checks(q, k, v, o, lse, do, merged, split))
         reruns[f"bf16/{label}"] = _merged_rerun(merged, fa.flash_attention_bwd_merged(q, k, v, o, lse, do), kvs[1])
@@ -763,10 +800,11 @@ def phase_kernels_bwd() -> dict[str, dict]:
                 8.0 * m * d * inner, 2.0 * (2 * m * d + 2 * inner * d + 2 * inner + m * inner), float(m * inner)))),
         )
     log(f"[kernels-bwd] limits as [kernels]; lse max abs error <= {LSE_ATOL}; fp32 bodies vs fp32 plain "
-        f"rel L2 <= {F32_REL_L2_TOL}; controls drop the last 64-key tile (o, dq), the last 64-row "
-        f"q tile (dk, dv) or the last 64-wide n tile of I (GEGLU dx); merged (K6) controls drop the "
-        f"last {MERGED_BLOCK_KEYS}-key tile (dq) or the last 64-row q tile (dk, dv), and K6 is also held "
-        f"to the limits against K2/K3's outputs")
+        f"rel L2 <= {F32_REL_L2_TOL}; controls drop the kernel's last key tile (o: K1's, dq: K2's; "
+        f"{key_tile(40)} keys at D <= 80, {key_tile(96)} above), the last 64-row q tile "
+        f"(dk, dv) or the last 64-wide n tile of I (GEGLU dx); merged (K6) controls drop the last "
+        f"{MERGED_BLOCK_KEYS}-key tile (dq) or the last 64-row q tile (dk, dv), and K6 is also held to the "
+        f"limits against K2/K3's outputs; K1 with lse, K2 and K3 run twice must be bit-equal")
     for key, c in checks.items():
         extra = f" lse max abs {c['lse_max_abs_err']:.3e} |" if "lse_max_abs_err" in c else ""
         extra += f" vs K2/K3 rel_l2 {c['vs_split_rel_l2']:.3e} |" if "vs_split_rel_l2" in c else ""
@@ -775,12 +813,11 @@ def phase_kernels_bwd() -> dict[str, dict]:
             f"{c['kernel_vs_f32']:.3e} plain {c['plain_vs_f32']:.3e} | control {c['control_rel_l2']:.3e} "
             f"| fp32 body rel L2 {f32_rel[key]:.3e}")
     for key, r in rows.items():
-        lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         reduce = f" | dq reduce-adds {r['reduce_gb']:.3f} GB (not in the bound)" if "reduce_gb" in r else ""
-        factors = f" | {r['ms'] / r['bound_ms']:.1f}x bound" + (
-            "" if r["library_ms"] is None else f", {r['ms'] / r['library_ms']:.2f}x library")
-        log(f"[kernels-bwd] {key:28s} {r['shape']:44s} kernel_ms {r['ms']:.4f} plain_ms "
-            f"{r['plain_ms']:.4f} library_ms {lib} bound_ms {r['bound_ms']:.4f} ({r['bound_by']}){factors}{reduce}")
+        log(f"[kernels-bwd] {key:28s} {r['shape']:44s} {_times(r)}{reduce}")
+    for key, r in q_reruns.items():
+        log(f"[kernels-bwd] K1 with lse and K2 run twice, bf16/{key}: o, lse, dq bit-equal {r['o_equal']}, "
+            f"{r['lse_equal']}, {r['dq_equal']}")
     for key, r in dkv_reruns.items():
         log(f"[kernels-bwd] K3 run twice, bf16/{key}: dk, dv bit-equal {r['dk_equal']}, {r['dv_equal']}")
     for key, r in reruns.items():
@@ -789,6 +826,7 @@ def phase_kernels_bwd() -> dict[str, dict]:
     failed.update({key: f"fp32 body rel L2 {v:.3e}" for key, v in f32_rel.items() if not v <= F32_REL_L2_TOL})
     failed.update({f"K6 rerun {key}": r["failed"] for key, r in reruns.items() if r["failed"]})
     failed.update({f"K3 rerun {key}": r["failed"] for key, r in dkv_reruns.items() if r["failed"]})
+    failed.update({f"K1/K2 rerun {key}": r["failed"] for key, r in q_reruns.items() if r["failed"]})
     if failed:
         raise AssertionError(f"backward kernel checks failed: {failed}")
     # the summary's max_abs_err: the kernel's worst element against its plain version

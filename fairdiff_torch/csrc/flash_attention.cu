@@ -6,8 +6,11 @@
 // `_flash_kernel` and `_flash_kernel_pipe`, identical maths; `with_lse` for
 // the backward), `_dq_pallas` (`_bwd_dq_kernel`), `_dkv_pallas`
 // (`_bwd_dkv_kernel`) and `_flash_backward_merged` (`_bwd_merged_kernel`).
-// The backward kernels are described above them below; K3 and K6 are one
-// Hopper kernel (wgmma products, tiles fed by TMA).
+// The bf16 kernels are two Hopper designs on wgmma and TMA, described above
+// each: the query-block kernels (K1, K2: a block owns q rows and streams
+// every key tile past them) and the key-block kernels (K3, K6: a block owns
+// keys and streams every q tile past them). Their building blocks are
+// `tma.cuh`, their products `wgmma.cuh`.
 //
 // Computes o = softmax(scale * q k^T) v for q [B,S,H,D], k/v [B,T,H,D], all
 // contiguous, read in place with a row stride of H*D (no relayout copy and no
@@ -16,353 +19,538 @@
 // accumulator, p rounded to the input type before p.v, keys >= T masked to
 // -inf, l clamped at 1e-30.
 //
-// What bounds it on this card: at the UNet shapes (S = T = 4096, D = 40 and
-// S = T = 1024, D = 80) the two products are 4*S*T*D flops per (b, h) against
-// 2*(2*S + 2*T)*D bytes, several hundred flops per byte, so the tensor cores
-// bound it. The bf16 kernel keeps everything but the K/V tiles in registers
-// (the FlashAttention-2 arrangement): one block of four warps per (b*h,
-// 64-row q tile), each warp owning 16 q rows; q fragments are loaded once,
-// then for every 64-key tile the scores come from mma.sync m16n8k16 with
-// ldmatrix operands, the online softmax runs on each row's four threads with
-// shuffles, and the rounded probabilities feed the p.v mma.sync straight from
-// the score registers. D is zero-padded to a multiple of 16 (the MMA depth)
-// in shared memory only: 40 -> 48, 80 -> 80. Not yet done: cp.async/TMA
-// double buffering of K/V and wgmma.
-//
-// The fp32 kernel is the simple version (every tile through shared memory,
-// CUDA-core fmaf); it serves the full-precision parity check, not the hot
-// path.
-#include <cuda.h>  // CUtensorMap (the encoder is found at run time)
-
+// The fp32 kernels are the simple versions (every tile through shared
+// memory, CUDA-core fmaf); they serve the full-precision parity checks, not
+// the hot path.
 #include <cstring>
 
-#include "common.cuh"
+#include "tma.cuh"
 #include "wgmma.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-using fd::ldmatrix_x4;
-using fd::ldmatrix_x4_trans;
-using fd::mma_16816;
-using fd::pack_bf16;
+using namespace fd;
 
-constexpr int BM = 64;         // q rows per block (16 per warp)
-constexpr int BN = 64;         // keys per tile
-constexpr int NTHREADS = 128;  // four warps
+// fp32 simple versions: 64-row q (or key) tiles, four warps
+constexpr int BM = 64;
+constexpr int BN = 64;
+constexpr int NTHREADS = 128;
 constexpr int MAX_D = 128;
 
-// ---------------------------------------------------------------------------
-// bf16: register-resident tiles on mma.sync
-// ---------------------------------------------------------------------------
-
-// rows [row0, row0 + BM) of a [*, D] bf16 slab (row stride `stride`) into a
-// [BM x LD] shared tile whose first DP columns are written; rows >= n_rows
-// and columns >= D are zero. `vec`: D % 8 == 0 and 16-byte aligned rows.
-template <int DP, int LD>
-__device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* src, long stride,
-                                               int row0, int n_rows, int D, bool vec) {
-  constexpr int CHUNKS = DP / 8;  // 16-byte chunks a row
-  for (int idx = threadIdx.x; idx < BM * CHUNKS; idx += NTHREADS) {
-    const int r = idx / CHUNKS, c = (idx % CHUNKS) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < n_rows) {
-      const bf16* g = src + (long)(row0 + r) * stride + c;
-      if (vec) {
-        if (c < D) val = *reinterpret_cast<const uint4*>(g);
-      } else {
-        union { uint4 u; bf16 e[8]; } tmp;
-        for (int e = 0; e < 8; ++e) tmp.e[e] = (c + e < D) ? g[e] : __float2bfloat16(0.0f);
-        val = tmp.u;
-      }
-    }
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-  }
-}
-
-template <int DP>
-__global__ void __launch_bounds__(NTHREADS)
-    flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, bf16* __restrict__ o,
-                          float* __restrict__ lse, int S, int T_, int H, int D, float scale,
-                          bool vec) {
-  constexpr int LD = DP + 8;   // padded shared row: ldmatrix rows hit distinct banks
-  constexpr int KS = DP / 16;  // mma depth steps over the head dim
-  constexpr int NO = DP / 8;   // 8-wide output column tiles
-  constexpr int NS = BN / 8;   // 8-wide score column tiles
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);  // [BM x LD]
-  bf16* sK = sQ + BM * LD;                   // [BN x LD]
-  bf16* sV = sK + BN * LD;                   // [BN x LD]
-
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int q0 = blockIdx.x * BM;
-  const long stride = (long)H * D;
-  const bf16* qb = q + (long)b * S * stride + (long)h * D;
-  const bf16* kb = k + (long)b * T_ * stride + (long)h * D;
-  const bf16* vb = v + (long)b * T_ * stride + (long)h * D;
-  bf16* ob = o + (long)b * S * stride + (long)h * D;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int quad_row = lane / 4, quad_col = (lane % 4) * 2;
-
-  load_tile_bf16<DP, LD>(sQ, qb, stride, q0, S, D, vec);
-  __syncthreads();
-  uint32_t qf[KS][4];  // this warp's 16 q rows as mma A fragments
-  #pragma unroll
-  for (int ks = 0; ks < KS; ++ks)
-    ldmatrix_x4(qf[ks], sQ + (warp * 16 + lane % 16) * LD + ks * 16 + (lane / 16) * 8);
-
-  float oacc[NO][4];
-  #pragma unroll
-  for (int n = 0; n < NO; ++n) oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.0f;
-  // this thread's two rows: quad_row and quad_row + 8 of the warp's 16
-  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.0f, 0.0f};
-
-  for (int k0 = 0; k0 < T_; k0 += BN) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile_bf16<DP, LD>(sK, kb, stride, k0, T_, D, vec);
-    load_tile_bf16<DP, LD>(sV, vb, stride, k0, T_, D, vec);
-    __syncthreads();
-
-    float sacc[NS][4];
-    #pragma unroll
-    for (int j = 0; j < NS; ++j) sacc[j][0] = sacc[j][1] = sacc[j][2] = sacc[j][3] = 0.0f;
-    #pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      #pragma unroll
-      for (int j2 = 0; j2 < NS / 2; ++j2) {  // two 8-key column tiles a load
-        uint32_t kf[4];
-        ldmatrix_x4(kf, sK + (j2 * 16 + lane % 8 + (lane / 16) * 8) * LD + ks * 16 +
-                            ((lane / 8) % 2) * 8);
-        mma_16816(sacc[2 * j2], qf[ks], kf[0], kf[1]);
-        mma_16816(sacc[2 * j2 + 1], qf[ks], kf[2], kf[3]);
-      }
-    }
-
-    // scale, mask, online softmax (each row's values sit on one quad)
-    float mx[2] = {-INFINITY, -INFINITY};
-    #pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + j * 8 + quad_col + (e & 1);
-        sacc[j][e] = col < T_ ? sacc[j][e] * scale : -INFINITY;
-        mx[e / 2] = fmaxf(mx[e / 2], sacc[j][e]);
-      }
-    }
-    float alpha[2];
-    #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m_run[r], mx[r]);  // finite: key 0 is always valid
-      alpha[r] = expf(m_run[r] - m_new);
-      m_run[r] = m_new;
-      l_run[r] *= alpha[r];
-    }
-    #pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(sacc[j][e] - m_run[e / 2]);
-        l_run[e / 2] += p;  // fp32 p in the sum, as the TPU kernel
-        sacc[j][e] = p;
-      }
-    }
-    #pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      oacc[n][0] *= alpha[0];
-      oacc[n][1] *= alpha[0];
-      oacc[n][2] *= alpha[1];
-      oacc[n][3] *= alpha[1];
-    }
-
-    // o += p . v, p rounded to bf16 straight from the score registers
-    #pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      const uint32_t pf[4] = {
-          pack_bf16(sacc[2 * kk][0], sacc[2 * kk][1]),
-          pack_bf16(sacc[2 * kk][2], sacc[2 * kk][3]),
-          pack_bf16(sacc[2 * kk + 1][0], sacc[2 * kk + 1][1]),
-          pack_bf16(sacc[2 * kk + 1][2], sacc[2 * kk + 1][3]),
-      };
-      #pragma unroll
-      for (int np = 0; np < NO / 2; ++np) {  // two 8-wide output tiles a load
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, sV + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * LD +
-                                  np * 16 + (lane / 16) * 8);
-        mma_16816(oacc[2 * np], pf, vf[0], vf[1]);
-        mma_16816(oacc[2 * np + 1], pf, vf[2], vf[3]);
-      }
-    }
-  }
-
-  #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
-    l_run[r] = fmaxf(l_run[r], 1e-30f);
-    // lse = m + log l, fp32, one value per valid row ([B, H, S])
-    const int row = q0 + warp * 16 + quad_row + r * 8;
-    if (lse != nullptr && lane % 4 == 0 && row < S)
-      lse[(long)blockIdx.y * S + row] = m_run[r] + logf(l_run[r]);
-    l_run[r] = 1.0f / l_run[r];
-  }
-  #pragma unroll
-  for (int n = 0; n < NO; ++n) {
-    #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = q0 + warp * 16 + quad_row + (e / 2) * 8;
-      const int col = n * 8 + quad_col + (e & 1);
-      if (row < S && col < D) ob[(long)row * stride + col] = __float2bfloat16(oacc[n][e] * l_run[e / 2]);
-    }
-  }
-}
+// mode bits of a bf16 launch
+constexpr int TMA = 1;        // tiles by TMA, outputs by TMA stores
+constexpr int LSE_BULK = 2;   // K3/K6: lse and delta rows by 1-D bulk copies
+constexpr int PAIRS = 4;      // fallback: 4-byte cp.async (even D, aligned)
 
 // ---------------------------------------------------------------------------
-// bf16 backward: K2 (dq) here, K3 and K6 in the key-block section below
+// bf16 query-block kernels on wgmma and TMA: K1 (forward) and K2 (dq)
 // ---------------------------------------------------------------------------
 //
-// Computes, for o = softmax(scale q k^T) v with lse = m + log l from the
+// K1 replaces `_flash_forward` (with and without lse: one kernel, lse
+// written where its pointer is not null); K2 replaces `_dq_pallas`, which
+// computes, for o = softmax(scale q k^T) v with lse = m + log l from the
 // forward, dO the output cotangent and delta = rowsum(dO * o) (computed
 // outside, as in the JAX package's `_bwd_operands`):
 //   p  = exp(scale q k^T - lse)            fp32, recomputed per tile
 //   dp = dO v^T                            fp32 accumulate
 //   ds = p * (dp - delta)                  rounded to bf16
-//   dq = scale * ds k        (K2, K6)      fp32 accumulate, rounded once
-//   dv = bf16(p)^T dO,  dk = scale * ds^T q   (K3, K6)
-// the rounding points of the TPU kernels. The split design of the JAX
-// package is kept: K2 owns a 64-row q tile and loops over key tiles, K3
-// owns a key tile and loops over q tiles, so every output is written once
-// by one block, with no atomics and a fixed summation order.
+//   dq = scale * ds k                      fp32 accumulate, rounded once
+// the rounding points of the TPU kernel.
 //
-// K2: three products per tile pair (S, dP, dS.K), 2*S*T*D flops each,
-// against reads of q, k, v, dO once and a write of dq once, so the tensor
-// cores bound it at D = 80; at D = 40 the exp unit (S*T exp, at ~3.9 T/s)
-// is the larger bound. It keeps its operand fragments and accumulators in
-// registers (mma.sync m16n8k16 with ldmatrix, as K1): the accumulator
-// layout of one product is the A-operand layout of the next, so ds goes
-// from registers to the next mma with one bf16 pack. D is zero-padded to a
-// multiple of 16 in shared memory only; keys past T get p = 0. Not yet
-// done: cp.async/TMA double buffering and wgmma.
+// What bounds them on this card: K1 does two products (S = Q K^T, O += P V)
+// and K2 three (S, dP = dO V^T, dQ += dS K), 2*S*T*D flops each, against
+// reads of q, k, v (and dO) once. At D = 80 the tensor cores bound them; at
+// D = 40 the exp unit bounds K1 (S*T exponentials at ~3.9 T/s, 1.6x the
+// tensor time) and ties with the tensor cores in K2. So every score element
+// costs one FFMA (scale * log2 e and the row max, or lse, folded together)
+// and one ex2; the key mask is applied on the last tile only, where T is
+// not a multiple of the tile; and the design's point is that exponentials
+// run while the tensor cores work.
+//
+// Design (a warp-specialised block of three warpgroups):
+// - One block owns BM = 128 q rows; each of two consumer warpgroups owns 64
+//   of them (wgmma's M). Its q tile (and K2's dO tile) comes in once, by
+//   TMA, and stays in shared memory; K2's lse and delta are two registers a
+//   row, read once.
+// - One producer warp streams the K and V tiles of BN keys (TMA) through a
+//   ring of STAGES slots, each marked full and empty by an mbarrier, as in
+//   the key-block kernels.
+// - Every product is a wgmma: S = Q K^T (and dP = dO V^T) with both operands
+//   K-major in shared memory; O += bf16(P) V and dQ += bf16(dS) K with A from
+//   registers (the accumulator layout of S is the A-fragment layout of P, one
+//   bf16 pack) and B the same K or V tile read MN-major, so no tile is
+//   stored twice.
+// - Overlap, two ways at once. Within a warpgroup, K1 issues tile j+1's S
+//   with tile j's P.V and waits for S only (`wgmma.wait_group 1`), so tile
+//   j+1's softmax runs while P.V is on the tensor cores; K2 likewise issues
+//   tile j+1's S and dP before tile j's dS.K and computes tile j+1's ds
+//   while dS.K runs. Between the warpgroups, named barriers give them the
+//   tensor cores in turns (ping-pong), so one's exponentials run while the
+//   other's products do. Measured on an H100 (chip_smoke.py `[kernels]`,
+//   `[kernels-bwd]`): at D = 40 both together beat in-warpgroup
+//   pipelining alone by 12% in K1 and 3% in K2, and beat products and
+//   exponentials in turn (the warpgroups only drifting apart) by 7% in both;
+//   at D = 80 the three are within run-to-run noise.
+// - The online softmax keeps the running max in log2 units: p = ex2(s *
+//   scale * log2e - m2), alpha = ex2(m2_old - m2_new); each row's four
+//   values sit on one quad of the wgmma accumulator layout, so the row max
+//   is two shuffles and l stays a per-thread partial sum (fp32 p, as the
+//   TPU kernel) until the end. lse = m + log l is written in natural-log
+//   units, fp32 [B, H, S], as K2, K3 and K6 read it.
+// - Layout: tiles are column blocks of 16 head-dim values (32-byte rows,
+//   32-byte swizzle) loaded by TMA from 4-D maps over (D, H, rows, B), as in
+//   the key-block kernels, so D = 40 pads to 48 with zeros that TMA fills
+//   and rows past S or T read as zero. Each warpgroup stages its output
+//   tile (o, or dq = scale dQ, rounded once) in its own q rows, which no
+//   wgmma reads any more, and stores it by TMA through a map that clips rows
+//   past S and columns past D. No atomics: every output element is written
+//   once by one block, so two runs are bit-equal.
+// - A layout TMA cannot address (a row stride that is not a multiple of 16
+//   bytes, as D = 20 at H = 3, an odd D, an unaligned base) takes the same
+//   kernel with the producer issuing zero-filling cp.async (plain loads for
+//   an odd D) and the output leaving by plain stores.
+// - Sizes: BN = 128 keys a tile up to DP = 80 (64 above, for the registers
+//   of O and dQ; K2 holds S and dP too), which beat 64 by 17% in K1 and 12%
+//   in K2 at D = 40 (H100, `[kernels]`, `[kernels-bwd]`); 3 ring slots;
+//   128 q rows a block give 1024 blocks at [4,4096,8,40] (7.8 waves of 132
+//   SMs) and 256 at [4,1024,8,80] (1.9 waves), so no shape of the path is
+//   tail-bound; one block an SM (the q warpgroups hold 232 registers a
+//   thread, the producer 40; no spills at any DP).
+namespace qb {
 
+constexpr int BM = 128;             // q rows a block
+constexpr int NWG = 2;              // consumer warpgroups, 64 q rows each
+constexpr int NCONS = NWG * 128;
+constexpr int NTHR = NCONS + 128;   // + the producer warpgroup (one warp works)
+constexpr int STAGES = 3;           // K/V ring slots
+
+// keys a tile of the K/V ring: 64 above DP = 80, for the registers of O
+// and dQ
 template <int DP>
-__global__ void __launch_bounds__(NTHREADS)
-    flash_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                         const float* __restrict__ lse, const float* __restrict__ delta,
-                         bf16* __restrict__ dq, int S, int T_, int H, int D, float scale,
-                         bool vec) {
-  constexpr int LD = DP + 8;
-  constexpr int KS = DP / 16;
-  constexpr int NO = DP / 8;
-  constexpr int NS = BN / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);  // [BM x LD]
-  bf16* sDO = sQ + BM * LD;                  // [BM x LD]
-  bf16* sK = sDO + BM * LD;                  // [BN x LD]
-  bf16* sV = sK + BN * LD;                   // [BN x LD]
+constexpr int KEY_TILE = DP <= 80 ? 128 : 64;
 
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int q0 = blockIdx.x * BM;
-  const long stride = (long)H * D;
-  const long qoff = (long)b * S * stride + (long)h * D;
-  const bf16* kb = k + (long)b * T_ * stride + (long)h * D;
-  const bf16* vb = v + (long)b * T_ * stride + (long)h * D;
-  const float* lseb = lse + (long)blockIdx.y * S;
-  const float* dltb = delta + (long)blockIdx.y * S;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int quad_row = lane / 4, quad_col = (lane % 4) * 2;
+// shared memory of one block, in bytes from a 1024-aligned base
+template <int DP, bool BWD>
+struct Smem {
+  static constexpr int NB = DP / 16;                    // column blocks
+  static constexpr int BN = KEY_TILE<DP>;
+  static constexpr int Q = DP * BM * 2;                 // q (or dO) [BM x DP]
+  static constexpr int KV = DP * BN * 2;                // K (or V) [BN x DP]
+  static constexpr int RING = (BWD ? 2 : 1) * Q;        // K2: dO after q
+  static constexpr int BAR = RING + STAGES * 2 * KV;
+  static constexpr int BYTES = BAR + 8 * (1 + 2 * STAGES) + 1024;  // + alignment slack
+  static_assert(BYTES <= 232448, "shared memory");
+};
 
-  load_tile_bf16<DP, LD>(sQ, q + qoff, stride, q0, S, D, vec);
-  load_tile_bf16<DP, LD>(sDO, dout + qoff, stride, q0, S, D, vec);
+// out: o (K1) or dq (K2), through the same 64-row box as q
+struct Maps {
+  CUtensorMap q, k, v, dout, out;
+};
+
+template <int DP, bool BWD>
+struct Block {
+  using L = Smem<DP, BWD>;
+  uint32_t base;
+  __device__ uint32_t q() const { return base; }
+  __device__ uint32_t dout() const { return base + L::Q; }
+  __device__ uint32_t k(int s) const { return base + L::RING + s * 2 * L::KV; }
+  __device__ uint32_t v(int s) const { return k(s) + L::KV; }
+  __device__ uint32_t bar_q() const { return base + L::BAR; }
+  __device__ uint32_t full(int s) const { return base + L::BAR + 8 * (1 + s); }
+  __device__ uint32_t empty(int s) const { return base + L::BAR + 8 * (1 + STAGES + s); }
+};
+
+// the block's shared memory, its barriers initialised
+template <int DP, bool BWD>
+__device__ __forceinline__ Block<DP, BWD> start(unsigned char* smem_raw, int mode) {
+  const uint32_t raw = fd::smem_addr(smem_raw);
+  const Block<DP, BWD> sm{raw + (1024 - raw % 1024) % 1024};
+  if (threadIdx.x == 0) {
+    const uint32_t loads = mode & TMA ? 1 : 32;  // lane 0's expect_tx, or every lane's arrive
+    mbar_init(sm.bar_q(), loads);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(sm.full(s), loads);
+      mbar_init(sm.empty(s), NCONS);
+    }
+    mbar_fence_init();
+  }
   __syncthreads();
-  uint32_t qf[KS][4], dof[KS][4];
-  #pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    const int off = (warp * 16 + lane % 16) * LD + ks * 16 + (lane / 16) * 8;
-    ldmatrix_x4(qf[ks], sQ + off);
-    ldmatrix_x4(dof[ks], sDO + off);
-  }
-  float row_lse[2], row_dlt[2];
-  #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + quad_row + r * 8;
-    row_lse[r] = row < S ? lseb[row] : 0.0f;
-    row_dlt[r] = row < S ? dltb[row] : 0.0f;
-  }
+  return sm;
+}
 
-  float acc[NO][4];
-  #pragma unroll
-  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
-
-  for (int k0 = 0; k0 < T_; k0 += BN) {
-    __syncthreads();
-    load_tile_bf16<DP, LD>(sK, kb, stride, k0, T_, D, vec);
-    load_tile_bf16<DP, LD>(sV, vb, stride, k0, T_, D, vec);
-    __syncthreads();
-
-    float sacc[NS][4], dpacc[NS][4];
-    #pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      #pragma unroll
-      for (int e = 0; e < 4; ++e) sacc[j][e] = dpacc[j][e] = 0.0f;
-    }
-    #pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      #pragma unroll
-      for (int j2 = 0; j2 < NS / 2; ++j2) {
-        const int off = (j2 * 16 + lane % 8 + (lane / 16) * 8) * LD + ks * 16 + ((lane / 8) % 2) * 8;
-        uint32_t kf[4], vf[4];
-        ldmatrix_x4(kf, sK + off);
-        ldmatrix_x4(vf, sV + off);
-        mma_16816(sacc[2 * j2], qf[ks], kf[0], kf[1]);
-        mma_16816(sacc[2 * j2 + 1], qf[ks], kf[2], kf[3]);
-        mma_16816(dpacc[2 * j2], dof[ks], vf[0], vf[1]);
-        mma_16816(dpacc[2 * j2 + 1], dof[ks], vf[2], vf[3]);
+// the producer warp: the block's q (and dO) rows once, then every K and V
+// tile through the ring
+template <int DP, bool BWD>
+__device__ __forceinline__ void produce(const Block<DP, BWD>& sm, const Maps& maps, const bf16* q,
+                                        const bf16* k, const bf16* v, const bf16* dout, int S, int T_,
+                                        int H, int D, int mode) {
+  using L = Smem<DP, BWD>;
+  const int lane = threadIdx.x % 32;
+  const int b = blockIdx.y / H, h = blockIdx.y % H, q0 = blockIdx.x * BM;
+  const long stride = (long)H * D;
+  const long qoff = (long)b * S * stride + (long)h * D, koff = (long)b * T_ * stride + (long)h * D;
+  const bool tma = mode & TMA, pairs = mode & PAIRS;
+  if (tma) {
+    if (lane == 0) {
+      // a warpgroup's 64-row box wholly past S is not loaded: its rows are
+      // never stored, and nothing reads across rows
+      const int boxes = q0 + 64 < S ? 2 : 1;
+      mbar_expect_tx(sm.bar_q(), (BWD ? 2 : 1) * boxes * L::Q / NWG);
+      for (int cb = 0; cb < L::NB; ++cb) {
+        for (int w = 0; w < boxes; ++w) {
+          const uint32_t off = cb * BM * 32 + w * 64 * 32;
+          tma_load(sm.q() + off, maps.q, 16 * cb, h, q0 + 64 * w, b, sm.bar_q());
+          if constexpr (BWD) tma_load(sm.dout() + off, maps.dout, 16 * cb, h, q0 + 64 * w, b, sm.bar_q());
+        }
       }
     }
-    // ds = p * (dp - delta), p = exp(scale s - lse); keys >= T give p = 0
-    #pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + j * 8 + quad_col + (e & 1);
-        const float p = col < T_ ? expf(sacc[j][e] * scale - row_lse[e / 2]) : 0.0f;
-        sacc[j][e] = p * (dpacc[j][e] - row_dlt[e / 2]);
-      }
-    }
-    // acc += ds . k, ds rounded to bf16 straight from the registers
-    #pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      const uint32_t af[4] = {
-          pack_bf16(sacc[2 * kk][0], sacc[2 * kk][1]),
-          pack_bf16(sacc[2 * kk][2], sacc[2 * kk][3]),
-          pack_bf16(sacc[2 * kk + 1][0], sacc[2 * kk + 1][1]),
-          pack_bf16(sacc[2 * kk + 1][2], sacc[2 * kk + 1][3]),
-      };
-      #pragma unroll
-      for (int np = 0; np < NO / 2; ++np) {
-        uint32_t bf[4];
-        ldmatrix_x4_trans(bf, sK + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * LD +
-                                  np * 16 + (lane / 16) * 8);
-        mma_16816(acc[2 * np], af, bf[0], bf[1]);
-        mma_16816(acc[2 * np + 1], af, bf[2], bf[3]);
-      }
-    }
+  } else {
+    copy_tile<DP, BM>(sm.q(), q + qoff, stride, q0, S, D, pairs, lane);
+    if constexpr (BWD) copy_tile<DP, BM>(sm.dout(), dout + qoff, stride, q0, S, D, pairs, lane);
+    cp_async_wait_all();
+    fence_async_smem();
+    mbar_arrive(sm.bar_q());
   }
-
-  bf16* dqb = dq + qoff;
-  #pragma unroll
-  for (int n = 0; n < NO; ++n) {
-    #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = q0 + warp * 16 + quad_row + (e / 2) * 8;
-      const int col = n * 8 + quad_col + (e & 1);
-      if (row < S && col < D) dqb[(long)row * stride + col] = __float2bfloat16(acc[n][e] * scale);
+  const int n_tiles = (T_ + L::BN - 1) / L::BN;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % STAGES, k0 = it * L::BN;
+    mbar_wait(sm.empty(s), ((it / STAGES) & 1) ^ 1);
+    if (tma) {
+      if (lane == 0) {
+        mbar_expect_tx(sm.full(s), 2 * L::KV);
+        for (int cb = 0; cb < L::NB; ++cb) {
+          tma_load(sm.k(s) + cb * L::BN * 32, maps.k, 16 * cb, h, k0, b, sm.full(s));
+          tma_load(sm.v(s) + cb * L::BN * 32, maps.v, 16 * cb, h, k0, b, sm.full(s));
+        }
+      }
+    } else {
+      copy_tile<DP, L::BN>(sm.k(s), k + koff, stride, k0, T_, D, pairs, lane);
+      copy_tile<DP, L::BN>(sm.v(s), v + koff, stride, k0, T_, D, pairs, lane);
+      cp_async_wait_all();
+      fence_async_smem();
+      mbar_arrive(sm.full(s));
     }
   }
 }
+
+// acc = A B^T for this warpgroup's 64 rows of a [BM x DP] tile at `a` and a
+// key tile [BN x DP] at `b`, both K-major (S = Q K^T, dP = dO V^T)
+template <int DP, int BN>
+__device__ __forceinline__ void gemm_ss(float (&acc)[BN / 2], uint32_t a, uint32_t b) {
+  #pragma unroll
+  for (int ks = 0; ks < DP / 16; ++ks)
+    fd::Gmma<BN>::template ss<0, 0>(acc, desc(a + ks * BM * 32, 16, 256), desc(b + ks * BN * 32, 16, 256),
+                                    ks > 0);
+}
+
+// acc += A B for A [64 x BN] in registers (bf16 fragments) and the key tile
+// [BN x DP] at `b` read MN-major (O += P V, dQ += dS K)
+template <int DP, int BN>
+__device__ __forceinline__ void gemm_rs(float (&acc)[DP / 2], const uint32_t (&a)[BN / 16][4], uint32_t b) {
+  #pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk)
+    fd::Gmma<DP>::template rs<1>(acc, a[kk], desc(b + kk * 512, BN * 32, 256), 1);
+}
+
+// a [64 x N] fp32 accumulator as the bf16 A fragments of the next product
+template <int N>
+__device__ __forceinline__ void pack(const float (&acc)[N / 2], uint32_t (&a)[N / 16][4]) {
+  #pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    #pragma unroll
+    for (int i = 0; i < 4; ++i) a[kk][i] = fd::pack_bf16(acc[8 * kk + 2 * i], acc[8 * kk + 2 * i + 1]);
+  }
+}
+
+// one score tile of the online softmax, in place: s -> p = ex2(s sl2 - m2)
+// with m2 the running row max in log2 units; keys at or past `limit` (< BN
+// on the last tile only) masked to -inf. alpha: each row's rescale of the
+// running sums; l: this thread's partial row sums
+template <int BN>
+__device__ __forceinline__ void online_softmax(float (&s)[BN / 2], float (&m2)[2], float (&l)[2],
+                                               float (&alpha)[2], float sl2, int limit, int lane) {
+  if (limit < BN) {
+    #pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      #pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (8 * j + 2 * (lane % 4) + (e & 1) >= limit) s[4 * j + e] = -INFINITY;
+    }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+  #pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    #pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], s[4 * j + e]);
+  }
+  #pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m2[r], mx[r] * sl2);  // finite: key 0 of tile 0 is valid
+    alpha[r] = ex2(m2[r] - m_new);                  // 0 on the first tile
+    m2[r] = m_new;
+    l[r] *= alpha[r];
+  }
+  #pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    #pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = ex2(fmaf(s[4 * j + e], sl2, -m2[e / 2]));
+      l[e / 2] += p;  // fp32 p in the sum, as the TPU kernel
+      s[4 * j + e] = p;
+    }
+  }
+}
+
+// this warpgroup's [64 x DP] output tile, acc times its row's factor `f`,
+// rounded to bf16: staged in the warpgroup's own q rows (no wgmma reads them
+// any more) and stored by TMA through the clipping map, or stored plainly
+template <int DP, bool BWD>
+__device__ __forceinline__ void store_out(const Block<DP, BWD>& sm, const Maps& maps, bf16* out,
+                                          const float (&acc)[DP / 2], const float (&f)[2], int S, int H,
+                                          int D, int mode) {
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128, lane = t % 32;
+  const int b = blockIdx.y / H, h = blockIdx.y % H, q0 = blockIdx.x * BM;
+  const int r_lo = 64 * wg + 16 * (t / 32) + lane / 4;  // this thread's rows: r_lo, r_lo + 8
+  if (mode & TMA) {
+    #pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      #pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        st_shared(sm.q() + swz(r_lo + 8 * hf, 8 * j + 2 * (lane % 4), BM),
+                  fd::pack_bf16(acc[4 * j + 2 * hf] * f[hf], acc[4 * j + 2 * hf + 1] * f[hf]));
+    }
+    fence_async_smem();
+    named_sync(1 + wg, 128);  // the warpgroup's tile is in shared memory
+    if (t == 0 && q0 + 64 * wg < S) {
+      for (int cb = 0; cb < DP / 16; ++cb)
+        tma_store(maps.out, 16 * cb, h, q0 + 64 * wg, b, sm.q() + cb * BM * 32 + wg * 64 * 32);
+      bulk_commit();
+      bulk_wait();  // shared memory outlives the stores that read it
+    }
+  } else {
+    const long stride = (long)H * D, qoff = (long)b * S * stride + (long)h * D;
+    #pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      #pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = q0 + r_lo + (e / 2) * 8, col = 8 * j + 2 * (lane % 4) + (e & 1);
+        if (row < S && col < D) out[qoff + (long)row * stride + col] = __float2bfloat16(acc[4 * j + e] * f[e / 2]);
+      }
+    }
+  }
+}
+
+// the two consumer warpgroups issue their products in turns (named
+// barriers 3 and 4): while one's are on the tensor cores, the other runs
+// its exponentials
+__device__ __forceinline__ void my_turn(int wg) { named_sync(3 + wg, NCONS); }
+__device__ __forceinline__ void your_turn(int wg, bool last) {
+  if (!(last && wg == 1)) named_arrive(3 + (wg ^ 1), NCONS);  // warpgroup 1's last pass has no taker
+}
+
+// K1 (lse written where `lse` is not null)
+template <int DP>
+__global__ void __launch_bounds__(NTHR, 1)
+    flash_fwd_kernel(const __grid_constant__ Maps maps, const bf16* __restrict__ q,
+                     const bf16* __restrict__ k, const bf16* __restrict__ v,
+                     const bf16* __restrict__ dout, const float* __restrict__ lse_in,
+                     const float* __restrict__ delta, bf16* __restrict__ o, float* __restrict__ lse,
+                     int S, int T_, int H, int D, float scale, int mode) {
+  constexpr int BN = KEY_TILE<DP>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const auto sm = start<DP, false>(smem_raw, mode);
+  const int wg = threadIdx.x / 128;
+  if (wg == NWG) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x % 128 < 32) produce(sm, maps, q, k, v, nullptr, S, T_, H, D, mode);
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int t = threadIdx.x % 128, lane = t % 32;
+  const uint32_t a_q = sm.q() + wg * 64 * 32;
+  const int n_tiles = (T_ + BN - 1) / BN;
+  const float sl2 = scale * LOG2E;
+  float oacc[DP / 2], sacc[BN / 2];
+  uint32_t pa[BN / 16][4];
+  float m2[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f}, alpha[2];
+  #pragma unroll
+  for (int i = 0; i < DP / 2; ++i) oacc[i] = 0.0f;
+  if (wg == 1) named_arrive(3, NCONS);  // warpgroup 0 issues first
+  mbar_wait(sm.bar_q(), 0);
+
+  // tile 0's scores; then each step issues tile it's S and tile it-1's P.V
+  // together and runs tile it's softmax while P.V is in flight
+  mbar_wait(sm.full(0), 0);
+  keep(sacc);
+  my_turn(wg);
+  wg_fence();
+  gemm_ss<DP, BN>(sacc, a_q, sm.k(0));
+  wg_commit();
+  your_turn(wg, false);
+  wg_wait();
+  keep(sacc);
+  online_softmax<BN>(sacc, m2, l, alpha, sl2, T_, lane);
+  pack<BN>(sacc, pa);  // o is still 0: nothing to rescale
+  for (int it = 1; it < n_tiles; ++it) {
+    const int s = it % STAGES, sp = (it - 1) % STAGES;
+    mbar_wait(sm.full(s), (it / STAGES) & 1);
+    my_turn(wg);
+    wg_fence();
+    gemm_ss<DP, BN>(sacc, a_q, sm.k(s));
+    wg_commit();
+    gemm_rs<DP, BN>(oacc, pa, sm.v(sp));
+    wg_commit();
+    your_turn(wg, false);
+    wg_wait<1>();  // S is done; P.V may still run
+    keep(sacc);
+    online_softmax<BN>(sacc, m2, l, alpha, sl2, T_ - it * BN, lane);
+    wg_wait();
+    keep(oacc);
+    keep(pa);
+    mbar_arrive(sm.empty(sp));
+    #pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      oacc[4 * j] *= alpha[0];
+      oacc[4 * j + 1] *= alpha[0];
+      oacc[4 * j + 2] *= alpha[1];
+      oacc[4 * j + 3] *= alpha[1];
+    }
+    pack<BN>(sacc, pa);
+  }
+  const int sl = (n_tiles - 1) % STAGES;
+  my_turn(wg);
+  wg_fence();
+  gemm_rs<DP, BN>(oacc, pa, sm.v(sl));
+  wg_commit();
+  your_turn(wg, true);
+  wg_wait();
+  keep(oacc);
+  keep(pa);
+  mbar_arrive(sm.empty(sl));
+
+  // l over the row's quad, clamped; lse = m + log l (natural log, fp32)
+  float inv[2];
+  #pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = fmaxf(l[r], 1e-30f);
+    const int row = blockIdx.x * BM + 64 * wg + 16 * (t / 32) + lane / 4 + 8 * r;
+    if (lse != nullptr && lane % 4 == 0 && row < S)
+      lse[(long)blockIdx.y * S + row] = m2[r] * (1.0f / LOG2E) + logf(l[r]);
+    inv[r] = 1.0f / l[r];
+  }
+  store_out(sm, maps, o, oacc, inv, S, H, D, mode);
+}
+
+// ds = p (dp - delta) in place of dp, p = ex2(s sl2 - lse2); keys at or
+// past `limit` (< BN on the last tile only) give 0
+template <int BN>
+__device__ __forceinline__ void dscore(const float (&s)[BN / 2], float (&dp)[BN / 2], const float (&lse2)[2],
+                                       const float (&dlt)[2], float sl2, int limit, int lane) {
+  #pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    #pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = ex2(fmaf(s[4 * j + e], sl2, -lse2[e / 2]));
+      const float ds = p * (dp[4 * j + e] - dlt[e / 2]);
+      dp[4 * j + e] = limit < BN && 8 * j + 2 * (lane % 4) + (e & 1) >= limit ? 0.0f : ds;
+    }
+  }
+}
+
+// K2: dq = scale dS K, with dS = bf16(p (dO V^T - delta)), p = exp(scale Q
+// K^T - lse). Tile j+1's S and dP are issued before tile j's dS.K, and its
+// ds is computed while dS.K runs; the warpgroups issue in turns, as in K1
+template <int DP>
+__global__ void __launch_bounds__(NTHR, 1)
+    flash_dq_kernel(const __grid_constant__ Maps maps, const bf16* __restrict__ q,
+                    const bf16* __restrict__ k, const bf16* __restrict__ v,
+                    const bf16* __restrict__ dout, const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dq, float* __restrict__ lse_out,
+                    int S, int T_, int H, int D, float scale, int mode) {
+  constexpr int BN = KEY_TILE<DP>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const auto sm = start<DP, true>(smem_raw, mode);
+  const int wg = threadIdx.x / 128;
+  if (wg == NWG) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x % 128 < 32) produce(sm, maps, q, k, v, dout, S, T_, H, D, mode);
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int t = threadIdx.x % 128, lane = t % 32;
+  const uint32_t a_q = sm.q() + wg * 64 * 32, a_do = sm.dout() + wg * 64 * 32;
+  const int n_tiles = (T_ + BN - 1) / BN;
+  const float sl2 = scale * LOG2E;
+  // this thread's two rows: lse in log2 units and delta (0 past S, where q
+  // and dO are zero, so ds = 0 there)
+  float lse2[2], dlt[2];
+  #pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = blockIdx.x * BM + 64 * wg + 16 * (t / 32) + lane / 4 + 8 * r;
+    lse2[r] = row < S ? lse[(long)blockIdx.y * S + row] * LOG2E : 0.0f;
+    dlt[r] = row < S ? delta[(long)blockIdx.y * S + row] : 0.0f;
+  }
+  float dqacc[DP / 2], sacc[BN / 2], dpacc[BN / 2];
+  uint32_t da[BN / 16][4];
+  #pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dqacc[i] = 0.0f;
+  // issues S and dP of tile `it` (its slot full), in this warpgroup's turn
+  auto scores = [&](int it) {
+    const int s = it % STAGES;
+    mbar_wait(sm.full(s), (it / STAGES) & 1);
+    my_turn(wg);
+    wg_fence();
+    gemm_ss<DP, BN>(sacc, a_q, sm.k(s));
+    gemm_ss<DP, BN>(dpacc, a_do, sm.v(s));
+    wg_commit();
+  };
+  if (wg == 1) named_arrive(3, NCONS);  // warpgroup 0 issues first
+  mbar_wait(sm.bar_q(), 0);
+  keep(sacc);
+  keep(dpacc);
+
+  scores(0);
+  your_turn(wg, false);
+  wg_wait();
+  keep(sacc);
+  keep(dpacc);
+  dscore<BN>(sacc, dpacc, lse2, dlt, sl2, T_, lane);
+  pack<BN>(dpacc, da);
+  for (int it = 0; it + 1 < n_tiles; ++it) {
+    scores(it + 1);  // tile it's ds is packed: S and dP are free
+    gemm_rs<DP, BN>(dqacc, da, sm.k(it % STAGES));
+    wg_commit();
+    your_turn(wg, false);
+    wg_wait<1>();  // tile it+1's S and dP are done; dS.K may still run
+    keep(sacc);
+    keep(dpacc);
+    dscore<BN>(sacc, dpacc, lse2, dlt, sl2, T_ - (it + 1) * BN, lane);
+    wg_wait();
+    keep(dqacc);
+    keep(da);
+    mbar_arrive(sm.empty(it % STAGES));
+    pack<BN>(dpacc, da);
+  }
+  const int sl = (n_tiles - 1) % STAGES;
+  my_turn(wg);
+  wg_fence();
+  gemm_rs<DP, BN>(dqacc, da, sm.k(sl));
+  wg_commit();
+  your_turn(wg, true);
+  wg_wait();
+  keep(dqacc);
+  keep(da);
+  mbar_arrive(sm.empty(sl));
+  const float f[2] = {scale, scale};
+  store_out(sm, maps, dq, dqacc, f, S, H, D, mode);
+}
+
+}  // namespace qb
 
 // ---------------------------------------------------------------------------
 // bf16 key-block backward on wgmma and TMA: K3 (dk, dv) and K6 (dq, dk, dv)
@@ -391,7 +579,7 @@ __global__ void __launch_bounds__(NTHREADS)
 // - Every product is a wgmma: S^T = K Q^T and dP^T = V dO^T with both
 //   operands in shared memory; dV += bf16(P^T) dO and dK += bf16(dS^T) Q
 //   with A from registers (the accumulator of the first pair becomes the A
-//   fragment of the second with one bf16 pack, as on mma.sync). The two
+//   fragment of the second with one bf16 pack). The two
 //   warpgroups drift apart where nothing joins them, so one's exponentials
 //   run beside the other's products.
 // - K6: the key warpgroups write dS^T (bf16, the plain version's rounding)
@@ -434,130 +622,6 @@ constexpr int NCONS = NWG * 128;
 // + K6's dq warpgroup, + the producer warpgroup (one warp works)
 template <bool WITH_DQ>
 constexpr int NTHR = NCONS + (WITH_DQ ? 256 : 128);
-constexpr float LOG2E = 1.4426950408889634f;
-// mode bits of a launch
-constexpr int TMA = 1;        // tiles by TMA, dk/dv by TMA stores
-constexpr int LSE_BULK = 2;   // lse and delta rows by 1-D bulk copies
-constexpr int PAIRS = 4;      // fallback: 4-byte cp.async (even D, aligned)
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-// one box of a 4-D tensor map (d, h, row, b) into shared memory
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap& map, int d, int h, int row,
-                                         int b, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(&map)), "r"(d), "r"(h), "r"(row), "r"(b), "r"(bar)
-      : "memory");
-}
-__device__ __forceinline__ void tma_store(const CUtensorMap& map, int d, int h, int row, int b,
-                                          uint32_t src) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%1, %2, %3, %4}], [%5];\n"
-      ::"l"(reinterpret_cast<uint64_t>(&map)), "r"(d), "r"(h), "r"(row), "r"(b), "r"(src)
-      : "memory");
-}
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
-}
-__device__ __forceinline__ void bulk_reduce_add(float* dst, uint32_t src, uint32_t bytes) {
-  asm volatile("cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n"
-               ::"l"(dst), "r"(src), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-__device__ __forceinline__ void bulk_wait() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
-// generic-proxy shared-memory writes made visible to the async proxy (wgmma, TMA)
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void named_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 4 : 0) : "memory");
-}
-__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
-  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
-}
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_wait() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
-// pins registers that an in-flight wgmma reads or writes in place: the
-// compiler may neither move their other uses across this point nor reuse them
-template <int R>
-__device__ __forceinline__ void keep(float (&r)[R]) {
-  #pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int R>
-__device__ __forceinline__ void keep(uint32_t (&r)[R][4]) {
-  #pragma unroll
-  for (int i = 0; i < R; ++i)
-    asm volatile("" : "+r"(r[i][0]), "+r"(r[i][1]), "+r"(r[i][2]), "+r"(r[i][3])::"memory");
-}
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-// wgmma shared-memory descriptor for the 32-byte swizzle (layout type 3);
-// lbo and sbo in bytes
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (3ull << 62);
-}
-// byte offset of element (r, c) in a tile of `rows` rows kept as column
-// blocks of 16 bf16 (32-byte rows) with TMA's 32-byte swizzle: address bit
-// 4 (which 16-byte half) flips with bit 7 (r / 4 odd)
-__device__ __forceinline__ uint32_t swz(int r, int c, int rows) {
-  return (c / 16) * rows * 32 + r * 32 + ((((c % 16) / 8) ^ ((r >> 2) & 1)) << 4) + (c % 8) * 2;
-}
-
-// the fallback producer: rows [row0, row0 + ROWS) of a [*, D] slab (row
-// stride `stride`) into the swizzled tile at `dst` by the 32 lanes of one
-// warp; zero outside the slab and past D
-template <int DP, int ROWS>
-__device__ __forceinline__ void copy_tile(uint32_t dst, const bf16* src, long stride, int row0,
-                                          int n_rows, int D, bool pairs, int lane) {
-  constexpr int NP = DP / 2;  // bf16 pairs a row
-  for (int idx = lane; idx < ROWS * NP; idx += 32) {
-    const int r = idx / NP, c = (idx % NP) * 2;
-    const bool row_ok = row0 + r < n_rows;
-    const bf16* g = src + (long)(row0 + r) * stride + c;
-    const uint32_t a = dst + swz(r, c, ROWS);
-    if (pairs) {
-      cp_async4(a, row_ok && c < D ? g : src, row_ok && c < D);
-    } else {
-      const auto* u = reinterpret_cast<const unsigned short*>(g);
-      const uint32_t lo = row_ok && c < D ? u[0] : 0u, hi = row_ok && c + 1 < D ? u[1] : 0u;
-      st_shared(a, lo | (hi << 16));
-    }
-  }
-}
 
 // shared memory of one block, in bytes from a 1024-aligned base
 template <int DP, bool WITH_DQ>
@@ -626,7 +690,7 @@ __global__ void __launch_bounds__(NTHR<WITH_DQ>, 1)
       mbar_init(bar_ds_full(b), NCONS);
       mbar_init(bar_ds_empty(b), 128);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -651,7 +715,7 @@ __global__ void __launch_bounds__(NTHR<WITH_DQ>, 1)
     } else {
       copy_tile<DP, BK>(sK, k + koff, stride, k0, T_, D, pairs, lane);
       copy_tile<DP, BK>(sV, v + koff, stride, k0, T_, D, pairs, lane);
-      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      cp_async_wait_all();
       fence_async_smem();
       mbar_arrive(bar_kv);
     }
@@ -684,7 +748,7 @@ __global__ void __launch_bounds__(NTHR<WITH_DQ>, 1)
       }
       if (lanes_arrive) {
         if (!tma) {
-          asm volatile("cp.async.wait_all;\n" ::: "memory");
+          cp_async_wait_all();
           fence_async_smem();
         }
         mbar_arrive(bar_full(s));
@@ -1220,67 +1284,31 @@ int set_smem(Kernel kernel, size_t bytes) {
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-template <int DP>
-int launch_fwd_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse, int B,
-                    int S, int T_, int H, int D, float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(bf16) * 3 * BM * (DP + 8);
-  if (int err = set_smem(flash_fwd_bf16_kernel<DP>, smem)) return err;
-  const bool vec = D % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
-  const dim3 grid((S + BM - 1) / BM, B * H);
-  flash_fwd_bf16_kernel<DP><<<grid, NTHREADS, smem, stream>>>(q, k, v, o, lse, S, T_, H, D,
-                                                              scale, vec);
+// K1 (lse_out may be null) or K2 (BWD): TMA where every tensor is 16-byte
+// aligned and its row stride (H * D * 2 bytes) and head stride (D * 2) are
+// multiples of 16 bytes; otherwise the same kernel's cp.async producer
+template <int DP, bool BWD>
+int launch_q(const bf16* q, const bf16* k, const bf16* v, const bf16* dout, const float* lse_in,
+             const float* delta, bf16* out, float* lse_out, int B, int S, int T_, int H, int D, float scale,
+             cudaStream_t stream) {
+  using L = qb::Smem<DP, BWD>;
+  const auto kernel = BWD ? qb::flash_dq_kernel<DP> : qb::flash_fwd_kernel<DP>;
+  if (int err = set_smem(kernel, L::BYTES)) return err;
+  const auto aligned4 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 4 == 0; };
+  const bool tma = D % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out) &&
+                   (!BWD || aligned16(dout));
+  const bool pairs = D % 2 == 0 && aligned4(q) && aligned4(k) && aligned4(v) && (!BWD || aligned4(dout));
+  qb::Maps maps;
+  memset(&maps, 0, sizeof(maps));
+  if (tma && !(tensor_map(&maps.q, q, B, S, H, D, 64) && tensor_map(&maps.out, out, B, S, H, D, 64) &&
+               tensor_map(&maps.k, k, B, T_, H, D, L::BN) && tensor_map(&maps.v, v, B, T_, H, D, L::BN) &&
+               (!BWD || tensor_map(&maps.dout, dout, B, S, H, D, 64))))
+    return (int)cudaErrorInvalidValue;
+  const int mode = (tma ? TMA : 0) | (pairs ? PAIRS : 0);
+  const dim3 grid((S + qb::BM - 1) / qb::BM, B * H);
+  kernel<<<grid, qb::NTHR, L::BYTES, stream>>>(maps, q, k, v, dout, lse_in, delta, out, lse_out, S, T_, H, D,
+                                              scale, mode);
   return (int)cudaGetLastError();
-}
-
-template <int DP>
-int launch_dq_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
-                   const float* lse, const float* delta, bf16* dq, int B, int S, int T_, int H,
-                   int D, float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(bf16) * 4 * BM * (DP + 8);
-  if (int err = set_smem(flash_dq_bf16_kernel<DP>, smem)) return err;
-  const bool vec = D % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout);
-  const dim3 grid((S + BM - 1) / BM, B * H);
-  flash_dq_bf16_kernel<DP><<<grid, NTHREADS, smem, stream>>>(q, k, v, dout, lse, delta, dq, S,
-                                                             T_, H, D, scale, vec);
-  return (int)cudaGetLastError();
-}
-
-// cuTensorMapEncodeTiled is a driver-API call; it is reached through the
-// runtime's driver entry point, so the library links no -lcuda
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled tensor_map_encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
-                                                                      : nullptr;
-  }();
-  return fn;
-}
-
-// a bf16 [B, N, H, D] tensor as a 4-D map (d, h, row, b) with a box of 16
-// head-dim values x `rows` rows and the 32-byte swizzle; out-of-bounds
-// elements read as zero and are not written
-bool tensor_map(CUtensorMap* map, const void* base, int B, int N, int H, int D, int rows) {
-  const EncodeTiled encode = tensor_map_encoder();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)N, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {2ull * D, 2ull * H * D, 2ull * N * H * D};
-  const cuuint32_t box[4] = {16, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
-                unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // K3 (dq32 == nullptr) or K6: TMA where every tensor is 16-byte aligned and
@@ -1304,7 +1332,7 @@ int launch_bwd_kv(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
                tensor_map(&maps.k, k, B, T_, H, D, kv::BK) && tensor_map(&maps.v, v, B, T_, H, D, kv::BK) &&
                tensor_map(&maps.dk, dk, B, T_, H, D, kv::BK) && tensor_map(&maps.dv, dv, B, T_, H, D, kv::BK)))
     return (int)cudaErrorInvalidValue;
-  const int mode = (tma ? kv::TMA : 0) | (lse_bulk ? kv::LSE_BULK : 0) | (pairs ? kv::PAIRS : 0);
+  const int mode = (tma ? TMA : 0) | (lse_bulk ? LSE_BULK : 0) | (pairs ? PAIRS : 0);
   const dim3 grid((T_ + kv::BK - 1) / kv::BK, B * H);
   kernel<<<grid, kv::NTHR<WITH_DQ>, smem, stream>>>(maps, q, k, v, dout, lse, delta, dk, dv, dq32, S, T_, H, D,
                                            scale, mode);
@@ -1336,7 +1364,7 @@ int fwd_bf16(const void* q, const void* k, const void* v, void* o, float* lse, i
   const auto* vv = static_cast<const bf16*>(v);
   auto* oo = static_cast<bf16*>(o);
   auto st = static_cast<cudaStream_t>(stream);
-  FD_DISPATCH_DP(D, launch_fwd_bf16<DP>(qq, kk, vv, oo, lse, B, S, T, H, D, scale, st));
+  FD_DISPATCH_DP(D, (launch_q<DP, false>(qq, kk, vv, nullptr, nullptr, nullptr, oo, lse, B, S, T, H, D, scale, st)));
 }
 
 int fwd_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
@@ -1390,7 +1418,7 @@ extern "C" int fd_flash_dq_bf16(const void* q, const void* k, const void* v, con
   const auto* de = static_cast<const float*>(delta);
   auto* out = static_cast<bf16*>(dq);
   auto st = static_cast<cudaStream_t>(stream);
-  FD_DISPATCH_DP(D, launch_dq_bf16<DP>(qq, kk, vv, dd, ll, de, out, B, S, T, H, D, scale, st));
+  FD_DISPATCH_DP(D, (launch_q<DP, true>(qq, kk, vv, dd, ll, de, out, nullptr, B, S, T, H, D, scale, st)));
 }
 
 extern "C" int fd_flash_dkv_bf16(const void* q, const void* k, const void* v, const void* dout,

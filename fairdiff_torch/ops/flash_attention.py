@@ -10,8 +10,10 @@ the merged backward with the environment variable FAIRDIFF_FLASH_BWD=merged,
 read at trace time; here it is the explicit argument
 `flash_bwd="split" | "merged"`. K6 sums dq across key blocks with fp32
 reduce-adds in no fixed order, so its dq differs from run to run in the
-last bits. K3 and K6 are one Hopper kernel (wgmma products, tiles fed by
-TMA).
+last bits. Every bf16 kernel runs its products on wgmma with tiles fed by
+TMA: K1 and K2 are the query-block design (a block owns q rows and streams
+the key tiles), K3 and K6 the key-block design (a block owns keys and
+streams the q tiles).
 
 The CUDA kernels are `csrc/flash_attention.cu`; they read q/k/v/dO in the
 JAX package's [B, S, H, D] layout straight from memory, so no wrapper makes

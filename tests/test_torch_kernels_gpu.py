@@ -226,6 +226,45 @@ def test_flash_key_block_bwd_edges(cuda, b, s, t, h, d):
     assert torch.equal(merged[1], again[1]) and torch.equal(merged[2], again[2])
 
 
+# the edges of the query-block kernels (K1, K2: one wgmma kernel design fed
+# by TMA, 128 q rows a block, 128-key tiles up to D = 80 and 64-key tiles
+# above): layouts TMA cannot address (D = 20 at H = 3; an odd D), S shorter
+# than a block, S off it, T off the key tile and T shorter than one,
+# D = 128, and the UNet's two path shapes, as (B, S, T, H, D)
+Q_EDGE_SHAPES = [(2, 33, 70, 3, 20), (2, 9, 40, 1, 7), (2, 100, 256, 2, 40), (1, 300, 1000, 3, 64),
+                 (2, 64, 300, 2, 80), (2, 130, 50, 2, 40), (2, 200, 129, 2, 128),
+                 (8, 4096, 4096, 8, 40), (8, 1024, 1024, 8, 80)]
+
+
+@pytest.mark.parametrize("b,s,t,h,d", Q_EDGE_SHAPES)
+def test_flash_query_block_edges(cuda, b, s, t, h, d):
+    """K1 (with and without lse) and K2 against their plain versions at the
+    query-block kernels' edges, and each run twice: every o, lse and dq
+    element is written once, by one block, in a fixed order, so both runs
+    are bit-equal. The reference is fp64, or fp32 at the UNet shapes."""
+    mk = lambda n: torch.randn(b, n, h, d, generator=cuda, device="cuda", dtype=torch.bfloat16)
+    q, k, v, do = mk(s), mk(t), mk(t), mk(s)
+    before = (fa.launches, fa.launches_lse, fa.launches_dq)
+    o = fa.flash_attention(q, k, v)
+    o_l, lse = fa.flash_attention_lse(q, k, v)
+    delta = fa.attention_delta(o_l, do)
+    dq = fa.flash_attention_dq(q, k, v, do, lse, delta)
+    assert (fa.launches, fa.launches_lse, fa.launches_dq) == tuple(n + 1 for n in before)
+    xd = torch.float32 if b * h * s * t > 2**26 else torch.float64
+    qx, kx, vx, dox = (x.to(xd) for x in (q, k, v, do))
+    o_lx, lse_x = fa.flash_attention_lse_plain(qx, kx, vx)
+    o_lp, _ = fa.flash_attention_lse_plain(q, k, v)
+    assert_matches(o, fa.flash_attention_plain(q, k, v), fa.flash_attention_plain(qx, kx, vx))
+    assert_matches(o_l, o_lp, o_lx)
+    torch.testing.assert_close(lse.to(xd), lse_x, atol=1e-4, rtol=1e-5)
+    assert_matches(dq, fa.flash_attention_dq_plain(q, k, v, do, lse, delta),
+                   fa.flash_attention_dq_plain(qx, kx, vx, dox, lse_x, fa.attention_delta(o_lx, dox)))
+    assert torch.equal(fa.flash_attention(q, k, v), o)
+    o2, lse2 = fa.flash_attention_lse(q, k, v)
+    assert torch.equal(o2, o_l) and torch.equal(lse2, lse)
+    assert torch.equal(fa.flash_attention_dq(q, k, v, do, lse, delta), dq)
+
+
 def test_flash_merged_route_through_autograd(cuda):
     """flash_bwd="merged" sends the autograd backward through K6 only."""
     q, k, v, do = (x.requires_grad_() for x in _qkv_do(cuda, torch.bfloat16, 64, 600, 2, 40))
