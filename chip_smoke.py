@@ -7,13 +7,17 @@ Phases (any failure raises and exits non-zero):
   1. device: name, power limit, TF32 off for matmuls and convolutions;
   2. build: the three CUDA sources of fairdiff_torch/csrc with nvcc (sm_90a);
   3. each kernel against its plain PyTorch version on the card, in bf16, at
-     the shapes the SD-1.5 path gives it (CFG batch of N=2 images), both
-     against an fp32 reference, with a dropped-tile control, K1 run twice
-     (bit-equal), and with kernel, plain and library times, the datasheet
-     bound and the kernel's factor over both;
+     the shapes the SD-1.5 path gives it (CFG batch of N=2 images; K1 also
+     at [8,576,8,160], the 1280-channel blocks at 768 px), both against an
+     fp32 reference, with a dropped-tile control, K1 run twice (bit-equal),
+     and with kernel, plain and library times, the datasheet bound and the
+     kernel's factor over both;
   4. one full-width SD-1.5 UNet forward in fp32 on the card (kernels)
      against the same weights and inputs on the CPU (plain versions), then
      the same forward in bf16 on the card, kernels against the plain routes;
+     then unet-768: a bf16 CFG forward at 768 px (sample_size 96, 2 rows)
+     with the same limits against the plain routes' fp32 output, 15 K1
+     launches of which 5 at head dim 160;
   5. the slice: `fairdiff_torch.tools.gen_images.main` at full width on
      random weights, 2 prompts x 2 images, batch 2, 30 steps, with the
      kernel launch counts checked against 10 (flash) and 16 (GEGLU) per
@@ -21,11 +25,13 @@ Phases (any failure raises and exits non-zero):
   6. throughput: one 50-step CFG generate at batch 4, in img/s;
   7. kernels-bwd: the training kernels K1 with lse, K2 (dq), K3 (dk/dv) and
      K5 (GEGLU dx), bf16 and fp32, each against its plain version at the
-     phase-4 shapes (a pair VJP's CFG batch of 2p = 8 rows) and a ragged
-     shape, with phase 3's limits and dropped-tile controls, K1 with lse,
-     K2, K3 and K6 each run twice (o, lse, dq, dk, dv bit-equal; K6's dq
-     within its summation order), and with kernel, plain and library times,
-     the bound and the kernel's factor over both;
+     phase-4 shapes (a pair VJP's CFG batch of 2p = 8 rows; the flash
+     kernels also at [8,576,8,160], where the merged route runs K3 then K2)
+     and a ragged shape, with phase 3's limits and dropped-tile controls, K1
+     with lse, K2, K3, K5 and K6 each run twice (o, lse, dq, dk, dv, dx
+     bit-equal; K6's dq within its summation order), and with kernel, plain
+     and library times, the bound and the kernel's factor over both (K5's
+     dproj and split-K bytes logged beside the bound);
   8. unet-vjp: one full-width SD-1.5 pair VJP (8 rows, bf16, remat), every
      K2, K3 and K5 launch held against its plain version on its operands,
      the context gradient against the plain routes and an fp32 run, launch
@@ -39,8 +45,10 @@ Phases (any failure raises and exits non-zero):
  11. kernels-gn: K7 (GroupNorm+SiLU) through `FusedGroupNorm`, forward and
      backward, at every distinct GroupNorm shape of one SD-1.5 CFG UNet call
      at batch 8, bf16 and fp32, against its plain version with phase 3's
-     limits and a dropped-row-chunk control, with times (phase 7 also
-     holds K6, the merged backward, against its plain version and K2/K3);
+     limits, a control that leaves the last CTA's slice of rows out of the
+     statistics and a bit-equal rerun, with times beside F.group_norm (+
+     F.silu) (phase 7 also holds K6, the merged backward, against its plain
+     version and K2/K3);
  12. unet-vjp-merged: phase 8 with flash_bwd="merged": K6 9 launches, K2
      and K3 none, the context gradient against the plain routes and fp32;
  13. zoo: each real-architecture guidance model (detector, MobileNetV3,
@@ -59,6 +67,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import json
 import os
 import subprocess
@@ -108,6 +117,8 @@ UNET_REL_L2_TOL = 1e-3
 # must break.
 UNET_BF16_REL_L2_TOL = 3e-2
 UNET_BF16_ACCURACY_RATIO = 1.1
+# one no-grad CFG UNet call at 512 px (phases 1 and 3, generation)
+UNET_CALL_LAUNCHES = {"flash_attention": 10, "geglu": 16}
 
 
 def key_tile(d: int) -> int:
@@ -156,11 +167,13 @@ def rel_l2(got: torch.Tensor, ref: torch.Tensor) -> float:
 
 
 def compare(got: torch.Tensor, ref: torch.Tensor, exact: torch.Tensor,
-            dropped: torch.Tensor | None = None) -> dict:
+            dropped: torch.Tensor | None = None, control_by_accuracy: bool = False) -> dict:
     """Kernel output `got` against the plain version `ref` (same inputs and
     type), both against the fp32 reference `exact`, and the dropped-tile
-    control `dropped`, where given, against `ref`. `failed` names the limits
-    that broke."""
+    control `dropped`, where given, against `ref`: it must break the rel L2
+    limit, or, with `control_by_accuracy`, the rel L2 limit or the accuracy
+    ratio against `exact` (the two limits every kernel output is held to).
+    `failed` names the limits that broke."""
     g, r = got.float(), ref.float()
     rms = r.pow(2).mean().sqrt().item()
     diff = (g - r).abs()
@@ -170,14 +183,17 @@ def compare(got: torch.Tensor, ref: torch.Tensor, exact: torch.Tensor,
         rel_l2=rel_l2(got, ref), kernel_vs_f32=rel_l2(got, exact),
         plain_vs_f32=rel_l2(ref, exact),
         control_rel_l2=None if dropped is None else rel_l2(dropped, ref),
+        control_vs_f32=None if dropped is None else rel_l2(dropped, exact),
     )
+    control_seen = dropped is None or out["control_rel_l2"] > KERNEL_REL_L2_TOL or (
+        control_by_accuracy and out["control_vs_f32"] > ACCURACY_RATIO * out["plain_vs_f32"])
     out["failed"] = [
         name for name, ok in (
             ("finite", bool(torch.isfinite(g).all())),
             ("element", elem_use <= 1.0),
             ("rel L2", out["rel_l2"] <= KERNEL_REL_L2_TOL),
             ("accuracy", out["kernel_vs_f32"] <= ACCURACY_RATIO * out["plain_vs_f32"]),
-            ("control", dropped is None or out["control_rel_l2"] > KERNEL_REL_L2_TOL),
+            ("control", control_seen),
         ) if not ok
     ]
     return out
@@ -221,6 +237,7 @@ def phase_kernels() -> dict[str, dict]:
     for label, qs, kvs in (
         ("self4096", (B, 4096, 8, 40), (B, 4096, 8, 40)),
         ("self1024", (B, 1024, 8, 80), (B, 1024, 8, 80)),
+        ("self576", (PAIR_ROWS, 576, 8, 160), (PAIR_ROWS, 576, 8, 160)),  # 768 px, 1280 channels
         ("ragged", (1, 600, 2, 40), (1, 300, 2, 40)),
     ):
         q = torch.randn(qs, generator=g, device="cuda", dtype=bf)
@@ -336,18 +353,22 @@ def routes(attention, geglu):
         layers.flash_attention, unet2d.geglu = saved
 
 
-def unet_bf16_parity(unet_f32, inputs, exact: torch.Tensor) -> None:
+def unet_bf16_parity(unet_f32, inputs, exact: torch.Tensor, want=UNET_CALL_LAUNCHES,
+                     tag: str = "[unet-bf16]", control_by_accuracy: bool = False) -> list[int]:
     """The bf16 kernels that generation runs, inside one full-width UNet
     forward. Every launch is held against its plain version on the
     activations it was given (the limits of phase 3); the output is held
     against the plain routes on the same weights and inputs and, with them,
     against the fp32 output `exact`, beside a control whose attention drops
-    the last 64-key tile."""
+    the last 64-key tile; `want` is the (flash, GEGLU) launch count;
+    `control_by_accuracy` as in `compare`, for the flash launches. Returns
+    the head dim of every flash launch."""
     from fairdiff_torch.ops import flash_attention as fa
     from fairdiff_torch.ops import geglu as gg
 
     unet = copy.deepcopy(unet_f32).to(torch.bfloat16)
     per_launch: dict[str, list[dict]] = {"flash_attention": [], "geglu": []}
+    head_dims: list[int] = []
 
     def drop_last_tile(q, k, v, *_):
         last = (k.shape[1] - 1) // 64 * 64
@@ -358,9 +379,11 @@ def unet_bf16_parity(unet_f32, inputs, exact: torch.Tensor) -> None:
 
     def checked_attention(q, k, v, *_):
         got = fa.flash_attention(q, k, v)
+        head_dims.append(q.shape[-1])
         per_launch["flash_attention"].append(compare(
             got, fa.flash_attention_plain(q, k, v),
-            fa.flash_attention_plain(q.float(), k.float(), v.float()), drop_last_tile(q, k, v)))
+            fa.flash_attention_plain(q.float(), k.float(), v.float()), drop_last_tile(q, k, v),
+            control_by_accuracy))
         return got
 
     def checked_geglu(x, w, b):
@@ -384,29 +407,74 @@ def unet_bf16_parity(unet_f32, inputs, exact: torch.Tensor) -> None:
     for name, rows in per_launch.items():
         if not rows:
             continue  # the launch count check below fails
-        log(f"[unet-bf16] {name}: {len(rows)} launches in the forward, each against its plain "
+        log(f"{tag} {name}: {len(rows)} launches in the forward, each against its plain "
             f"version: worst elem_use {max(r['elem_use'] for r in rows):.3f}, worst rel_l2 "
             f"{max(r['rel_l2'] for r in rows):.3e}, worst kernel/plain error vs fp32 "
             f"{max(r['kernel_vs_f32'] / r['plain_vs_f32'] for r in rows):.3f}, weakest "
-            f"dropped-tile control {min(r['control_rel_l2'] for r in rows):.3e}")
+            f"dropped-tile control {min(r['control_rel_l2'] for r in rows):.3e} (vs fp32: "
+            f"{min(r['control_vs_f32'] / r['plain_vs_f32'] for r in rows):.3f}x the plain version's error)")
     e_kp, e_k, e_p = rel_l2(kern, plain), rel_l2(kern, exact), rel_l2(plain, exact)
     e_dp, e_d = rel_l2(dropped, plain), rel_l2(dropped, exact)
-    log(f"[unet-bf16] SD-1.5 UNet batch 2 output: kernels vs plain routes rel L2 {e_kp:.3e} "
+    log(f"{tag} SD-1.5 UNet, {inputs[0].shape[0]} rows of {tuple(inputs[0].shape[1:3])} latents: "
+        f"kernels vs plain routes rel L2 {e_kp:.3e} "
         f"(tol {UNET_BF16_REL_L2_TOL:.0e}); vs fp32: kernels {e_k:.3e}, plain {e_p:.3e} "
         f"(kernels <= {UNET_BF16_ACCURACY_RATIO} x plain); dropped-tile control: vs plain "
         f"{e_dp:.3e}, vs fp32 {e_d:.3e} (must exceed {UNET_BF16_ACCURACY_RATIO} x plain); "
-        f"launches {ran}")
+        f"launches {ran} (want {tuple(want.values())}), flash head dims {head_dims}")
     failed = [f"{name} launch {i}: {r['failed']}" for name, rows in per_launch.items()
               for i, r in enumerate(rows) if r["failed"]]
     failed += [name for name, ok in (
-        ("launches", ran == (10, 16)),
+        ("launches", ran == tuple(want.values())),
         ("finite", bool(torch.isfinite(kern).all())),
         ("rel L2", e_kp <= UNET_BF16_REL_L2_TOL),
         ("accuracy", e_k <= UNET_BF16_ACCURACY_RATIO * e_p),
         ("control", e_d > UNET_BF16_ACCURACY_RATIO * e_p),
     ) if not ok]
     if failed:
-        raise AssertionError(f"bf16 UNet parity failed: {failed}")
+        raise AssertionError(f"{tag} bf16 UNet parity failed: {failed}")
+    return head_dims
+
+
+# one no-grad CFG UNet call at 768 px (sample_size 96): self-attention over
+# 9216 (D = 40), 2304 (D = 80) and 576 tokens (D = 160, the 1280-channel
+# blocks: down_2's 2 and up_1's 3) takes K1; mid's 144 tokens do not
+UNET_768_LAUNCHES = {"flash_attention": 15, "geglu": 16}
+UNET_768_D160 = 5
+
+
+def phase_unet_768() -> list[int]:
+    """One bf16 CFG UNet forward at 768 px (sample_size 96; one image, so 2
+    rows) on the card, with the limits of phase 4's bf16 forward against the
+    plain routes' fp32 output on the card (the 576-token attention of the
+    1280-channel blocks, head dim 160, raised ValueError before K1 took
+    D = 160), and exactly UNET_768_D160 K1 launches at D = 160."""
+    from fairdiff_torch.models.layers import init_weights
+    from fairdiff_torch.models.unet2d import UNet2DCondition, UNetConfig
+    from fairdiff_torch.ops import flash_attention as fa
+    from fairdiff_torch.ops import geglu as gg
+
+    g = torch.Generator().manual_seed(6)
+    cfg = dataclasses.replace(UNetConfig.sd15(), sample_size=96)
+    unet = init_weights(UNet2DCondition(cfg), g).eval().cuda()
+    lat = torch.randn(1, cfg.sample_size, cfg.sample_size, 4, generator=g)
+    ctx = torch.randn(2, 77, 768, generator=g)
+    mask = (torch.arange(77)[None] < torch.tensor([[77], [11]])).int()
+    inputs = (torch.cat([lat, lat]).cuda(), torch.tensor([500, 500]).cuda(), ctx.cuda(), mask.cuda())
+
+    def plain_attention(q, k, v, *_):
+        return fa.flash_attention_plain(q, k, v)
+
+    with torch.no_grad(), routes(plain_attention, gg.geglu_plain):
+        exact = unet(*inputs).float().cpu()
+    # at 9216 keys a dropped 64-key tile moves K1's output by rel L2 ~5e-3,
+    # under the 1e-2 limit, so there the control must break either limit
+    # (rel L2, or the accuracy ratio against fp32) that each launch is held to
+    head_dims = unet_bf16_parity(unet, inputs, exact, UNET_768_LAUNCHES, "[unet-768]", control_by_accuracy=True)
+    n160 = sum(d == 160 for d in head_dims)
+    log(f"[unet-768] K1 launches at head dim 160: {n160} (want {UNET_768_D160})")
+    if n160 != UNET_768_D160:
+        raise AssertionError(f"[unet-768] {n160} K1 launches at D = 160, want {UNET_768_D160}")
+    return head_dims
 
 
 def read_png(path: Path) -> bytes:
@@ -650,6 +718,29 @@ def _query_block_rerun(q, k, v, do, o, lse, delta, dq) -> dict:
     return r
 
 
+def kernel_split(fn, names: dict[str, str]) -> dict[str, float]:
+    """Device ms of each CUDA kernel that one call of `fn` launches
+    (torch.profiler), keyed by the first of `names` (substring -> label)
+    found in the kernel's name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out: dict[str, float] = {}
+    for e in prof.key_averages():
+        label = next((v for k, v in names.items() if k in e.key), None)
+        if label is not None and e.self_device_time_total > 0:
+            out[label] = out.get(label, 0.0) + e.self_device_time_total / 1e3
+    return out
+
+
+# K5's CUDA kernels (csrc/geglu.cu `gm`) by the epilogue in their names
+K5_KERNELS = {"DprojEpi": "dproj", "DxEpi": "dx", "dx_reduce": "split-K sum"}
+
+
 def _times(r: dict) -> str:
     """A row's times, its bound and the kernel's factor over the bound and
     over the library call."""
@@ -665,9 +756,10 @@ def _rerun_line(r: dict) -> str:
 
 
 def _geglu_dx_checks(dx, x, w, b, dy):
-    """K5's output `dx` against the plain version; the control drops the
-    last 64-wide n tile of I (the kernel's unit of work) from the plain
-    version."""
+    """K5's output `dx` against the plain version; the control leaves the
+    last 64 columns of I (one column tile of the kernel's dproj, and one
+    64-deep K tile of each half of its dx product) out of dproj, by zeroing
+    them in dy for the plain version."""
     from fairdiff_torch.ops import geglu as gg
 
     dy_drop = dy.clone()
@@ -693,10 +785,12 @@ def phase_kernels_bwd() -> dict[str, dict]:
     reruns: dict[str, dict] = {}  # K6 run twice on the same inputs
     dkv_reruns: dict[str, dict] = {}  # K3 run twice
     q_reruns: dict[str, dict] = {}  # K1 with lse and K2 run twice
+    dx_reruns: dict[str, bool] = {}  # K5 run twice: bit-equal
     B = PAIR_ROWS
     for label, qs, kvs in (
         ("self4096", (B, 4096, 8, 40), (B, 4096, 8, 40)),
         ("self1024", (B, 1024, 8, 80), (B, 1024, 8, 80)),
+        ("self576", (B, 576, 8, 160), (B, 576, 8, 160)),  # 768 px: K3 then K2 on the merged route
         ("ragged", (1, 600, 2, 40), (1, 300, 2, 40)),
     ):
         q, do = (torch.randn(qs, generator=g, device="cuda", dtype=bf) for _ in range(2))
@@ -764,13 +858,16 @@ def phase_kernels_bwd() -> dict[str, dict]:
         # dk and dv once. Its fp32 dq reduce-adds (one [64-row, D] tile a
         # 128-key block and q tile, into a buffer padded to 64 rows) are this
         # design's cost, not bytes the function needs: they stay out of the
-        # bound and are logged beside it
+        # bound and are logged beside it. Above D = 128 the route is K3 then
+        # K2, with no reduce-adds
+        k6 = d <= fa.MERGED_MAX_D
         rows[f"flash_attention_bwd_merged/{label}"] = dict(
             shape=f"q{list(qs)} kv{list(kvs)} bf16",
             ms=time_ms(lambda: fa.flash_attention_bwd_merged(q, k, v, o, lse, do)),
             plain_ms=time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do), iters=3),
             library_ms=sdpa_bwd,
-            reduce_gb=4.0 * -(-t // MERGED_BLOCK_KEYS) * b * h * -(-s // fa.DQ_ROWS) * fa.DQ_ROWS * d / 1e9,
+            reduce_gb=4.0 * -(-t // MERGED_BLOCK_KEYS) * b * h * -(-s // fa.DQ_ROWS) * fa.DQ_ROWS * d / 1e9 * k6,
+            route="K6" if k6 else "K3 then K2",
             **dict(zip(("bound_ms", "bound_by"), bound(
                 5 * flops, qkv_bytes + 2.0 * b * s * h * d + 8.0 * b * h * s
                 + 2.0 * (b * s * h * d + 2 * b * t * h * d), exps))),
@@ -788,7 +885,12 @@ def phase_kernels_bwd() -> dict[str, dict]:
         w = (torch.randn(2 * inner, d, generator=g, device="cuda") * d**-0.5).to(bf)
         b_ = (torch.randn(2 * inner, generator=g, device="cuda") * 0.1).to(bf)
         dy = torch.randn(m, inner, generator=g, device="cuda", dtype=bf)
-        checks[f"geglu_dx/{label}"] = _geglu_dx_checks(gg.geglu_dx(x, w, b_, dy), x, w, b_, dy)
+        dx = gg.geglu_dx(x, w, b_, dy)
+        checks[f"geglu_dx/{label}"] = _geglu_dx_checks(dx, x, w, b_, dy)
+        # dproj is written once and the dx product (and its split-K partials)
+        # summed in a fixed order: a second run is bit-equal
+        dx_reruns[label] = bool(torch.equal(gg.geglu_dx(x, w, b_, dy), dx))
+        splits = gg.dx_splits(m, d, inner)
         x32, w32, b32, dy32 = (t_.float() for t_ in (x, w, b_, dy))
         f32_rel[f"geglu_dx/{label}"] = rel_l2(gg.geglu_dx(x32, w32, b32, dy32), gg.geglu_dx_plain(x32, w32, b32, dy32))
         rows[f"geglu_dx/{label}"] = dict(
@@ -796,15 +898,20 @@ def phase_kernels_bwd() -> dict[str, dict]:
             ms=time_ms(lambda: gg.geglu_dx(x, w, b_, dy)),
             plain_ms=time_ms(lambda: gg.geglu_dx_plain(x, w, b_, dy)),
             library_ms=None,
+            # the design's own traffic, outside the bound: dproj [M, 2 Ip] bf16
+            # written and read, and at split K the fp32 partials likewise
+            dproj_gb=2 * 2.0 * m * 2 * gg.dx_inner_pad(inner) / 1e9,
+            split=kernel_split(lambda: gg.geglu_dx(x, w, b_, dy), K5_KERNELS),
+            part_gb=(2 * 4.0 * splits * m * d / 1e9) if splits > 1 else 0.0,
             **dict(zip(("bound_ms", "bound_by"), bound(
                 8.0 * m * d * inner, 2.0 * (2 * m * d + 2 * inner * d + 2 * inner + m * inner), float(m * inner)))),
         )
     log(f"[kernels-bwd] limits as [kernels]; lse max abs error <= {LSE_ATOL}; fp32 bodies vs fp32 plain "
         f"rel L2 <= {F32_REL_L2_TOL}; controls drop the kernel's last key tile (o: K1's, dq: K2's; "
         f"{key_tile(40)} keys at D <= 80, {key_tile(96)} above), the last 64-row q tile "
-        f"(dk, dv) or the last 64-wide n tile of I (GEGLU dx); merged (K6) controls drop the last "
+        f"(dk, dv) or the last 64 columns of I from dproj (GEGLU dx); merged (K6) controls drop the last "
         f"{MERGED_BLOCK_KEYS}-key tile (dq) or the last 64-row q tile (dk, dv), and K6 is also held to the "
-        f"limits against K2/K3's outputs; K1 with lse, K2 and K3 run twice must be bit-equal")
+        f"limits against K2/K3's outputs; K1 with lse, K2, K3 and K5 run twice must be bit-equal")
     for key, c in checks.items():
         extra = f" lse max abs {c['lse_max_abs_err']:.3e} |" if "lse_max_abs_err" in c else ""
         extra += f" vs K2/K3 rel_l2 {c['vs_split_rel_l2']:.3e} |" if "vs_split_rel_l2" in c else ""
@@ -813,13 +920,19 @@ def phase_kernels_bwd() -> dict[str, dict]:
             f"{c['kernel_vs_f32']:.3e} plain {c['plain_vs_f32']:.3e} | control {c['control_rel_l2']:.3e} "
             f"| fp32 body rel L2 {f32_rel[key]:.3e}")
     for key, r in rows.items():
-        reduce = f" | dq reduce-adds {r['reduce_gb']:.3f} GB (not in the bound)" if "reduce_gb" in r else ""
+        reduce = (f" | {r['route']}, dq reduce-adds {r['reduce_gb']:.3f} GB (not in the bound)"
+                  if "reduce_gb" in r else "")
+        reduce += (f" | dproj {r['dproj_gb']:.3f} GB, split-K partials {r['part_gb']:.3f} GB "
+                   f"(not in the bound) | kernels (profiler): "
+                   + ", ".join(f"{k} {v:.4f} ms" for k, v in r["split"].items()) if "dproj_gb" in r else "")
         log(f"[kernels-bwd] {key:28s} {r['shape']:44s} {_times(r)}{reduce}")
     for key, r in q_reruns.items():
         log(f"[kernels-bwd] K1 with lse and K2 run twice, bf16/{key}: o, lse, dq bit-equal {r['o_equal']}, "
             f"{r['lse_equal']}, {r['dq_equal']}")
     for key, r in dkv_reruns.items():
         log(f"[kernels-bwd] K3 run twice, bf16/{key}: dk, dv bit-equal {r['dk_equal']}, {r['dv_equal']}")
+    for key, equal in dx_reruns.items():
+        log(f"[kernels-bwd] K5 run twice, bf16/{key}: dx bit-equal {equal}")
     for key, r in reruns.items():
         log(f"[kernels-bwd] K6 run twice, {key}: {_rerun_line(r)}")
     failed = {key: c["failed"] for key, c in checks.items() if c["failed"]}
@@ -827,6 +940,7 @@ def phase_kernels_bwd() -> dict[str, dict]:
     failed.update({f"K6 rerun {key}": r["failed"] for key, r in reruns.items() if r["failed"]})
     failed.update({f"K3 rerun {key}": r["failed"] for key, r in dkv_reruns.items() if r["failed"]})
     failed.update({f"K1/K2 rerun {key}": r["failed"] for key, r in q_reruns.items() if r["failed"]})
+    failed.update({f"K5 rerun {key}": "dx not bit-equal" for key, equal in dx_reruns.items() if not equal})
     if failed:
         raise AssertionError(f"backward kernel checks failed: {failed}")
     # the summary's max_abs_err: the kernel's worst element against its plain version
@@ -850,8 +964,8 @@ GN_ROWS, GN_GROUPS = 8, 32
 
 
 def _gn_drop_last_chunk(x, scale, bias, groups, eps, silu):
-    """The plain version with statistics that leave out the kernel's last
-    row chunk of each sample (the control of [kernels-gn])."""
+    """The plain version with statistics that leave out the last CTA's slice
+    of each sample's rows (the control of [kernels-gn])."""
     from fairdiff_torch.ops import group_norm as gn
 
     B, C = x.shape[0], x.shape[-1]
@@ -895,9 +1009,14 @@ def phase_kernels_gn() -> tuple[dict[str, dict], int]:
         x = x32.to(torch.bfloat16)
         args = (w, b, GN_GROUPS, eps, silu)
         with torch.no_grad():
-            checks = compare(module(x), gn.group_norm_silu_plain(x, *args),
+            got = module(x)
+            checks = compare(got, gn.group_norm_silu_plain(x, *args),
                              gn.group_norm_silu_plain(x32, *args), _gn_drop_last_chunk(x, *args))
             checks["f32_rel_l2"] = rel_l2(module(x32), gn.group_norm_silu_plain(x32, *args))
+            # the cluster sums its CTAs' partials in rank order: a second run is bit-equal
+            checks["rerun_equal"] = bool(torch.equal(module(x), got))
+        if not checks["rerun_equal"]:
+            checks["failed"].append("rerun not bit-equal")
         if not checks["f32_rel_l2"] <= F32_REL_L2_TOL:
             checks["failed"].append("fp32 body")
         # backward: the kernel's forward, then the plain version's autograd
@@ -918,7 +1037,10 @@ def phase_kernels_gn() -> tuple[dict[str, dict], int]:
             rows[key] = dict(
                 shape=f"x[{GN_ROWS},{side},{side},{c}] bf16 silu={silu}", **checks,
                 ms=None, plain_ms=None,
-                library_ms=time_ms(lambda: F.group_norm(x_nchw, GN_GROUPS, wb, bb, eps)),
+                # one PyTorch call for the function: F.group_norm, and F.silu after
+                # it where the row fuses SiLU
+                library_ms=time_ms((lambda: F.silu(F.group_norm(x_nchw, GN_GROUPS, wb, bb, eps))) if silu
+                                   else (lambda: F.group_norm(x_nchw, GN_GROUPS, wb, bb, eps))),
                 **dict(zip(("bound_ms", "bound_by"), bound(0.0, 2.0 * 2 * x.numel()))),
             )
             rows[key]["_timed"] = (x, args)
@@ -931,12 +1053,15 @@ def phase_kernels_gn() -> tuple[dict[str, dict], int]:
             r["plain_ms"] = time_ms(lambda: gn.group_norm_silu_plain(x, *args))
     log(f"[kernels-gn] limits as [kernels]; fp32 body rel L2 <= {F32_REL_L2_TOL}; gradients (K7 forward, "
         f"plain backward) against the plain route's rel L2 <= {KERNEL_REL_L2_TOL}; the control leaves the "
-        f"kernel's last row chunk out of the statistics; {n_launches} K7 launches in the checks")
+        f"last CTA's slice of each sample's rows out of the statistics; library_ms is F.group_norm "
+        f"(+ F.silu on the SiLU rows) on NCHW; K7 run twice must be bit-equal; {n_launches} K7 launches "
+        f"in the checks")
     for key, r in rows.items():
         log(f"[kernels-gn] {key:24s} {r['shape']:38s} max_abs {r['max_abs_err']:.3e} (ref rms "
             f"{r['ref_rms']:.3e}, elem_use {r['elem_use']:.3f}) rel_l2 {r['rel_l2']:.3e} | vs fp32: kernel "
             f"{r['kernel_vs_f32']:.3e} plain {r['plain_vs_f32']:.3e} | control {r['control_rel_l2']:.3e} | "
-            f"fp32 body {r['f32_rel_l2']:.3e} | grads {r['grad_rel_l2']:.3e} | kernel_ms {r['ms']:.4f} "
+            f"fp32 body {r['f32_rel_l2']:.3e} | grads {r['grad_rel_l2']:.3e} | rerun bit-equal "
+            f"{r['rerun_equal']} | kernel_ms {r['ms']:.4f} "
             f"plain_ms {r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} bound_ms {r['bound_ms']:.4f} "
             f"({r['bound_by']})")
     failed = {key: r["failed"] for key, r in rows.items() if r["failed"]}
@@ -991,8 +1116,6 @@ PAIR_VJP_LAUNCHES_MERGED = dict(PAIR_VJP_LAUNCHES, flash_attention_dq=0, flash_a
 # run twice on its operands (`_merged_rerun`: dk and dv bit-equal, dq within
 # its fp32 reordering plus 1 ulp), here and in [kernels-bwd]
 MERGED_RERUN_REL_L2_TOL = UNET_BF16_REL_L2_TOL
-# one no-grad CFG UNet call (phases 1 and 3, generation)
-UNET_CALL_LAUNCHES = {"flash_attention": 10, "geglu": 16}
 
 
 def phase_unet_vjp(power: str, flash_bwd: str = "split") -> dict:
@@ -1140,6 +1263,13 @@ def profile_pair_vjp(run, wall_s: float, tag: str = "[unet-vjp]") -> None:
         return
     log(f"{tag} profile of one pair VJP: {busy:.3f} ms kernel time, device idle share "
         f"{max(0.0, 1 - busy / (wall_s * 1e3)):.3f} against the timed run's wall")
+    # the port's kernels by family, from their CUDA names (K5: the dproj and
+    # dx GEMMs and the split-K sum)
+    for family, keys in (("K1-K3/K6 flash", ("flash",)), ("K4 geglu fwd", ("geglu_fwd",)),
+                         ("K5 geglu dx", ("gm::", "geglu_dx"))):
+        hits = [e for e in events if any(k in e.key for k in keys)]
+        log(f"{tag}   {family}: {sum(e.self_device_time_total for e in hits) / 1e3:.3f} ms in "
+            f"{sum(e.count for e in hits)} kernel launches")
     for e in events[:14]:
         log(f"{tag}   {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x "
             f"{100 * e.self_device_time_total / 1e3 / busy:5.1f}%  {e.key[:90]}")
@@ -1441,6 +1571,9 @@ def main() -> int:
     t = time.perf_counter()
     phase_unet_parity()
     log(f"[time] unet-fp32 {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    phase_unet_768()
+    log(f"[time] unet-768 {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     counts_gen = phase_slice()
     log(f"[time] slice {time.perf_counter() - t:.1f} s")

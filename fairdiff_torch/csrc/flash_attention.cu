@@ -36,7 +36,10 @@ using namespace fd;
 constexpr int BM = 64;
 constexpr int BN = 64;
 constexpr int NTHREADS = 128;
-constexpr int MAX_D = 128;
+constexpr int MAX_D = 160;
+
+// K6's fp32 dq buffer [B, H, S_pad, D]: S_pad is S rounded up to 64 rows
+constexpr int DQ_ROWS = 64;
 
 // mode bits of a bf16 launch
 constexpr int TMA = 1;        // tiles by TMA, outputs by TMA stores
@@ -116,7 +119,10 @@ constexpr int PAIRS = 4;      // fallback: 4-byte cp.async (even D, aligned)
 //   128 q rows a block give 1024 blocks at [4,4096,8,40] (7.8 waves of 132
 //   SMs) and 256 at [4,1024,8,80] (1.9 waves), so no shape of the path is
 //   tail-bound; one block an SM (the q warpgroups hold 232 registers a
-//   thread, the producer 40; no spills at any DP).
+//   thread, the producer 40). Up to DP = 160 (SD-1.5's 1280-channel
+//   transformers at 768 px): K1 holds O (80 fp32 registers a thread) and S
+//   (32), K2 dQ (80), S and dP (32 each), under the 232; K2's shared memory
+//   at DP = 160 is q and dO (40 KB each) and three K + V slots (40 KB each).
 namespace qb {
 
 constexpr int BM = 128;             // q rows a block
@@ -606,17 +612,26 @@ __global__ void __launch_bounds__(NTHR, 1)
 // - Keys at or past T and q rows at or past S get p = 0 and ds = 0.
 // - Sizes, from runs on an H100: BK = 128 (two warpgroups at wgmma's M of
 //   64; a third does not fit the registers at D = 40), BQ = 64 (the score
-//   products' N; 128 would need 64 more accumulator registers a thread), a
-//   ring of 3 slots (2 and 4 were no faster; 2 above DP = 96, for shared
-//   memory). K6's dq in a warpgroup of its own beat the key warpgroups
+//   products' N; 128 would need 64 more accumulator registers a thread;
+//   32 above DP = 128), a ring of 3 slots (2 and 4 were no faster; 2 at DP
+//   112-128, for shared memory). K6's dq in a warpgroup of its own beat the key warpgroups
 //   computing it between two block-wide barriers, each taking half its
 //   columns; each key warpgroup adding its own keys' dq (twice the
 //   reduce-add bytes) was slower. Registers (setmaxnreg): key warpgroups
 //   232 in K3 and 192 in K6 (the dq warpgroup 96, the producer 40 or 32).
+// - K6 stops at DP = 128: at DP = 160 its key warpgroups would hold dK and
+//   dV (160 registers a thread) beside S^T and dP^T, and the dq warpgroup
+//   an 80-register dQ tile, where the 512 threads share 65,536 registers
+//   (2 x 192 + 96 + 32 per thread of a warpgroup today). The wrapper's
+//   merged route computes D > 128 with K3 then K2.
 namespace kv {
 
 constexpr int BK = 128;      // keys a block
-constexpr int BQ = 64;       // q rows a tile of the ring
+// q rows a tile of the ring: 64 up to DP = 128, 32 above, where dK and dV
+// take 2 x 80 registers a thread and S^T and dP^T at 64 columns would take
+// 64 more than the key warpgroups' 232 hold
+template <int DP>
+constexpr int Q_TILE = DP <= 128 ? 64 : 32;
 constexpr int NWG = 2;       // key warpgroups, 64 keys each
 constexpr int NCONS = NWG * 128;
 // + K6's dq warpgroup, + the producer warpgroup (one warp works)
@@ -627,7 +642,10 @@ constexpr int NTHR = NCONS + (WITH_DQ ? 256 : 128);
 template <int DP, bool WITH_DQ>
 struct Smem {
   static constexpr int NB = DP / 16;                          // column blocks
-  static constexpr int STAGES = DP <= 96 ? 3 : 2;
+  static constexpr int BQ = Q_TILE<DP>;
+  // 2 slots at DP 112-128 (shared memory); above, the 32-row q tiles leave
+  // room for 3 again (K and V 80 KB, a slot 21 KB at DP = 160)
+  static constexpr int STAGES = DP <= 96 || DP > 128 ? 3 : 2;
   static constexpr int KV = DP * BK * 2;                      // K (or V) tile
   static constexpr int TILE = DP * BQ * 2;                    // q (or dO) tile
   static constexpr int STAGE = 2 * TILE + 1024;               // q, dO, lse, delta
@@ -652,7 +670,7 @@ __global__ void __launch_bounds__(NTHR<WITH_DQ>, 1)
                         bf16* __restrict__ dv, float* __restrict__ dq32, int S, int T_, int H,
                         int D, float scale, int mode) {
   using L = Smem<DP, WITH_DQ>;
-  constexpr int NB = L::NB, STAGES = L::STAGES;
+  constexpr int NB = L::NB, STAGES = L::STAGES, BQ = L::BQ;
   constexpr int PRODUCER = NWG + (WITH_DQ ? 1 : 0);  // warpgroup index
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - fd::smem_addr(smem_raw) % 1024) % 1024);
@@ -765,7 +783,7 @@ __global__ void __launch_bounds__(NTHR<WITH_DQ>, 1)
       asm volatile("setmaxnreg.dec.sync.aligned.u32 96;\n");
       const int t = threadIdx.x % 128, wi = t / 32, lane = t % 32;
       float* s_dq = reinterpret_cast<float*>(smem + L::DQ);
-      const long dq_row0 = (long)blockIdx.y * n_tiles * BQ;  // dq32 is [B, H, S_pad, D]
+      const long dq_row0 = (long)blockIdx.y * ((S + DQ_ROWS - 1) / DQ_ROWS * DQ_ROWS);  // dq32: [B, H, S_pad, D]
       for (int it = 0; it < n_tiles; ++it) {
         const int b = it & 1;
         mbar_wait(bar_ds_full(b), (it >> 1) & 1);
@@ -1078,36 +1096,39 @@ __global__ void __launch_bounds__(NTHREADS)
       if (q0 + r < S) lse[(long)blockIdx.y * S + q0 + r] = sM[r] + logf(fmaxf(sL[r], 1e-30f));
 }
 
-size_t smem_dq_f32(int D) { return sizeof(float) * (5 * BM * D + 2 * BM * BN + 2 * BM); }
+// QM q rows a block: 64, or 32 above D = 128 (shared memory)
+template <int QM>
+size_t smem_dq_f32(int D) { return sizeof(float) * (2 * QM * D + 2 * BN * D + QM * D + 2 * QM * BN + 2 * QM); }
 
+template <int QM>
 __global__ void __launch_bounds__(NTHREADS)
     flash_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const float* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ delta,
                         float* __restrict__ dq, int S, int T_, int H, int D, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  float* sQ = reinterpret_cast<float*>(smem);  // [BM x D]
-  float* sDO = sQ + BM * D;                    // [BM x D]
-  float* sK = sDO + BM * D;                    // [BN x D]
+  float* sQ = reinterpret_cast<float*>(smem);  // [QM x D]
+  float* sDO = sQ + QM * D;                    // [QM x D]
+  float* sK = sDO + QM * D;                    // [BN x D]
   float* sV = sK + BN * D;                     // [BN x D]
-  float* sAcc = sV + BN * D;                   // [BM x D] dq accumulator
-  float* sS = sAcc + BM * D;                   // [BM x BN] scores, then ds
-  float* sDP = sS + BM * BN;                   // [BM x BN] dO v^T
-  float* sLse = sDP + BM * BN;                 // [BM]
-  float* sDlt = sLse + BM;                     // [BM]
+  float* sAcc = sV + BN * D;                   // [QM x D] dq accumulator
+  float* sS = sAcc + QM * D;                   // [QM x BN] scores, then ds
+  float* sDP = sS + QM * BN;                   // [QM x BN] dO v^T
+  float* sLse = sDP + QM * BN;                 // [QM]
+  float* sDlt = sLse + QM;                     // [QM]
 
   const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int q0 = blockIdx.x * BM;
+  const int q0 = blockIdx.x * QM;
   const long stride = (long)H * D;
   const long qoff = (long)b * S * stride + (long)h * D;
   const float* kb = k + (long)b * T_ * stride + (long)h * D;
   const float* vb = v + (long)b * T_ * stride + (long)h * D;
   const int tid = threadIdx.x;
 
-  load_tile_f32(sQ, q + qoff, stride, q0, BM, S, D);
-  load_tile_f32(sDO, dout + qoff, stride, q0, BM, S, D);
-  for (int idx = tid; idx < BM * D; idx += NTHREADS) sAcc[idx] = 0.0f;
-  for (int r = tid; r < BM; r += NTHREADS) {
+  load_tile_f32(sQ, q + qoff, stride, q0, QM, S, D);
+  load_tile_f32(sDO, dout + qoff, stride, q0, QM, S, D);
+  for (int idx = tid; idx < QM * D; idx += NTHREADS) sAcc[idx] = 0.0f;
+  for (int r = tid; r < QM; r += NTHREADS) {
     sLse[r] = q0 + r < S ? lse[(long)blockIdx.y * S + q0 + r] : 0.0f;
     sDlt[r] = q0 + r < S ? delta[(long)blockIdx.y * S + q0 + r] : 0.0f;
   }
@@ -1116,19 +1137,19 @@ __global__ void __launch_bounds__(NTHREADS)
     load_tile_f32(sK, kb, stride, k0, BN, T_, D);
     load_tile_f32(sV, vb, stride, k0, BN, T_, D);
     __syncthreads();
-    mm_nt(sQ, D, sK, D, sS, BN, BM, BN, D);
-    mm_nt(sDO, D, sV, D, sDP, BN, BM, BN, D);
+    mm_nt(sQ, D, sK, D, sS, BN, QM, BN, D);
+    mm_nt(sDO, D, sV, D, sDP, BN, QM, BN, D);
     __syncthreads();
-    for (int idx = tid; idx < BM * BN; idx += NTHREADS) {
+    for (int idx = tid; idx < QM * BN; idx += NTHREADS) {
       const int r = idx / BN, c = idx % BN;
       const float p = k0 + c < T_ ? expf(sS[idx] * scale - sLse[r]) : 0.0f;
       sS[idx] = p * (sDP[idx] - sDlt[r]);
     }
     __syncthreads();
-    mm_nn(sS, BN, sK, D, sAcc, D, BM, D, BN, true);
+    mm_nn(sS, BN, sK, D, sAcc, D, QM, D, BN, true);
   }
   __syncthreads();
-  for (int idx = tid; idx < BM * D; idx += NTHREADS) {
+  for (int idx = tid; idx < QM * D; idx += NTHREADS) {
     const int r = idx / D;
     if (q0 + r < S) dq[qoff + (long)(q0 + r) * stride + idx % D] = sAcc[idx] * scale;
   }
@@ -1227,7 +1248,7 @@ __global__ void __launch_bounds__(NTHREADS)
   const long qoff = (long)b * S * stride + (long)h * D;
   const long koff = (long)b * T_ * stride + (long)h * D;
   const int tid = threadIdx.x;
-  const long s_pad = (S + kv::BQ - 1) / kv::BQ * kv::BQ;
+  const long s_pad = (S + DQ_ROWS - 1) / DQ_ROWS * DQ_ROWS;
 
   load_tile_f32(sK, k + koff, stride, k0, BN, T_, D);
   load_tile_f32(sV, v + koff, stride, k0, BN, T_, D);
@@ -1328,7 +1349,8 @@ int launch_bwd_kv(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
   const bool pairs = D % 2 == 0 && aligned4(q) && aligned4(k) && aligned4(v) && aligned4(dout);
   kv::Maps maps;
   memset(&maps, 0, sizeof(maps));
-  if (tma && !(tensor_map(&maps.q, q, B, S, H, D, kv::BQ) && tensor_map(&maps.dout, dout, B, S, H, D, kv::BQ) &&
+  constexpr int BQ = kv::Q_TILE<DP>;
+  if (tma && !(tensor_map(&maps.q, q, B, S, H, D, BQ) && tensor_map(&maps.dout, dout, B, S, H, D, BQ) &&
                tensor_map(&maps.k, k, B, T_, H, D, kv::BK) && tensor_map(&maps.v, v, B, T_, H, D, kv::BK) &&
                tensor_map(&maps.dk, dk, B, T_, H, D, kv::BK) && tensor_map(&maps.dv, dv, B, T_, H, D, kv::BK)))
     return (int)cudaErrorInvalidValue;
@@ -1343,16 +1365,26 @@ bool bad_shape(int B, int S, int T_, int H, int D) {
   return B < 1 || S < 1 || T_ < 1 || H < 1 || D < 1 || D > MAX_D || (long)B * H > 65535;
 }
 
-// one instantiation per head dim padded to the mma depth (16 .. 128)
-#define FD_DISPATCH_DP(D, CALL)                    \
-  switch (((D) + 15) / 16) {                       \
+// one instantiation per head dim padded to the mma depth: 16 .. 160, or
+// 16 .. 128 for K6 (the wrapper routes D > 128 to K3 and K2)
+#define FD_CASES_TO_112(CALL)                       \
     case 1: { constexpr int DP = 16; return CALL; } \
     case 2: { constexpr int DP = 32; return CALL; } \
     case 3: { constexpr int DP = 48; return CALL; } \
     case 4: { constexpr int DP = 64; return CALL; } \
     case 5: { constexpr int DP = 80; return CALL; } \
     case 6: { constexpr int DP = 96; return CALL; } \
-    case 7: { constexpr int DP = 112; return CALL; } \
+    case 7: { constexpr int DP = 112; return CALL; }
+#define FD_DISPATCH_DP(D, CALL)                     \
+  switch (((D) + 15) / 16) {                        \
+    FD_CASES_TO_112(CALL)                           \
+    case 8: { constexpr int DP = 128; return CALL; } \
+    case 9: { constexpr int DP = 144; return CALL; } \
+    default: { constexpr int DP = 160; return CALL; } \
+  }
+#define FD_DISPATCH_DP_TO_128(D, CALL)              \
+  switch (((D) + 15) / 16) {                        \
+    FD_CASES_TO_112(CALL)                           \
     default: { constexpr int DP = 128; return CALL; } \
   }
 
@@ -1438,18 +1470,25 @@ extern "C" int fd_flash_dkv_bf16(const void* q, const void* k, const void* v, co
                                                   D, scale, st)));
 }
 
-extern "C" int fd_flash_dq_f32(const void* q, const void* k, const void* v, const void* dout,
-                               const void* lse, const void* delta, void* dq, int B, int S,
-                               int T, int H, int D, float scale, void* stream) {
-  if (bad_shape(B, S, T, H, D)) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_dq_f32(D);
-  if (int err = set_smem(flash_dq_f32_kernel, smem)) return err;
-  const dim3 grid((S + BM - 1) / BM, B * H);
-  flash_dq_f32_kernel<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+template <int QM>
+int dq_f32(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+           const void* delta, void* dq, int B, int S, int T, int H, int D, float scale, void* stream) {
+  const size_t smem = smem_dq_f32<QM>(D);
+  if (int err = set_smem(flash_dq_f32_kernel<QM>, smem)) return err;
+  const dim3 grid((S + QM - 1) / QM, B * H);
+  flash_dq_f32_kernel<QM><<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<float*>(dq), S, T, H, D, scale);
   return (int)cudaGetLastError();
+}
+
+extern "C" int fd_flash_dq_f32(const void* q, const void* k, const void* v, const void* dout,
+                               const void* lse, const void* delta, void* dq, int B, int S,
+                               int T, int H, int D, float scale, void* stream) {
+  if (bad_shape(B, S, T, H, D)) return (int)cudaErrorInvalidValue;
+  return D <= 128 ? dq_f32<BM>(q, k, v, dout, lse, delta, dq, B, S, T, H, D, scale, stream)
+                  : dq_f32<BM / 2>(q, k, v, dout, lse, delta, dq, B, S, T, H, D, scale, stream);
 }
 
 extern "C" int fd_flash_dkv_f32(const void* q, const void* k, const void* v, const void* dout,
@@ -1468,12 +1507,12 @@ extern "C" int fd_flash_dkv_f32(const void* q, const void* k, const void* v, con
 }
 
 // K6: dk, dv and the fp32 dq sum in one pass; dq32 [B, H, S_pad, D] (S_pad: S
-// rounded up to 64) must be zero
+// rounded up to 64) must be zero; D <= 128
 extern "C" int fd_flash_bwd_merged_bf16(const void* q, const void* k, const void* v,
                                         const void* dout, const void* lse, const void* delta,
                                         void* dk, void* dv, void* dq32, int B, int S, int T,
                                         int H, int D, float scale, void* stream) {
-  if (bad_shape(B, S, T, H, D)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, S, T, H, D) || D > 128) return (int)cudaErrorInvalidValue;
   const auto* qq = static_cast<const bf16*>(q);
   const auto* kk = static_cast<const bf16*>(k);
   const auto* vv = static_cast<const bf16*>(v);
@@ -1484,7 +1523,7 @@ extern "C" int fd_flash_bwd_merged_bf16(const void* q, const void* k, const void
   auto* gv = static_cast<bf16*>(dv);
   auto* gq = static_cast<float*>(dq32);
   auto st = static_cast<cudaStream_t>(stream);
-  FD_DISPATCH_DP(D, (launch_bwd_kv<DP, true>(qq, kk, vv, dd, ll, de, gk, gv, gq, B, S, T, H, D,
+  FD_DISPATCH_DP_TO_128(D, (launch_bwd_kv<DP, true>(qq, kk, vv, dd, ll, de, gk, gv, gq, B, S, T, H, D,
                                              scale, st)));
 }
 

@@ -1,9 +1,10 @@
-// Hopper building blocks of the flash-attention kernels (sm_90a): mbarriers,
-// TMA tensor and bulk copies, named barriers, wgmma descriptors and
+// Hopper building blocks of the wgmma kernels (sm_90a): mbarriers, TMA
+// tensor and bulk copies, named barriers, wgmma descriptors and
 // synchronisation, the 32-byte-swizzled column-block tile layout, the
 // cp.async producer for layouts TMA cannot address, and the host-side
 // tensor maps. The query-block kernels (K1, K2) and the key-block kernels
-// (K3, K6) in flash_attention.cu share them.
+// (K3, K6) in flash_attention.cu and the GEGLU dx GEMMs (K5) in geglu.cu
+// share them.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap (the encoder is found at run time)
@@ -46,6 +47,22 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap& map, i
       "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
       ::"r"(dst), "l"(reinterpret_cast<uint64_t>(&map)), "r"(d), "r"(h), "r"(row), "r"(b), "r"(bar)
       : "memory");
+}
+// one box of a 2-D tensor map (column, row) into shared memory
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap& map, int col, int row,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(&map)), "r"(col), "r"(row), "r"(bar)
+      : "memory");
+}
+// one box of shared memory to a 2-D tensor map (column, row); clipped at
+// the map's bounds
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap& map, int col, int row, uint32_t src) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];\n"
+               ::"l"(reinterpret_cast<uint64_t>(&map)), "r"(col), "r"(row), "r"(src)
+               : "memory");
 }
 __device__ __forceinline__ void tma_store(const CUtensorMap& map, int d, int h, int row, int b,
                                           uint32_t src) {
@@ -183,6 +200,22 @@ inline bool tensor_map(CUtensorMap* map, const void* base, int B, int N, int H, 
   const cuuint32_t box[4] = {16, 1, (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+                unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a bf16 row-major matrix [rows, cols] (row stride `ld` elements, a multiple
+// of 8) as a 2-D map with a box of 16 columns x `box_rows` rows and the
+// 32-byte swizzle: the column-block tiles of the wgmma GEMMs; out-of-bounds
+// elements read as zero
+inline bool tensor_map_2d(CUtensorMap* map, const void* base, long rows, long cols, long ld, int box_rows) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {2ull * ld};
+  const cuuint32_t box[2] = {16, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
                 unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -1,7 +1,8 @@
 """Shared building blocks (counterpart of fairdiff/models/layers.py).
 
 One attention core serves every transformer: fp32 logits and softmax with
-the probabilities rounded to the activation type before P.V, or the
+the probabilities rounded to the activation type before P.V, or, where the
+caller sets `use_flash` (the UNet only, as in the JAX package), the
 flash-attention kernel for long-key self-attention on CUDA. Submodule names
 follow the JAX parameter tree so the weight carry-over is by path.
 """
@@ -39,12 +40,14 @@ def dot_product_attention(
     v: torch.Tensor,  # [B, T, H, D]
     bias: Optional[torch.Tensor] = None,  # additive, broadcastable to [B,H,S,T]
     flash_bwd: str = "split",
+    use_flash: bool = False,
 ) -> torch.Tensor:
     """Multi-head attention core -> [B, S, H, D]. The kernel runs where the
-    JAX package routes to its flash kernel (no bias, T >= FLASH_MIN_KV) and
-    the tensors are on CUDA, with the backward `flash_bwd` names (checked by
-    `flash_attention`); everything else takes the plain path."""
-    if bias is None and k.shape[1] >= FLASH_MIN_KV and q.is_cuda:
+    JAX package routes to its flash kernel (`use_flash`, no bias,
+    T >= FLASH_MIN_KV) and the tensors are on CUDA, with the backward
+    `flash_bwd` names (checked by `flash_attention`); everything else takes
+    the plain path."""
+    if use_flash and bias is None and k.shape[1] >= FLASH_MIN_KV and q.is_cuda:
         return flash_attention(q, k, v, flash_bwd)
     scale = q.shape[-1] ** -0.5
     # fp32 logits from the activation-type operands (exact products, as
@@ -76,14 +79,16 @@ class FusedGroupNorm(nn.Module):
 
 
 class MultiHeadAttention(nn.Module):
-    """Pre-projection MHA with separate q/k/v/out projections (HF naming)."""
+    """Pre-projection MHA with separate q/k/v/out projections (HF naming).
+    `use_flash` as in `dot_product_attention`: off by default, as for the
+    JAX package's CLIP and DINOv2."""
 
     def __init__(
         self, embed_dim: int, num_heads: int, out_dim: Optional[int] = None,
-        use_bias: bool = True,
+        use_bias: bool = True, use_flash: bool = False,
     ):
         super().__init__()
-        self.num_heads = num_heads
+        self.num_heads, self.use_flash = num_heads, use_flash
         self.q_proj = nn.Linear(embed_dim, embed_dim, bias=use_bias)
         self.k_proj = nn.Linear(embed_dim, embed_dim, bias=use_bias)
         self.v_proj = nn.Linear(embed_dim, embed_dim, bias=use_bias)
@@ -102,7 +107,7 @@ class MultiHeadAttention(nn.Module):
         q = self.q_proj(hidden).reshape(B, S, heads, -1)
         k = self.k_proj(context).reshape(B, T, heads, -1)
         v = self.v_proj(context).reshape(B, T, heads, -1)
-        out = dot_product_attention(q, k, v, bias).reshape(B, S, -1)
+        out = dot_product_attention(q, k, v, bias, use_flash=self.use_flash).reshape(B, S, -1)
         return self.out_proj(out)
 
 

@@ -4,12 +4,14 @@ The public call takes and returns the JAX package's NHWC latents; inside,
 convolutions run NCHW and each spatial transformer works on [B, H*W, C]
 tokens. Submodule names follow the JAX parameter tree (`down_0_resnet_0`,
 `mid_attn_0`, `up_3_attn_2`, ...) so the weight carry-over is by path.
-The self-attention of the 1024- and 4096-token latents runs the
-flash-attention kernels on CUDA, and every feed-forward runs the fused
-GEGLU kernels on CUDA; both through autograd Functions where a gradient is
-wanted; `flash_bwd` ("split": K2 + K3, "merged": K6) picks the
-flash backward. `remat=True` recomputes each resnet and transformer block in the
-backward instead of keeping its activations (`torch.utils.checkpoint`, the
+Self-attention over at least FLASH_MIN_KV tokens (the 1024- and 4096-token
+latents at 512 px; the 576-token ones of the 1280-channel blocks, head dim
+160, at 768 px) runs the flash-attention kernels on CUDA (`use_flash`, set
+here only, as the JAX package sets it for the UNet), and every feed-forward
+runs the fused GEGLU kernels on CUDA; both through autograd Functions where
+a gradient is wanted; `flash_bwd` ("split": K2 + K3, "merged": K6) picks the
+flash backward. `remat=True` recomputes each resnet and transformer block in
+the backward instead of keeping its activations (`torch.utils.checkpoint`, the
 counterpart of `nn.remat` in the JAX module).
 """
 
@@ -141,7 +143,7 @@ class CrossAttention(nn.Module):
         # masking pad keys makes the static-77 context equal to the
         # reference's compact-length cross-attention
         bias = None if context_mask is None else expand_padding_mask(context_mask)
-        out = dot_product_attention(q, k, v, bias, self.flash_bwd).reshape(B, S, C)
+        out = dot_product_attention(q, k, v, bias, self.flash_bwd, use_flash=True).reshape(B, S, C)
         return self.to_out(out)
 
 

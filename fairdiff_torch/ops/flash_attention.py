@@ -52,6 +52,12 @@ launches_dq = 0
 launches_dkv = 0
 launches_merged = 0
 
+# the kernels' largest head dim (SD-1.5's 1280-channel transformers: 160);
+# K6 takes up to MERGED_MAX_D, and the merged route computes larger head dims
+# with K3 then K2 (csrc/flash_attention.cu, above `namespace kv`)
+MAX_D = 160
+MERGED_MAX_D = 128
+
 # the backward routes: K2 + K3, or K6
 FLASH_BWD = ("split", "merged")
 # K6 sums dq in an fp32 buffer [B, H, S_pad, D], S_pad a multiple of its
@@ -181,8 +187,8 @@ def _check_cuda(*xs: torch.Tensor) -> None:
         raise TypeError(f"the kernel takes bfloat16 or float32, not {q.dtype}")
     if not all(x.is_contiguous() for x in xs):
         raise ValueError("the kernel reads contiguous [B,S,H,D] tensors")
-    if q.shape[-1] > 128:
-        raise ValueError(f"the kernel takes head dims up to 128, not {q.shape[-1]}")
+    if q.shape[-1] > MAX_D:
+        raise ValueError(f"the kernel takes head dims up to {MAX_D}, not {q.shape[-1]}")
 
 
 def _needs_grad(*xs: torch.Tensor) -> bool:
@@ -276,10 +282,13 @@ def flash_attention_bwd_merged(
     `flash_attention_bwd` (plain version `flash_attention_bwd_plain` on the
     CPU). dq is summed over key blocks in an fp32 buffer and rounded once to
     q's type, as the JAX default FAIRDIFF_MERGED_DQ32=1; the kernel adds each
-    key block's tile with a bulk reduce-add, in no fixed order."""
+    key block's tile with a bulk reduce-add, in no fixed order. Head dims
+    above MERGED_MAX_D take K3 then K2 (`flash_attention_bwd`) on CUDA."""
     global launches_merged
     if o.shape != q.shape:
         raise ValueError(f"want o {tuple(q.shape)}, got {tuple(o.shape)}")
+    if q.is_cuda and q.shape[-1] > MERGED_MAX_D:
+        return flash_attention_bwd(q, k, v, o, lse, do)
     delta = attention_delta(o, do)
     _check_bwd(q, k, v, do, lse, delta)
     if q.device.type == "cpu":

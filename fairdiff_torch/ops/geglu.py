@@ -21,21 +21,44 @@ import torch.nn.functional as F
 
 from fairdiff_torch.kernels import build
 
-# kernel launches, counted where each kernel is launched: K4 and K5
+# kernel launches, counted where each kernel is launched: K4 and K5 (one
+# count a call; K5 is two CUDA launches, three at split K)
 launches = 0
 launches_dx = 0
 
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
+# K5's dx GEMM (csrc/geglu.cu `gm`): output tiles of 128 rows and 320
+# columns where d is a multiple of 320, else 160; 64-deep K tiles, the two
+# halves of its K = 2I each rounded up to 64 columns
+DX_TILE_ROWS, DX_TILE_PART, DX_DEPTH = 128, 160, 64
+_SMS = 132  # the H100's SMs: one wave of dx tiles
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel(name: str, dtype: torch.dtype):
-    """The C entry `fd_geglu_<name>_<dtype>`: pointers, then M, d, I, stream."""
+    """The C entry `fd_geglu_<name>_<dtype>`: pointers, then M, d, I (and
+    K5's split count), stream."""
     fn = getattr(build.load("geglu"), f"fd_geglu_{name}_{_DTYPES[dtype]}")
-    n_ptr = {"fwd": 4, "dx": 5}[name]
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    ints = {"fwd": 3, "dx": 4}[name]
+    fn.argtypes = [ctypes.c_void_p] * {"fwd": 4, "dx": 7}[name] + [ctypes.c_int] * ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def dx_inner_pad(inner: int) -> int:
+    """I rounded up to K5's 64-deep K tile: the width of each half of its
+    scratch dproj [M, 2 Ip]."""
+    return -(-inner // DX_DEPTH) * DX_DEPTH
+
+
+def dx_splits(m: int, d: int, inner: int) -> int:
+    """K5's split of the dx product's K = 2 Ip over blocks: 1 where its
+    output tiles fill the card, else enough to fill about one wave of its
+    132 SMs, each split at least four K tiles deep."""
+    cols = 2 * DX_TILE_PART if d % (2 * DX_TILE_PART) == 0 else DX_TILE_PART
+    tiles = -(-m // DX_TILE_ROWS) * -(-d // cols)
+    k_tiles = 2 * dx_inner_pad(inner) // DX_DEPTH
+    return max(1, min(k_tiles // 4, _SMS // tiles))
 
 
 def _acc(x: torch.Tensor) -> torch.Tensor:
@@ -126,7 +149,9 @@ def _forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def geglu_dx(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """dx [..., d] of y = h * gelu(gate) for the cotangent dy [..., I], through
-    K5 (plain version on the CPU)."""
+    K5 (plain version on the CPU). In bf16 K5 writes dh and dg, rounded, into
+    a scratch dproj [M, 2 Ip] and multiplies it by W; at split K it sums fp32
+    partials [splits, M, d] in a third launch (both allocated here)."""
     global launches_dx
     _check(x, w, b)
     d, inner = x.shape[-1], w.shape[0] // 2
@@ -135,14 +160,23 @@ def geglu_dx(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dy: torch.Tensor
     if x.device.type == "cpu":
         return geglu_dx_plain(x, w, b, dy)
     _check_cuda(x, w, b, dy)
-    if d > 1280:
-        raise ValueError(f"the dx kernel takes d up to 1280, not {d}")
+    if x.dtype == torch.float32 and d > 1280:
+        raise ValueError(f"the fp32 dx kernel takes d up to 1280, not {d}")
+    m = x.numel() // d
     dx = torch.empty_like(x)
+    dproj = part = None
+    splits = 1
+    if x.dtype == torch.bfloat16:
+        splits = dx_splits(m, d, inner)
+        dproj = torch.empty(m, 2 * dx_inner_pad(inner), dtype=x.dtype, device=x.device)
+        if splits > 1:
+            part = torch.empty(splits, m, d, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _kernel("dx", x.dtype)(
             x.data_ptr(), w.data_ptr(), b.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-            x.numel() // d, d, inner, stream,
+            None if dproj is None else dproj.data_ptr(), None if part is None else part.data_ptr(),
+            m, d, inner, splits, stream,
         )
     if rc != 0:
         raise RuntimeError(f"geglu dx kernel launch failed: CUDA error {rc}")

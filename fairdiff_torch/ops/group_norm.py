@@ -12,10 +12,12 @@ plain version's autograd, recomputed, as the JAX `_gn_bwd` is an
 XLA-recompute VJP: the TPU kernel has no backward kernel, and neither does
 the port.
 
-K7 (`csrc/group_norm.cu`) takes every shape with C % groups == 0: none of
-the TPU kernel's applicability rules (the 3 MB block cap, rows >= 1024)
-carries over. On a CPU tensor the wrappers run the plain version; on a CUDA
-tensor they launch K7 or raise.
+K7 (`csrc/group_norm.cu`) is one launch: a thread-block cluster per
+sample, each CTA a slice of the sample's rows, the group statistics summed
+across the cluster in distributed shared memory. It takes every shape with
+C % groups == 0: none of the TPU kernel's applicability rules (the 3 MB
+block cap, rows >= 1024) carries over. On a CPU tensor the wrappers run the
+plain version; on a CUDA tensor they launch K7 or raise.
 """
 
 from __future__ import annotations
@@ -28,30 +30,32 @@ import torch.nn.functional as F
 
 from fairdiff_torch.kernels import build
 
-# K7 launches, counted where the kernel is launched (one launch = the
-# statistics, finalize and normalise passes of one call)
+# K7 launches, counted where the kernel is launched
 launches = 0
 
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
-# the H100's 132 SMs, two blocks each, shared out over the batch
-_TARGET_BLOCKS = 264
+# CTAs a sample's cluster: 8 measured fastest at batch 8 on an H100 (0.095-
+# 0.098 ms at 8 x 4096 x 960, against 0.108 at 16, 0.153 at 4 and 0.277 at 2;
+# `chip_smoke.phase_kernels_gn()` with MAX_CLUSTER set to each); the kernel
+# takes up to 16, the non-portable cluster size
+MAX_CLUSTER = 8
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel(dtype: torch.dtype):
-    """`fd_group_norm_<dtype>`: x, scale, bias, out, part, stats; B, rows, C,
-    groups, rows_per_chunk, n_chunks, silu; eps; stream."""
+    """`fd_group_norm_<dtype>`: x, scale, bias, out; B, rows, C, groups,
+    rows a CTA, CTAs a cluster, silu; eps; stream."""
     fn = getattr(build.load("group_norm"), f"fd_group_norm_{_DTYPES[dtype]}")
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def row_chunks(batch: int, rows: int) -> tuple[int, int]:
-    """(rows a chunk, chunks a sample): the kernel's cut of each sample's
-    rows into blocks, about two blocks an SM over the whole batch."""
-    target = max(1, -(-_TARGET_BLOCKS // batch))
-    per = -(-rows // min(rows, target))
+    """(rows a CTA, CTAs a sample): the kernel's cut of each sample's rows
+    into the slices of one cluster of at most MAX_CLUSTER CTAs; every CTA
+    gets at least one row."""
+    per = -(-rows // min(rows, MAX_CLUSTER))
     return per, -(-rows // per)
 
 
@@ -110,15 +114,13 @@ def _forward(x, scale, bias, groups: int, eps: float, apply_silu: bool) -> torch
         )
     B, C = x.shape[0], x.shape[-1]
     rows = x.numel() // (B * C)
-    per, n_chunks = row_chunks(B, rows)
+    per, cluster = row_chunks(B, rows)
     out = torch.empty_like(x)
-    part = torch.empty(B, n_chunks, C, 2, dtype=torch.float32, device=x.device)
-    stats = torch.empty(B, groups, 2, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _kernel(x.dtype)(
-            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), part.data_ptr(),
-            stats.data_ptr(), B, rows, C, groups, per, n_chunks, int(apply_silu), eps, stream,
+            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), B, rows, C, groups,
+            per, cluster, int(apply_silu), eps, stream,
         )
     if rc != 0:
         raise RuntimeError(f"group norm kernel launch failed: CUDA error {rc}")

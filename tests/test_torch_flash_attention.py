@@ -7,6 +7,7 @@ sides compute fp32 softmax attention, differing only in summation order
 (online softmax over key tiles vs one softmax).
 """
 
+import dataclasses
 import functools
 
 import jax
@@ -29,7 +30,7 @@ def _qkv(s, t, d, seed=0, h=2):
     return [rng.normal(size=(1, n, h, d)).astype(np.float32) for n in (s, t, t)]
 
 
-@pytest.mark.parametrize("s,t,d", [(600, 300, 40), (1024, 77, 80), (512, 512, 64)])
+@pytest.mark.parametrize("s,t,d", [(600, 300, 40), (1024, 77, 80), (512, 512, 64), (600, 300, 160)])
 def test_plain_matches_jax_flash_forward(monkeypatch, s, t, d):
     monkeypatch.setattr(pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True))
     q, k, v = _qkv(s, t, d)
@@ -66,6 +67,64 @@ def test_dot_product_attention_routing_on_cpu(monkeypatch):
     assert calls == []
 
 
+def _record_attention(monkeypatch):
+    """Wrap the port's attention core, in `layers` and in the UNet module
+    that imported it, recording (use_flash, key length) of every call."""
+    from fairdiff_torch.models import unet2d
+
+    calls = []
+    real = tlayers.dot_product_attention
+
+    def recording(q, k, v, bias=None, flash_bwd="split", use_flash=False):
+        calls.append((use_flash, k.shape[1]))
+        return real(q, k, v, bias, flash_bwd, use_flash=use_flash)
+
+    monkeypatch.setattr(tlayers, "dot_product_attention", recording)
+    monkeypatch.setattr(unet2d, "dot_product_attention", recording)
+    return calls
+
+
+def test_only_the_unet_asks_for_flash(monkeypatch):
+    """The flash kernel is asked for only where the JAX package sets
+    `use_flash`: the UNet's attention (StableDiffusion passes it to the UNet
+    alone, fairdiff/sampling/pipeline.py). CLIP text, CLIP vision and DINOv2
+    keep the JAX default, False, so on CUDA they never reach K1 whatever
+    their token count."""
+    from fairdiff_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
+    from fairdiff_torch.models.clip_vision import CLIPVisionConfig, CLIPVisionModel
+    from fairdiff_torch.models.dinov2 import DINOv2Config, DINOv2Model
+    from fairdiff_torch.models.unet2d import UNet2DCondition, UNetConfig
+
+    assert jlayers.MultiHeadAttention.__dataclass_fields__["use_flash"].default is False  # JAX's default
+    calls = _record_attention(monkeypatch)
+    g = torch.Generator().manual_seed(0)
+    text = CLIPTextModel(dataclasses.replace(CLIPTextConfig(), hidden_size=32, intermediate_size=64,
+                                             num_hidden_layers=2, num_attention_heads=4, vocab_size=100))
+    vision = CLIPVisionModel(CLIPVisionConfig.tiny())
+    dino = DINOv2Model(DINOv2Config.tiny())
+    with torch.no_grad():
+        text(torch.randint(0, 99, (2, 77), generator=g))
+        vision(torch.randn(2, 28, 28, 3, generator=g))
+        dino(torch.randn(2, 56, 56, 3, generator=g))
+        n_zoo = len(calls)
+        cfg = UNetConfig.tiny()
+        UNet2DCondition(cfg)(torch.randn(1, 8, 8, 4, generator=g), torch.tensor([10]),
+                             torch.randn(1, 5, cfg.cross_attention_dim, generator=g))
+    assert n_zoo == 6 and all(not flash for flash, _ in calls[:n_zoo])
+    assert len(calls) > n_zoo and all(flash for flash, _ in calls[n_zoo:])
+
+
+def test_mha_passes_its_flag_to_the_core(monkeypatch):
+    """MultiHeadAttention(use_flash=True) hands the flag on; the default
+    hands on False."""
+    calls = _record_attention(monkeypatch)
+    x = torch.randn(1, 6, 8)
+    with torch.no_grad():
+        tlayers.MultiHeadAttention(8, 2)(x)
+        tlayers.MultiHeadAttention(8, 2, use_flash=True)(x)
+    assert calls == [(False, 6), (True, 6)]
+
+
 def test_dot_product_attention_with_bias_matches_jax():
     q, k, v = _qkv(10, 10, 8, seed=2)
     mask = np.array([[1] * 7 + [0] * 3], np.int32)
@@ -91,7 +150,7 @@ def test_wrapper_rejects_other_devices_and_bad_shapes():
 # on o, lse and the gradients (fp32 sums over up to 1024 keys in another
 # order; gradients of O(1)).
 
-BWD_SHAPES = [(512, 512, 64), (600, 300, 40), (1024, 77, 80), (1024, 1024, 40)]
+BWD_SHAPES = [(512, 512, 64), (600, 300, 40), (1024, 77, 80), (1024, 1024, 40), (600, 300, 160)]
 
 
 def _bwd_inputs(s, t, d, seed=4):
@@ -162,7 +221,7 @@ def test_bf16_bwd_plain_rounds_like_the_tpu_kernels(monkeypatch):
 # another order).
 
 
-@pytest.mark.parametrize("s,t,d", [(600, 300, 40), (512, 512, 64), (1024, 77, 80)])
+@pytest.mark.parametrize("s,t,d", [(600, 300, 40), (512, 512, 64), (1024, 77, 80), (600, 300, 160)])
 def test_merged_route_grads_match_jax_merged(monkeypatch, s, t, d):
     monkeypatch.setattr(pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True))
     monkeypatch.setenv("FAIRDIFF_FLASH_BWD", "merged")

@@ -122,3 +122,17 @@ def test_function_grads_match_jax_grad(monkeypatch, frozen):
     else:  # torch's dW is the JAX [d, 2I] one transposed
         np.testing.assert_allclose(tw.grad.numpy().T, np.asarray(jdw), atol=1e-4, rtol=2e-5)
         np.testing.assert_allclose(tb.grad.numpy(), np.asarray(jdb), atol=1e-4, rtol=2e-5)
+
+
+def test_dx_splits_fill_one_wave():
+    """K5's split of its dx product's K = 2 Ip over blocks: none where its
+    [128 x 320] output tiles fill the H100's 132 SMs (the pair VJP's
+    [32768, 320]: 256 tiles; [8192, 640]: 128), 2 at [2048, 1280] (64
+    tiles), 8 at [512, 1280] (16 tiles), and never under four 64-deep K
+    tiles a split; dproj's halves are I rounded up to 64 columns."""
+    for (m, d), want in {(32768, 320): 1, (8192, 640): 1, (2048, 1280): 2, (512, 1280): 8}.items():
+        assert tgeglu.dx_splits(m, d, 4 * d) == want
+    for m, d, inner in ((37, 24, 100), (3, 48, 64), (64, 1280, 5120), (130, 16, 33)):
+        splits = tgeglu.dx_splits(m, d, inner)
+        assert 1 <= splits <= max(1, 2 * tgeglu.dx_inner_pad(inner) // 64 // 4)
+    assert [tgeglu.dx_inner_pad(i) for i in (33, 64, 100, 1280)] == [64, 64, 128, 1280]

@@ -93,9 +93,10 @@ def test_plain_takes_every_shape_and_rejects_bad_groups():
 
 
 def test_row_chunks_cover_every_row():
-    """The kernel's cut of a sample's rows: every row in one chunk, chunks of
-    equal size but the last, about 2 blocks an SM over the batch."""
-    for batch, rows in ((8, 4096), (8, 64), (1, 1), (2, 1024), (3, 7), (16, 262144)):
+    """The kernel's cut of a sample's rows into its cluster's slices: every
+    row in one slice, slices of equal size but the last, none empty, at
+    most MAX_CLUSTER (8) CTAs a cluster."""
+    for batch, rows in ((8, 4096), (8, 64), (1, 1), (2, 1024), (3, 7), (16, 262144), (8, 9)):
         per, n = tgn.row_chunks(batch, rows)
-        assert per * (n - 1) < rows <= per * n and n <= rows
-        assert batch * n <= 2 * 264 or per == 1
+        assert per * (n - 1) < rows <= per * n and 1 <= n <= min(rows, tgn.MAX_CLUSTER)
+    assert tgn.row_chunks(8, 4096) == (512, 8)

@@ -50,7 +50,8 @@ def cuda():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("s,t,h,d", [(600, 300, 2, 40), (77, 1030, 3, 80), (5, 64, 1, 16), (130, 200, 2, 128), (33, 70, 2, 20)])
+@pytest.mark.parametrize("s,t,h,d", [(600, 300, 2, 40), (77, 1030, 3, 80), (5, 64, 1, 16), (130, 200, 2, 128),
+                                     (33, 70, 2, 20), (576, 576, 2, 160), (77, 600, 2, 160)])
 def test_flash_kernel_matches_plain(cuda, dtype, s, t, h, d):
     q = torch.randn(2, s, h, d, generator=cuda, device="cuda", dtype=dtype)
     k = torch.randn(2, t, h, d, generator=cuda, device="cuda", dtype=dtype)
@@ -79,6 +80,9 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     q = torch.randn(1, 8, 2, 16, device="cuda")
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention(q[:, ::2], q[:, ::2], q[:, ::2])
+    q176 = torch.randn(1, 8, 2, 176, device="cuda", dtype=torch.bfloat16)  # above the largest head dim, 160
+    with pytest.raises(ValueError, match="head dims up to 160"):
+        fa.flash_attention(q176, q176, q176)
     with pytest.raises(TypeError, match="bfloat16 or float32"):
         fa.flash_attention(q.half(), q.half(), q.half())
     with pytest.raises(ValueError, match="16-byte rows"):
@@ -91,7 +95,8 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
                  torch.zeros(16, device="cuda", dtype=torch.float16))
 
 
-FLASH_SHAPES = [(600, 300, 2, 40), (77, 1030, 3, 80), (5, 64, 1, 16), (130, 200, 2, 128), (33, 70, 2, 20)]
+FLASH_SHAPES = [(600, 300, 2, 40), (77, 1030, 3, 80), (5, 64, 1, 16), (130, 200, 2, 128), (33, 70, 2, 20),
+                (576, 576, 2, 160), (77, 600, 2, 160)]
 
 
 def _qkv_do(cuda, dtype, s, t, h, d):
@@ -129,9 +134,20 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, s, t, h, d):
         assert_matches(g, p_, e, f32_tol=dict(atol=1e-4, rtol=1e-4))
 
 
+# K5 at ragged shapes (d and I off its 160-column and 64-deep tiles, M off
+# its 128 rows, one row, odd I) and at the four phase-4 path shapes (a pair
+# VJP's 8 rows; [512, 1280] splits its dx product's K over blocks)
+DX_SHAPES = [(37, 24, 100), (1000, 320, 1280), (64, 1280, 5120), (3, 48, 64), (130, 16, 33), (300, 640, 2560),
+             (32768, 320, 1280), (8192, 640, 2560), (2048, 1280, 5120), (512, 1280, 5120)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,d,inner", [(37, 24, 100), (1000, 320, 1280), (64, 1280, 5120), (3, 48, 64), (130, 16, 33), (300, 640, 2560)])
+@pytest.mark.parametrize("m,d,inner", DX_SHAPES)
 def test_geglu_dx_kernel_matches_plain(cuda, dtype, m, d, inner):
+    """K5 against its plain version, and run twice: dproj is written once
+    and the dx product (and its split-K partials) summed in a fixed order, so
+    both runs are bit-equal. The reference is fp64, or fp32 at the path
+    shapes."""
     x = torch.randn(m, d, generator=cuda, device="cuda").to(dtype)
     w = (torch.randn(2 * inner, d, generator=cuda, device="cuda") * d**-0.5).to(dtype)
     b = (torch.randn(2 * inner, generator=cuda, device="cuda") * 0.1).to(dtype)
@@ -139,8 +155,11 @@ def test_geglu_dx_kernel_matches_plain(cuda, dtype, m, d, inner):
     before = gg.launches_dx
     got = gg.geglu_dx(x, w, b, dy)
     assert gg.launches_dx == before + 1
-    exact = gg.geglu_dx_plain(x.double(), w.double(), b.double(), dy.double())
+    xd = torch.float32 if m * d * inner > 2**28 else torch.float64
+    exact = gg.geglu_dx_plain(x.to(xd), w.to(xd), b.to(xd), dy.to(xd))
     assert_matches(got, gg.geglu_dx_plain(x, w, b, dy), exact, f32_tol=dict(atol=1e-4, rtol=1e-4))
+    if dtype == torch.bfloat16:
+        assert torch.equal(gg.geglu_dx(x, w, b, dy), got)
 
 
 def test_functions_carry_gradients_on_the_card(cuda):
@@ -174,12 +193,15 @@ def test_functions_carry_gradients_on_the_card(cuda):
 def test_flash_merged_bwd_kernel_matches_plain_and_split(cuda, dtype, s, t, h, d):
     """K6 against its plain version (the same function as K2 + K3) and
     against K2 + K3 on the same inputs, at S and T that are not multiples of
-    64 (and T = 129: a second 128-key block with one key)."""
+    64 (and T = 129: a second 128-key block with one key). Above D = 128 the
+    merged route runs K3 then K2 and launches no K6."""
     q, k, v, do = _qkv_do(cuda, dtype, s, t, h, d)
     o, lse = fa.flash_attention_lse(q, k, v)
     before = (fa.launches_merged, fa.launches_dq, fa.launches_dkv)
     got = fa.flash_attention_bwd_merged(q, k, v, o, lse, do)
-    assert (fa.launches_merged, fa.launches_dq, fa.launches_dkv) == (before[0] + 1, *before[1:])
+    k6 = d <= fa.MERGED_MAX_D
+    assert (fa.launches_merged, fa.launches_dq, fa.launches_dkv) == (
+        before[0] + k6, before[1] + (not k6), before[2] + (not k6))
     assert all(g.dtype == dtype and g.shape == x.shape for g, x in zip(got, (q, k, v)))
     plain = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
     split = fa.flash_attention_bwd(q, k, v, o, lse, do)
@@ -196,7 +218,8 @@ def test_flash_merged_bwd_kernel_matches_plain_and_split(cuda, dtype, s, t, h, d
 # head dim), S shorter than its ring of three 64-row q tiles, T off its
 # 128-key tile, and the UNet's two path shapes at B*H = 64, as (B, S, T, H, D)
 KV_EDGE_SHAPES = [(2, 33, 70, 3, 20), (2, 9, 40, 1, 7), (2, 100, 256, 2, 40), (2, 64, 300, 2, 80),
-                  (1, 150, 1000, 3, 64), (8, 4096, 4096, 8, 40), (8, 1024, 1024, 8, 80)]
+                  (1, 150, 1000, 3, 64), (8, 4096, 4096, 8, 40), (8, 1024, 1024, 8, 80),
+                  (2, 77, 600, 2, 160), (8, 576, 576, 8, 160)]
 
 
 @pytest.mark.parametrize("b,s,t,h,d", KV_EDGE_SHAPES)
@@ -204,15 +227,18 @@ def test_flash_key_block_bwd_edges(cuda, b, s, t, h, d):
     """K3 and K6 against the plain backward at the key-block kernel's edges,
     and each run twice: dk and dv are written once, by one block, in a fixed
     order, so both runs are bit-equal. The reference is fp64, or fp32 at the
-    UNet shapes (an fp64 [B, H, S, T] there is 8.6 GB a tensor)."""
+    UNet shapes (an fp64 [B, H, S, T] there is 8.6 GB a tensor). At D = 160
+    (32-row q tiles) the merged route runs K3 then K2, not K6."""
     mk = lambda n: torch.randn(b, n, h, d, generator=cuda, device="cuda", dtype=torch.bfloat16)
     q, k, v, do = mk(s), mk(t), mk(t), mk(s)
     o, lse = fa.flash_attention_lse(q, k, v)
     delta = fa.attention_delta(o, do)
-    before = (fa.launches_dkv, fa.launches_merged)
+    before = (fa.launches_dkv, fa.launches_merged, fa.launches_dq)
     dkv = fa.flash_attention_dkv(q, k, v, do, lse, delta)
     merged = fa.flash_attention_bwd_merged(q, k, v, o, lse, do)
-    assert (fa.launches_dkv, fa.launches_merged) == (before[0] + 1, before[1] + 1)
+    k6 = d <= fa.MERGED_MAX_D
+    assert (fa.launches_dkv, fa.launches_merged, fa.launches_dq) == (
+        before[0] + 1 + (not k6), before[1] + k6, before[2] + (not k6))
     plain = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
     xd = torch.float32 if b * h * s * t > 2**26 else torch.float64
     qx, kx, vx, dox = (x.to(xd) for x in (q, k, v, do))
@@ -233,7 +259,7 @@ def test_flash_key_block_bwd_edges(cuda, b, s, t, h, d):
 # D = 128, and the UNet's two path shapes, as (B, S, T, H, D)
 Q_EDGE_SHAPES = [(2, 33, 70, 3, 20), (2, 9, 40, 1, 7), (2, 100, 256, 2, 40), (1, 300, 1000, 3, 64),
                  (2, 64, 300, 2, 80), (2, 130, 50, 2, 40), (2, 200, 129, 2, 128),
-                 (8, 4096, 4096, 8, 40), (8, 1024, 1024, 8, 80)]
+                 (8, 4096, 4096, 8, 40), (8, 1024, 1024, 8, 80), (2, 77, 600, 2, 160), (8, 576, 576, 8, 160)]
 
 
 @pytest.mark.parametrize("b,s,t,h,d", Q_EDGE_SHAPES)
@@ -276,18 +302,21 @@ def test_flash_merged_route_through_autograd(cuda):
         fa.flash_attention(q, k, v, flash_bwd="recompute")
 
 
+# (shape, groups): C = 960 and 2560 at 64 rows, ragged row counts (7 x 5 and
+# 9 x 9 rows do not divide into a cluster's slices), a single row, C % 8 != 0
+# (channel-by-channel loads), the path's largest shape
 GN_CASES = [((2, 8, 8, 960), 32), ((2, 8, 8, 2560), 32), ((3, 64, 320), 32), ((1, 5, 7, 48), 4),
-            ((2, 1, 1, 64), 8), ((8, 4096, 40), 8)]
+            ((2, 1, 1, 64), 8), ((8, 4096, 40), 8), ((2, 9, 9, 12), 4), ((8, 64, 64, 960), 32)]
 
 
 @pytest.mark.parametrize("silu", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,groups", GN_CASES)
 def test_group_norm_kernel_matches_plain(cuda, dtype, shape, groups, silu):
-    """K7 against its plain version: C = 960 and 2560 at 64 rows, ragged row
-    counts, a single row, fp32 and bf16, with and without SiLU. The input
-    carries a trend along the rows, so a kernel that drops rows from the
-    statistics is seen."""
+    """K7 against its plain version (GN_CASES), fp32 and bf16, with and
+    without SiLU, and run twice: the cluster sums its CTAs' partials in rank
+    order, so both runs are bit-equal. The input carries a trend along the
+    rows, so a kernel that drops rows from the statistics is seen."""
     C = shape[-1]
     rows = torch.linspace(0.0, 3.0, int(torch.tensor(shape[1:-1]).prod()), device="cuda")
     x = (torch.randn(shape, generator=cuda, device="cuda") + rows.reshape(1, *shape[1:-1], 1)).to(dtype)
@@ -298,6 +327,7 @@ def test_group_norm_kernel_matches_plain(cuda, dtype, shape, groups, silu):
     assert gn.launches == before + 1 and got.dtype == dtype and got.shape == x.shape
     exact = gn.group_norm_silu_plain(x.double(), w.double(), b.double(), groups, 1e-5, silu)
     assert_matches(got, gn.group_norm_silu_plain(x, w, b, groups, 1e-5, silu), exact)
+    assert torch.equal(gn.fused_group_norm_silu(x, w, b, groups, 1e-5, silu), got)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
