@@ -86,6 +86,8 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bandwidth (datasheet)
 # harder than the tensor cores
 PEAK_EXP = 3.9e12
 N_IMAGES = 2  # CFG batch 2N = 4 in phase 3
+# phase-4 shapes: a pair VJP's CFG batch, 2p = 8 rows (exp-1 micro-batch 4)
+PAIR_ROWS = 8
 
 # bf16 kernel vs its plain version on the same inputs. Both round their
 # output to bf16 and round the probabilities (K1) or the projection (K4) at
@@ -96,8 +98,8 @@ N_IMAGES = 2  # CFG batch 2N = 4 in phase 3
 #   the whole output ||got - ref|| / ||ref|| <= KERNEL_REL_L2_TOL;
 #   against an fp32 reference on the same inputs, the kernel's rel L2 error
 #   is at most ACCURACY_RATIO times the plain bf16 version's.
-# A control drops the last tile (the kernel's last key tile for K1, a
-# 32-deep slice of d for K4) from the plain version; its rel L2 must exceed
+# A control drops the last tile (the kernel's last key tile for K1, its last
+# 64-deep K slot of d for K4) from the plain version; its rel L2 must exceed
 # KERNEL_REL_L2_TOL, so the check is shown to see a kernel that skips a tile.
 ELEM_ATOL_RMS = 0.1
 ELEM_RTOL = 1e-2
@@ -223,6 +225,23 @@ def phase_build() -> None:
                 log(f"[build] {name}: {line.strip()}")
 
 
+# K4's shapes on the path: x [M, d] of the feed-forwards at 4096, 1024, 256
+# and 64 tokens a row (d = 320, 640, 1280, 1280), at generation's CFG batch
+# (2N = 4 rows) and at a pair VJP's 8 rows
+GEGLU_SHAPES = [(f"{label}{tag}", rows_ * tokens, d)
+                for tag, rows_ in (("", 2 * N_IMAGES), ("-vjp", PAIR_ROWS))
+                for label, tokens, d in (("d320", 4096, 320), ("d640", 1024, 640), ("d1280", 256, 1280),
+                                         ("d1280mid", 64, 1280))]
+GEGLU_SLOT = 64  # K4's K slot: 64 deep
+
+
+def geglu_drop_last_slot(x: torch.Tensor) -> torch.Tensor:
+    """x with K4's last 64-deep K slot of d zeroed: the dropped-tile control."""
+    x_drop = x.clone()
+    x_drop[..., (x.shape[-1] - 1) // GEGLU_SLOT * GEGLU_SLOT:] = 0
+    return x_drop
+
+
 def phase_kernels() -> dict[str, dict]:
     """Each kernel against its plain version at the path shapes (bf16)."""
     import torch.nn.functional as F
@@ -266,44 +285,62 @@ def phase_kernels() -> dict[str, dict]:
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
             bound_ms=bound_ms, bound_by=bound_by,
         )
-    for label, m, d in (
-        ("d320", 2 * N_IMAGES * 4096, 320),
-        ("d640", 2 * N_IMAGES * 1024, 640),
-        ("d1280", 2 * N_IMAGES * 256, 1280),
-        ("d1280mid", 2 * N_IMAGES * 64, 1280),
-    ):
+    tile_checks: dict[str, dict] = {}
+    for label, m, d in GEGLU_SHAPES:
         inner = 4 * d
         x = torch.randn(m, d, generator=g, device="cuda", dtype=bf)
         w = (torch.randn(2 * inner, d, generator=g, device="cuda") * d**-0.5).to(bf)
         b_ = (torch.randn(2 * inner, generator=g, device="cuda") * 0.1).to(bf)
         got, ref = gg.geglu(x, w, b_), gg.geglu_plain(x, w, b_)
-        x_drop = x.clone()
-        x_drop[..., -32:] = 0  # the kernel's last 32-deep stage of d
-        checks = compare(
-            got, ref, gg.geglu_plain(x.float(), w.float(), b_.float()),
-            gg.geglu_plain(x_drop, w, b_),
-        )
+        exact = gg.geglu_plain(x.float(), w.float(), b_.float())
+        checks = compare(got, ref, exact, gg.geglu_plain(geglu_drop_last_slot(x), w, b_))
+        # each y element is written once by one tile: a second run is bit-equal
+        checks["rerun_equal"] = bool(torch.equal(gg.geglu(x, w, b_), got))
+        if not checks["rerun_equal"]:
+            checks["failed"].append("rerun not bit-equal")
         bound_ms, bound_by = bound(
             2.0 * m * d * 2 * inner, 2.0 * (m * d + 2 * inner * d + 2 * inner + m * inner)
         )
+        # every tile the kernel offers, each held to the same limits and timed
+        # beside the one `fwd_tile` chooses
+        tiles = {}
+        for tile in gg.FWD_TILES:
+            c = compare(gg.geglu_with_tile(x, w, b_, tile), ref, exact)
+            tile_checks[f"geglu/{label} tile {tile}"] = c
+            tiles[tile] = time_ms(lambda: gg.geglu_with_tile(x, w, b_, tile))
         rows[f"geglu/{label}"] = dict(
             shape=f"x[{m},{d}] w[{2 * inner},{d}] bf16", **checks,
             ms=time_ms(lambda: gg.geglu(x, w, b_)),
             plain_ms=time_ms(lambda: gg.geglu_plain(x, w, b_)),
-            library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+            # product only, the [M, 2I] projection written (K4 never writes it)
+            library_ms=time_ms(lambda: F.linear(x, w, b_)),
+            bound_ms=bound_ms, bound_by=bound_by,
+            tile=gg.fwd_tile(m, d, inner), tile_ms=tiles,
+            # the kernel alone (torch.profiler): at the mid block `ms` is the
+            # wrapper's host time, which the kernel runs under
+            device_ms=kernel_split(lambda: gg.geglu(x, w, b_), {"k4::": "k4"}).get("k4"),
         )
+        del x, w, b_, got, ref, exact
+        torch.cuda.empty_cache()
     log(f"[kernels] limits: element {ELEM_ATOL_RMS} * rms(ref) + {ELEM_RTOL} * |ref| "
         f"(elem_use = worst element's share of it), rel L2 {KERNEL_REL_L2_TOL}, kernel vs "
         f"fp32 <= {ACCURACY_RATIO} x plain vs fp32, dropped-tile control > {KERNEL_REL_L2_TOL} "
-        f"(K1: its last key tile, {key_tile(40)} keys at D <= 80; GEGLU: the last 32-deep slice "
-        f"of d); K1 run twice must be bit-equal")
+        f"(K1: its last key tile, {key_tile(40)} keys at D <= 80; GEGLU: its last 64-deep K slot "
+        f"of d); K1 and K4 run twice must be bit-equal; GEGLU library: F.linear, the product "
+        f"only, [M, 2I] written")
     for key, r in rows.items():
         rerun = f" | rerun bit-equal {r['rerun_equal']}" if "rerun_equal" in r else ""
         log(f"[kernels] {key:22s} {r['shape']:34s} max_abs {r['max_abs_err']:.3e} "
             f"(ref rms {r['ref_rms']:.3e}, elem_use {r['elem_use']:.3f}) rel_l2 "
             f"{r['rel_l2']:.3e} | vs fp32: kernel {r['kernel_vs_f32']:.3e} plain "
             f"{r['plain_vs_f32']:.3e} | control {r['control_rel_l2']:.3e}{rerun} | {_times(r)}")
+        if "tile_ms" in r:
+            dev = "not measured" if r["device_ms"] is None else f"{r['device_ms']:.4f}"
+            log(f"[kernels] {key:22s} tiles (rows x columns, ms; rows 64 ping-pong, 128 cooperative): "
+                + ", ".join(f"{a}x{b} {t:.4f}" for (a, b), t in r["tile_ms"].items())
+                + f" | chosen {r['tile'][0]}x{r['tile'][1]}, its device ms (profiler) {dev}")
     failed = {key: r["failed"] for key, r in rows.items() if r["failed"]}
+    failed.update({key: c["failed"] for key, c in tile_checks.items() if c["failed"]})
     if failed:
         raise AssertionError(f"kernel checks failed: {failed}")
     return rows
@@ -388,11 +425,9 @@ def unet_bf16_parity(unet_f32, inputs, exact: torch.Tensor, want=UNET_CALL_LAUNC
 
     def checked_geglu(x, w, b):
         got = gg.geglu(x, w, b)
-        x_drop = x.clone()
-        x_drop[..., -32:] = 0
         per_launch["geglu"].append(compare(
             got, gg.geglu_plain(x, w, b), gg.geglu_plain(x.float(), w.float(), b.float()),
-            gg.geglu_plain(x_drop, w, b)))
+            gg.geglu_plain(geglu_drop_last_slot(x), w, b)))
         return got
 
     with torch.no_grad():
@@ -595,8 +630,6 @@ LSE_ATOL = 1e-4
 # fp32 kernel bodies against the plain fp32 versions on the same inputs:
 # summation order only
 F32_REL_L2_TOL = 1e-4
-# phase-4 shapes: a pair VJP's CFG batch, 2p = 8 rows (exp-1 micro-batch 4)
-PAIR_ROWS = 8
 
 
 def _flash_bwd_checks(q, k, v, do, fwd=None, grads=None):
@@ -893,11 +926,14 @@ def phase_kernels_bwd() -> dict[str, dict]:
         splits = gg.dx_splits(m, d, inner)
         x32, w32, b32, dy32 = (t_.float() for t_ in (x, w, b_, dy))
         f32_rel[f"geglu_dx/{label}"] = rel_l2(gg.geglu_dx(x32, w32, b32, dy32), gg.geglu_dx_plain(x32, w32, b32, dy32))
+        dproj_lib = torch.randn(m, 2 * inner, device="cuda", dtype=bf)  # off `g`: the inputs stay as they were
         rows[f"geglu_dx/{label}"] = dict(
             shape=f"x[{m},{d}] w[{2 * inner},{d}] dy[{m},{inner}] bf16",
             ms=time_ms(lambda: gg.geglu_dx(x, w, b_, dy)),
             plain_ms=time_ms(lambda: gg.geglu_dx_plain(x, w, b_, dy)),
-            library_ms=None,
+            # K5's two products by cuBLAS: F.linear (the [M, 2I] projection
+            # written), then a [M, 2I] dproj times W (read)
+            library_ms=time_ms(lambda: (F.linear(x, w, b_), dproj_lib @ w)),
             # the design's own traffic, outside the bound: dproj [M, 2 Ip] bf16
             # written and read, and at split K the fp32 partials likewise
             dproj_gb=2 * 2.0 * m * 2 * gg.dx_inner_pad(inner) / 1e9,
@@ -1263,10 +1299,11 @@ def profile_pair_vjp(run, wall_s: float, tag: str = "[unet-vjp]") -> None:
         return
     log(f"{tag} profile of one pair VJP: {busy:.3f} ms kernel time, device idle share "
         f"{max(0.0, 1 - busy / (wall_s * 1e3)):.3f} against the timed run's wall")
-    # the port's kernels by family, from their CUDA names (K5: the dproj and
-    # dx GEMMs and the split-K sum)
-    for family, keys in (("K1-K3/K6 flash", ("flash",)), ("K4 geglu fwd", ("geglu_fwd",)),
-                         ("K5 geglu dx", ("gm::", "geglu_dx"))):
+    # the port's kernels by family, from their CUDA names (K4: `k4::` and the
+    # fp32 body; K5: the dproj and dx GEMMs `gm::`, the split-K sum and the
+    # fp32 body)
+    for family, keys in (("K1-K3/K6 flash", ("flash",)), ("K4 geglu fwd", ("k4::", "geglu_fwd")),
+                         ("K5 geglu dx", ("gm::", "dx_reduce", "geglu_dx"))):
         hits = [e for e in events if any(k in e.key for k in keys)]
         log(f"{tag}   {family}: {sum(e.self_device_time_total for e in hits) / 1e3:.3f} ms in "
             f"{sum(e.count for e in hits)} kernel launches")

@@ -9,22 +9,45 @@
 // the h half, rows [I, 2I) the gate half) and b [2I]. Both halves come from
 // this kernel's own products with fp32 accumulation; the bias, the exact
 // erf gelu (CUDA's erff, not the TPU kernel's A&S polynomial, which exists
-// only because Mosaic has no erf) and the product run in fp32; only the
-// [M, I] product is written, so the [M, 2I] projection never reaches device
-// memory.
+// only because Mosaic has no erf) and the product run in fp32, rounded once
+// to bf16 (the JAX kernel's rounding point); only the [M, I] product is
+// written, so the [M, 2I] projection never reaches device memory.
 //
 // What bounds it on this card: at the UNet shapes (d = 320..1280, I = 4d,
 // M = 2N*64..2N*4096) it does 4*M*d*I flops against 2*(M*d + 2*I*d + M*I)
-// bytes, hundreds of flops per byte, so the tensor cores bound it. The bf16
-// kernel is a tiled GEMM with a fused epilogue: one block of eight warps per
-// [128 x 64] output tile (each warp 32 rows x 32 columns of both halves),
-// x, Wh and Wg tiles 32 deep copied with 16-byte cp.async into a two-stage
-// shared-memory ring so the next stage loads while this one multiplies,
-// ldmatrix + mma.sync m16n8k16 into fp32 registers, and the gelu product
-// computed from those registers and stored as bf16 pairs. Edges in M and I
-// are zero-filled on load and masked on store; d must be a multiple of 8
-// (16-byte rows), which every SD-1.5 width is. Not yet done: wgmma/TMA (the
-// dproj GEMM of K5 below is the mainloop to move it onto).
+// bytes, hundreds of flops per byte, so the tensor cores bound it: 4 M d I
+// / 989 TFLOP/s, 0.0271 ms at [16384, 320], [4096, 640] and [1024, 1280].
+// Beside the products, the epilogue's erff costs about 40 instructions an
+// output on the CUDA cores, as long as a tile's products at d = 320.
+// The bf16 kernel (namespace k4) is a persistent, warp-specialised wgmma
+// GEMM with the gelu product as its epilogue:
+// - One block an SM walks a static list of y tiles. A producer thread
+//   streams 64-deep K slots by TMA through a ring of mbarrier-guarded slots:
+//   each slot is one box of x [rows x 64] and one B tile of Wh rows n0.. and
+//   Wg rows n0.. side by side, all in 128-byte lines with the 128-byte
+//   swizzle. TMA zero-fills a last slot past d and rows past M and I, so
+//   every slot runs the same wgmma (none is skipped).
+// - Each consumer warpgroup issues m64nNk16 wgmma with N = 2 COLS (256 for
+//   the 128-column tiles), so one thread's accumulators hold h and g of the
+//   same outputs: the epilogue needs no exchange.
+// - Two layouts of the two consumer warpgroups (ops/geglu.py `fwd_tile`
+//   picks): cooperative, both on one 128-row tile (64 rows each), products
+//   at the full rate, the epilogue after them; ping-pong, each on its own
+//   64-row tile, mainloops in turns (named barriers), so one's epilogue runs
+//   while the other's products do. The overlap is partial (the erff work
+//   and the products slow each other), so ping-pong pays only where the
+//   epilogue is as long as the products: d = 320.
+// - Epilogue: the tile's biases are read once into shared memory and added
+//   into the accumulators; the product is staged in the store map's
+//   swizzled layout and leaves by TMA store (rows past M, columns past I
+//   clipped), whose read of the staging buffer is awaited before its next
+//   use. Where TMA cannot address y (I % 8 != 0) it is stored plainly.
+// - Tiles: 128 outputs (wgmma N = 256) or, where that spreads the tiles
+//   over the SMs better (the mid block), 64. No split K: gelu is not linear
+//   in a partial sum, so a split would need a second pass over fp32
+//   partials of both halves.
+// Every y element is written once by one tile: two runs are bit-equal. d
+// must be a multiple of 8 (16-byte rows), which every SD-1.5 width is.
 //
 // The fp32 kernel is the simple version (CUDA-core fmaf over shared-memory
 // tiles, any d); it serves the full-precision parity check.
@@ -48,109 +71,251 @@ __device__ __forceinline__ float gelu_erf_grad(float g) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: mma.sync with a cp.async double buffer
+// bf16 forward (K4): a persistent wgmma GEMM fed by TMA, gelu epilogue
 // ---------------------------------------------------------------------------
+namespace k4 {
 
-constexpr int BM = 128;       // rows of x per block
-constexpr int BN = 64;        // output columns per block (of each half)
-constexpr int BK = 32;        // depth per stage
-constexpr int LDS = BK + 8;   // padded shared row: ldmatrix rows hit distinct banks
-constexpr int NTHREADS = 256; // eight warps: 4 along M x 2 along N
-constexpr int STAGE = (BM + 2 * BN) * LDS;  // bf16 elements of one stage
+constexpr int BK = 64;             // depth of a K slot: one 128-byte line of x and of W
+constexpr int NCONS = 256;         // two consumer warpgroups
+constexpr int NTHR = NCONS + 128;  // + the producer warpgroup (one thread works)
+constexpr int SMEM_MAX = 232448;
+constexpr int MAX_STAGES = 6;
 
-__global__ void __launch_bounds__(NTHREADS)
-    geglu_fwd_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                          const bf16* __restrict__ bias, bf16* __restrict__ y, int M,
-                          int d, int I) {
-  __shared__ __align__(128) bf16 smem[2 * STAGE];
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = warp / 2, wn = warp % 2;
+// shared memory: the ring (a slot: the x tile, then Wh rows n0.. and Wg
+// rows n0.. as one [2 COLS x 64] B tile), each consumer warpgroup's staged y
+// [64 x COLS] and its bf16 biases (h, then g), then the barriers
+template <int ROWS, int COLS>
+struct Smem {
+  static constexpr int A = ROWS * BK * 2;
+  static constexpr int B = 2 * COLS * BK * 2;
+  static constexpr int STAGE = A + B;
+  static constexpr int OUT = 64 * COLS * 2;
+  static constexpr int BIAS = 2 * COLS * 2;
+  static constexpr int FIT = (SMEM_MAX - 1024 - 2 * (OUT + BIAS) - 16 * MAX_STAGES) / STAGE;
+  static constexpr int STAGES = FIT < MAX_STAGES ? FIT : MAX_STAGES;
+  static constexpr int Y = STAGES * STAGE;
+  static constexpr int BIAS_AT = Y + 2 * OUT;
+  static constexpr int BAR = BIAS_AT + 2 * BIAS;
+  static constexpr int BYTES = BAR + 16 * STAGES + 1024;  // + alignment slack
+  static_assert(STAGES >= 2 && BYTES <= SMEM_MAX, "shared memory");
+};
 
-  // stage s: x rows [m0, m0+128), Wh rows [n0, n0+64), Wg rows [I+n0, I+n0+64)
-  const auto load_stage = [&](int s, int k0) {
-    bf16* sX = smem + s * STAGE;
-    bf16* sWh = sX + BM * LDS;
-    bf16* sWg = sWh + BN * LDS;
-    for (int idx = tid; idx < BM * (BK / 8); idx += NTHREADS) {
-      const int r = idx / (BK / 8), c = (idx % (BK / 8)) * 8;
-      const bool ok = m0 + r < M && k0 + c < d;
-      fd::cp_async16(sX + r * LDS + c, ok ? x + (long)(m0 + r) * d + k0 + c : x, ok);
-    }
-    for (int idx = tid; idx < BN * (BK / 8); idx += NTHREADS) {
-      const int r = idx / (BK / 8), c = (idx % (BK / 8)) * 8;
-      const bool ok = n0 + r < I && k0 + c < d;
-      fd::cp_async16(sWh + r * LDS + c, ok ? w + (long)(n0 + r) * d + k0 + c : w, ok);
-      fd::cp_async16(sWg + r * LDS + c, ok ? w + (long)(I + n0 + r) * d + k0 + c : w, ok);
-    }
-    fd::cp_async_commit();
-  };
+// x [M, d], box [ROWS x 64]; the two halves of W [I, d] each, box [COLS x
+// 64]; y [M, I], box [64 x 64]; all with the 128-byte swizzle
+struct Maps {
+  CUtensorMap x, wh, wg, y;
+};
 
-  float ch[2][4][4] = {}, cg[2][4][4] = {};  // [m16 tile][n8 tile][fragment]
-  const int nk = (d + BK - 1) / BK;
-  load_stage(0, 0);
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) {
-      load_stage((kt + 1) & 1, (kt + 1) * BK);
-      fd::cp_async_wait<1>();  // stage kt has landed, kt + 1 may be in flight
-    } else {
-      fd::cp_async_wait<0>();
+__device__ __forceinline__ void st_shared_u16(uint32_t addr, unsigned short v) {
+  asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(addr), "h"(v) : "memory");
+}
+__device__ __forceinline__ float2 ld_shared_bf16x2(uint32_t addr) {
+  uint32_t u;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(u) : "r"(addr) : "memory");
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+
+// y = (h + bh) gelu(g + bg) for a warpgroup's 64 rows (r = 16 warp +
+// lane / 4, + 8) and COLS columns of accumulators [h | g] (the biases are
+// added in place), rounded to bf16: staged for the TMA store at `s_out` in
+// the store map's swizzled layout (TMA), or stored to y [M, I] rows m0..,
+// columns n0.., masked
+template <int COLS, bool TMA>
+__device__ __forceinline__ void epilogue(float (&acc)[COLS], uint32_t s_bias, uint32_t s_out, int t,
+                                         bf16* __restrict__ y, int M, int I, int m0, int n0) {
+  const int lane = t % 32, r_lo = 16 * (t / 32) + lane / 4;
+  // the biases first, added into the accumulators: a shared load between
+  // the stores below would fence each column group's erff chains from the
+  // next, and biases held in registers would leave too few for the chains
+  #pragma unroll
+  for (int j8 = 0; j8 < COLS / 8; ++j8) {
+    const int c = 8 * j8 + 2 * (lane % 4);
+    const float2 bh = ld_shared_bf16x2(s_bias + 2 * c), bg = ld_shared_bf16x2(s_bias + 2 * (COLS + c));
+    #pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int e = 4 * j8 + 2 * hf, eg = 4 * (j8 + COLS / 8) + 2 * hf;
+      acc[e] += bh.x;
+      acc[e + 1] += bh.y;
+      acc[eg] += bg.x;
+      acc[eg + 1] += bg.y;
     }
-    __syncthreads();
-    const bf16* sX = smem + (kt & 1) * STAGE;
-    const bf16* sWh = sX + BM * LDS;
-    const bf16* sWg = sWh + BN * LDS;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        fd::ldmatrix_x4(af[mi], sX + (wm * 32 + mi * 16 + lane % 16) * LDS + kk + (lane / 16) * 8);
-#pragma unroll
-      for (int nj2 = 0; nj2 < 2; ++nj2) {  // two 8-wide column tiles a load
-        const int row = wn * 32 + nj2 * 16 + lane % 8 + (lane / 16) * 8;
-        const int col = kk + ((lane / 8) % 2) * 8;
-        uint32_t bh[4], bg[4];
-        fd::ldmatrix_x4(bh, sWh + row * LDS + col);
-        fd::ldmatrix_x4(bg, sWg + row * LDS + col);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          fd::mma_16816(ch[mi][2 * nj2], af[mi], bh[0], bh[1]);
-          fd::mma_16816(ch[mi][2 * nj2 + 1], af[mi], bh[2], bh[3]);
-          fd::mma_16816(cg[mi][2 * nj2], af[mi], bg[0], bg[1]);
-          fd::mma_16816(cg[mi][2 * nj2 + 1], af[mi], bg[2], bg[3]);
-        }
-      }
-    }
-    __syncthreads();  // everyone is done with stage kt before it is refilled
   }
-
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int nj = 0; nj < 4; ++nj) {
-      const int col = n0 + wn * 32 + nj * 8 + (lane % 4) * 2;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {  // fragment rows lane/4 and lane/4 + 8
-        const int row = m0 + wm * 32 + mi * 16 + lane / 4 + half * 8;
-        if (row >= M) continue;
-        float out[2];
-        for (int e = 0; e < 2; ++e) {
-          const int n = min(col + e, I - 1);  // clamped read; masked on store
-          out[e] = (ch[mi][nj][2 * half + e] + __bfloat162float(bias[n])) *
-                   gelu_erf(cg[mi][nj][2 * half + e] + __bfloat162float(bias[I + n]));
-        }
-        bf16* dst = y + (long)row * I + col;
-        if (col + 1 < I && I % 2 == 0) {
-          *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(out[0], out[1]);
-        } else {
-          for (int e = 0; e < 2; ++e)
-            if (col + e < I) dst[e] = __float2bfloat16(out[e]);
-        }
+  #pragma unroll
+  for (int j8 = 0; j8 < COLS / 8; ++j8) {
+    const int c = 8 * j8 + 2 * (lane % 4);
+    #pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = r_lo + 8 * hf, e = 4 * j8 + 2 * hf, eg = 4 * (j8 + COLS / 8) + 2 * hf;
+      const float v0 = acc[e] * gelu_erf(acc[eg]), v1 = acc[e + 1] * gelu_erf(acc[eg + 1]);
+      if (TMA) {
+        fd::st_shared(s_out + (c / 64) * 64 * 128 + fd::swz128(r, c % 64), fd::pack_bf16(v0, v1));
+      } else {
+        const int row = m0 + r, col = n0 + c;
+        if (row < M && col < I) y[(long)row * I + col] = __float2bfloat16(v0);
+        if (row < M && col + 1 < I) y[(long)row * I + col + 1] = __float2bfloat16(v1);
       }
     }
   }
 }
+
+// ping-pong: the two consumer warpgroups run their tiles' mainloops in turns
+// (named barriers 3 and 4), so one's epilogue runs while the other's
+// products are on the tensor cores
+__device__ __forceinline__ void my_turn(int wg) { fd::named_sync(3 + wg, NCONS); }
+__device__ __forceinline__ void your_turn(int wg) { fd::named_arrive(3 + (wg ^ 1), NCONS); }
+
+// y tiles of [ROWS x COLS]; ROWS 128: cooperative (each tile's rows split
+// between the two consumer warpgroups, 64 each), ROWS 64: ping-pong (the
+// warpgroups take the block's tiles in turn). Block b walks tiles b, b +
+// gridDim.x, ...; tile t is row block t % m_tiles of column block t /
+// m_tiles, so the blocks in flight share the W tiles of a few column
+// blocks while all of x streams past them (L2 holds both at every UNet
+// width).
+template <int ROWS, int COLS>
+__global__ void __launch_bounds__(NTHR, 1)
+    fwd_kernel(const __grid_constant__ Maps maps, const bf16* __restrict__ bias, bf16* __restrict__ y, int M, int d,
+               int I, int m_tiles, int n_tiles, bool y_tma) {
+  using L = Smem<ROWS, COLS>;
+  constexpr bool PINGPONG = ROWS == 64;
+  constexpr int N = 2 * COLS;  // the wgmma's width: COLS h columns, then the same COLS g columns
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = fd::smem_addr(smem_raw);
+  const uint32_t base = raw + (1024 - raw % 1024) % 1024;
+  const auto sa = [&](int s) { return base + s * L::STAGE; };
+  const auto sb = [&](int s) { return base + s * L::STAGE + L::A; };
+  const auto full = [&](int s) { return base + L::BAR + 8 * s; };
+  const auto empty = [&](int s) { return base + L::BAR + 8 * (L::STAGES + s); };
+  const int k_tiles = (d + BK - 1) / BK;
+  const int n_local = (m_tiles * n_tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1;  // this block's tiles
+  // the block's j-th tile: its first row and column
+  const auto tile_of = [&](int j, int& m0, int& n0) {
+    const int tile = blockIdx.x + j * gridDim.x;
+    m0 = tile % m_tiles * ROWS;
+    n0 = tile / m_tiles * COLS;
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::STAGES; ++s) {
+      fd::mbar_init(full(s), 1);
+      fd::mbar_init(empty(s), PINGPONG ? 128 : NCONS);
+    }
+    fd::mbar_fence_init();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---- producer: one thread streams every K slot of the block's tiles,
+    // running ahead into the next tile while the consumers finish this one.
+    // A last slot past d is zero-filled by TMA, as are rows past M and I.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x % 128 != 0) return;
+    int it = 0;
+    for (int j = 0; j < n_local; ++j) {
+      int m0, n0;
+      tile_of(j, m0, n0);
+      for (int kt = 0; kt < k_tiles; ++kt, ++it) {
+        const int s = it % L::STAGES;
+        fd::mbar_wait(empty(s), ((it / L::STAGES) & 1) ^ 1);
+        fd::mbar_expect_tx(full(s), L::STAGE);
+        fd::tma_load_2d(sa(s), maps.x, kt * BK, m0, full(s));
+        fd::tma_load_2d(sb(s), maps.wh, kt * BK, n0, full(s));
+        fd::tma_load_2d(sb(s) + COLS * 128, maps.wg, kt * BK, n0, full(s));
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns 64 rows of a tile ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int t = threadIdx.x % 128;
+  const uint32_t s_out = base + L::Y + wg * L::OUT, s_bias = base + L::BIAS_AT + wg * L::BIAS;
+  const uint32_t a_off = PINGPONG ? 0 : wg * 64 * 128;
+  float acc[N / 2] = {};  // each tile's first wgmma overwrites it
+  int it = 0;             // the block's ring slots, counted over all its tiles
+  for (int j = 0; j < n_local; ++j) {
+    if (PINGPONG && j % 2 != wg) {
+      it += k_tiles;
+      continue;
+    }
+    int m0, n0;
+    tile_of(j, m0, n0);
+    if (!PINGPONG) m0 += 64 * wg;
+    // the tile's biases (h, then g): loaded now, stored for the epilogue
+    // after the products, which hide the load
+    unsigned short bv[2 * COLS / 128];
+    #pragma unroll
+    for (int q = 0; q < 2 * COLS / 128; ++q) {
+      const int i = t + 128 * q, n = n0 + i % COLS;
+      bv[q] = n < I ? __bfloat16_as_ushort(bias[(i < COLS ? 0 : I) + n]) : 0;
+    }
+    if (PINGPONG && j > 0) my_turn(wg);
+    for (int kt = 0; kt < k_tiles; ++kt, ++it) {
+      const int s = it % L::STAGES;
+      fd::mbar_wait(full(s), (it / L::STAGES) & 1);
+      fd::keep(acc);
+      fd::wg_fence();
+      #pragma unroll
+      for (int ks = 0; ks < BK / 16; ++ks)
+        fd::Gmma<N>::template ss<0, 0>(acc, fd::desc128(sa(s) + a_off + 32 * ks), fd::desc128(sb(s) + 32 * ks),
+                                       kt > 0 || ks > 0);
+      fd::wg_commit();
+      fd::wg_wait<1>();  // the slot before this one is read
+      fd::keep(acc);
+      if (kt > 0) fd::mbar_arrive(empty((it - 1) % L::STAGES));
+    }
+    if (PINGPONG && j + 1 < n_local) your_turn(wg);
+    fd::wg_wait<0>();
+    fd::keep(acc);
+    fd::mbar_arrive(empty((it - 1) % L::STAGES));
+
+    // ---- epilogue: y = (h + bh) gelu(g + bg) in fp32, rounded once to bf16,
+    // staged in the store map's swizzled layout and stored by TMA (rows past
+    // M and columns past I clipped), or stored plainly where TMA cannot
+    // address y (I % 8 != 0)
+    #pragma unroll
+    for (int q = 0; q < 2 * COLS / 128; ++q) st_shared_u16(s_bias + 2 * (t + 128 * q), bv[q]);
+    if (y_tma && t == 0) fd::bulk_wait_read();  // the last tile's store has read the staging buffer
+    fd::named_sync(1 + wg, 128);                // ... and every bias is in
+    // one branch for the whole tile: a branch per output pair would cut the
+    // unrolled loop into blocks of two erff chains, which ptxas does not
+    // interleave
+    if (y_tma)
+      epilogue<COLS, true>(acc, s_bias, s_out, t, y, M, I, m0, n0);
+    else
+      epilogue<COLS, false>(acc, s_bias, s_out, t, y, M, I, m0, n0);
+    fd::fence_async_smem();
+    fd::named_sync(1 + wg, 128);  // the staged tile is whole; the biases are read
+    if (y_tma && t == 0 && m0 < M) {
+      for (int cb = 0; cb < COLS / 64; ++cb) fd::tma_store_2d(maps.y, n0 + 64 * cb, m0, s_out + cb * 64 * 128);
+      fd::bulk_commit();
+    }
+  }
+  if (y_tma && t == 0) fd::bulk_wait();  // shared memory outlives the stores that read it
+}
+
+// one launch of the persistent kernel: min(tiles, SMs) blocks
+template <int ROWS, int COLS>
+int launch(const bf16* x, const bf16* w, const bf16* b, bf16* y, int M, int d, int I, cudaStream_t stream) {
+  using L = Smem<ROWS, COLS>;
+  const bool y_tma = I % 8 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  const int m_tiles = (M + ROWS - 1) / ROWS, n_tiles = (I + COLS - 1) / COLS;
+  const long tiles = (long)m_tiles * n_tiles;
+  int dev = 0, sms = 0;
+  if (int err = (int)cudaGetDevice(&dev)) return err;
+  if (int err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) return err;
+  Maps maps;
+  memset(&maps, 0, sizeof(maps));
+  if (!(fd::tensor_map_2d(&maps.x, x, M, d, d, ROWS, true) && fd::tensor_map_2d(&maps.wh, w, I, d, d, COLS, true) &&
+        fd::tensor_map_2d(&maps.wg, w + (long)I * d, I, d, d, COLS, true) &&
+        (!y_tma || fd::tensor_map_2d(&maps.y, y, M, I, I, 64, true))))
+    return (int)cudaErrorInvalidValue;
+  const auto kernel = fwd_kernel<ROWS, COLS>;
+  if (int err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES)) return err;
+  kernel<<<(unsigned)(tiles < sms ? tiles : sms), NTHR, L::BYTES, stream>>>(maps, b, y, M, d, I, m_tiles, n_tiles,
+                                                                            y_tma);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace k4
 
 // ---------------------------------------------------------------------------
 // fp32: the simple version
@@ -629,21 +794,26 @@ bool bad_shape(int M, int d, int I) { return M < 1 || d < 1 || I < 1; }
 
 }  // namespace
 
+// K4: y [M, I] from x [M, d], w [2I, d], b [2I] in y tiles of tile_rows
+// (128: cooperative, 64: ping-pong) x tile_cols (128 or 64) rows and
+// columns; the fp32 body ignores the tile
 extern "C" int fd_geglu_fwd_bf16(const void* x, const void* w, const void* b, void* y,
-                                 int M, int d, int I, void* stream) {
+                                 int M, int d, int I, int tile_rows, int tile_cols, void* stream) {
   const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
-  if (bad_shape(M, d, I) || d % 8 != 0 || !aligned(x) || !aligned(w) ||
-      (M + BM - 1) / BM > 65535)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((I + BN - 1) / BN, (M + BM - 1) / BM);
-  geglu_fwd_bf16_kernel<<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const bf16*>(b),
-      static_cast<bf16*>(y), M, d, I);
-  return (int)cudaGetLastError();
+  if (bad_shape(M, d, I) || d % 8 != 0 || !aligned(x) || !aligned(w)) return (int)cudaErrorInvalidValue;
+  const auto* xb = static_cast<const bf16*>(x);
+  const auto* wb = static_cast<const bf16*>(w);
+  const auto* bb = static_cast<const bf16*>(b);
+  auto* yb = static_cast<bf16*>(y);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (tile_rows == 64 && tile_cols == 128) return k4::launch<64, 128>(xb, wb, bb, yb, M, d, I, st);
+  if (tile_rows == 128 && tile_cols == 128) return k4::launch<128, 128>(xb, wb, bb, yb, M, d, I, st);
+  if (tile_rows == 128 && tile_cols == 64) return k4::launch<128, 64>(xb, wb, bb, yb, M, d, I, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int fd_geglu_fwd_f32(const void* x, const void* w, const void* b, void* y,
-                                int M, int d, int I, void* stream) {
+                                int M, int d, int I, int, int, void* stream) {
   if (bad_shape(M, d, I) || (M + FB - 1) / FB > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid((I + FB - 1) / FB, (M + FB - 1) / FB);
   geglu_fwd_f32_kernel<<<grid, FTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(

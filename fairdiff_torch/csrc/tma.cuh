@@ -1,10 +1,10 @@
 // Hopper building blocks of the wgmma kernels (sm_90a): mbarriers, TMA
 // tensor and bulk copies, named barriers, wgmma descriptors and
-// synchronisation, the 32-byte-swizzled column-block tile layout, the
-// cp.async producer for layouts TMA cannot address, and the host-side
-// tensor maps. The query-block kernels (K1, K2) and the key-block kernels
-// (K3, K6) in flash_attention.cu and the GEGLU dx GEMMs (K5) in geglu.cu
-// share them.
+// synchronisation, the 32-byte-swizzled column-block tile layout and the
+// 128-byte-swizzled line layout, the cp.async producer for layouts TMA
+// cannot address, and the host-side tensor maps. The query-block kernels
+// (K1, K2) and the key-block kernels (K3, K6) in flash_attention.cu and the
+// GEGLU forward (K4) and dx GEMMs (K5) in geglu.cu share them.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap (the encoder is found at run time)
@@ -134,6 +134,20 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t s
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
          ((uint64_t)(sbo >> 4) << 32) | (3ull << 62);
 }
+// wgmma shared-memory descriptor for a K-major tile of 128-byte lines (64
+// bf16) with the 128-byte swizzle (layout type 1): 8-line atoms of 1024
+// bytes apart (SBO); the leading offset is unused for this layout. The tile
+// starts on a 1024-byte boundary; a 16-deep step within the line adds 32
+// bytes to `addr`.
+__device__ __forceinline__ uint64_t desc128(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+// byte offset of element (r, c), c < 64, in a tile of 128-byte lines with
+// TMA's 128-byte swizzle: the 16-byte chunk c / 8 of line r sits at chunk
+// (c / 8) ^ (r % 8)
+__device__ __forceinline__ uint32_t swz128(int r, int c) {
+  return r * 128 + ((((c / 8) ^ (r % 8)) & 7) << 4) + (c % 8) * 2;
+}
 // byte offset of element (r, c) in a tile of `rows` rows kept as column
 // blocks of 16 bf16 (32-byte rows) with TMA's 32-byte swizzle: address bit
 // 4 (which 16-byte half) flips with bit 7 (r / 4 odd)
@@ -206,17 +220,20 @@ inline bool tensor_map(CUtensorMap* map, const void* base, int B, int N, int H, 
 
 // a bf16 row-major matrix [rows, cols] (row stride `ld` elements, a multiple
 // of 8) as a 2-D map with a box of 16 columns x `box_rows` rows and the
-// 32-byte swizzle: the column-block tiles of the wgmma GEMMs; out-of-bounds
-// elements read as zero
-inline bool tensor_map_2d(CUtensorMap* map, const void* base, long rows, long cols, long ld, int box_rows) {
+// 32-byte swizzle (the column-block tiles of K5's GEMMs), or with `lines`
+// a box of 64 columns (one 128-byte line) x `box_rows` rows and the 128-byte
+// swizzle (K4's tiles); out-of-bounds elements read as zero and are not
+// written
+inline bool tensor_map_2d(CUtensorMap* map, const void* base, long rows, long cols, long ld, int box_rows,
+                          bool lines = false) {
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {2ull * ld};
-  const cuuint32_t box[2] = {16, (cuuint32_t)box_rows};
+  const cuuint32_t box[2] = {lines ? 64u : 16u, (cuuint32_t)box_rows};
   const cuuint32_t unit[2] = {1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
-                unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
+                unit, CU_TENSOR_MAP_INTERLEAVE_NONE, lines ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -27,19 +27,27 @@ launches = 0
 launches_dx = 0
 
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
+# K4's bf16 kernel (csrc/geglu.cu `k4`), one persistent block an SM: its y
+# tiles as (rows, columns of each half). Ping-pong: the block's two consumer
+# warpgroups take 64-row tiles in turn; cooperative: they split a 128-row
+# tile, 128 columns wide or 64 narrow
+FWD_PINGPONG, FWD_WIDE, FWD_NARROW = (64, 128), (128, 128), (128, 64)
+FWD_TILES = (FWD_PINGPONG, FWD_WIDE, FWD_NARROW)
+FWD_PINGPONG_MAX_D = 320  # five 64-deep K slots
+_WAVES = 4
 # K5's dx GEMM (csrc/geglu.cu `gm`): output tiles of 128 rows and 320
 # columns where d is a multiple of 320, else 160; 64-deep K tiles, the two
 # halves of its K = 2I each rounded up to 64 columns
 DX_TILE_ROWS, DX_TILE_PART, DX_DEPTH = 128, 160, 64
-_SMS = 132  # the H100's SMs: one wave of dx tiles
+_SMS = 132  # the H100's SMs: one wave of K4 or K5 tiles
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel(name: str, dtype: torch.dtype):
     """The C entry `fd_geglu_<name>_<dtype>`: pointers, then M, d, I (and
-    K5's split count), stream."""
+    K4's tile rows and columns, or K5's split count), stream."""
     fn = getattr(build.load("geglu"), f"fd_geglu_{name}_{_DTYPES[dtype]}")
-    ints = {"fwd": 3, "dx": 4}[name]
+    ints = {"fwd": 5, "dx": 4}[name]
     fn.argtypes = [ctypes.c_void_p] * {"fwd": 4, "dx": 7}[name] + [ctypes.c_int] * ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -59,6 +67,30 @@ def dx_splits(m: int, d: int, inner: int) -> int:
     tiles = -(-m // DX_TILE_ROWS) * -(-d // cols)
     k_tiles = 2 * dx_inner_pad(inner) // DX_DEPTH
     return max(1, min(k_tiles // 4, _SMS // tiles))
+
+
+def fwd_tile(m: int, d: int, inner: int) -> tuple[int, int]:
+    """K4's y tile (rows, columns) for x [m, d] and I = `inner`.
+
+    Ping-pong where d is at most five K slots deep and its tiles fill four
+    waves of the 132 SMs: there the erff epilogue is as long as a tile's
+    products, and one warpgroup's runs while the other's products do.
+    Deeper, the cooperative tile, whose products run at the full rate: the
+    wide one, unless the narrow one lowers the busiest SM's work (its count
+    of tiles times their columns: one block an SM walks every 132nd tile)
+    by more than a tenth, which happens only where the wide tiles number
+    under four waves (the mid block). No split K: gelu is not linear in a
+    partial sum, so a split would need a second pass over fp32 partials of
+    both halves."""
+    def tiles(tile: tuple[int, int]) -> int:
+        return -(-m // tile[0]) * -(-inner // tile[1])
+
+    def busiest(tile: tuple[int, int]) -> int:
+        return -(-tiles(tile) // _SMS) * tile[1]
+
+    if d <= FWD_PINGPONG_MAX_D and tiles(FWD_PINGPONG) >= _WAVES * _SMS:
+        return FWD_PINGPONG
+    return FWD_NARROW if busiest(FWD_NARROW) < 0.9 * busiest(FWD_WIDE) else FWD_WIDE
 
 
 def _acc(x: torch.Tensor) -> torch.Tensor:
@@ -124,10 +156,23 @@ def _check_cuda(x: torch.Tensor, w: torch.Tensor, *rest: torch.Tensor) -> None:
 
 
 def _forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    global launches
     _check(x, w, b)
     if x.device.type == "cpu":
         return geglu_plain(x, w, b)
+    d = x.shape[-1]
+    return _launch_fwd(x, w, b, fwd_tile(x.numel() // d, d, w.shape[0] // 2))
+
+
+def geglu_with_tile(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, tile: tuple[int, int]) -> torch.Tensor:
+    """K4 on CUDA tensors with its y tile (rows, columns) given, one of
+    FWD_TILES. `_forward` takes `fwd_tile`'s; the others are there to be
+    timed and tested beside it."""
+    _check(x, w, b)
+    return _launch_fwd(x, w, b, tile)
+
+
+def _launch_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, tile: tuple[int, int]) -> torch.Tensor:
+    global launches
     _check_cuda(x, w, b)
     if _needs_grad(x, w, b):
         raise RuntimeError(
@@ -139,7 +184,7 @@ def _forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _kernel("fwd", x.dtype)(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), x.numel() // d, d, inner, stream
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), x.numel() // d, d, inner, *tile, stream
         )
     if rc != 0:
         raise RuntimeError(f"geglu kernel launch failed: CUDA error {rc}")

@@ -136,3 +136,74 @@ def test_dx_splits_fill_one_wave():
         splits = tgeglu.dx_splits(m, d, inner)
         assert 1 <= splits <= max(1, 2 * tgeglu.dx_inner_pad(inner) // 64 // 4)
     assert [tgeglu.dx_inner_pad(i) for i in (33, 64, 100, 1280)] == [64, 64, 128, 1280]
+
+
+# -- K4's host-side tile choice ------------------------------------------------
+
+# K4's path shapes: generation's 4 UNet rows and a pair VJP's 8, x [M, d]
+K4_PATH = [(16384, 320), (4096, 640), (1024, 1280), (256, 1280),
+           (32768, 320), (8192, 640), (2048, 1280), (512, 1280)]
+
+
+def _k4_schedule(m, inner, tile, sms=132):
+    """The y rectangles [m0, m1) x [n0, n1) that csrc/geglu.cu's persistent
+    K4 writes: min(tiles, SMs) blocks, block b walking tiles b, b + grid,
+    ...; tile t is row block t % m_tiles of column block t // m_tiles; a
+    128-row tile is two 64-row halves, one a consumer warpgroup."""
+    rows, cols = tile
+    m_tiles, n_tiles = -(-m // rows), -(-inner // cols)
+    tiles = m_tiles * n_tiles
+    grid = min(tiles, sms)
+    out, per_block = [], []
+    for b in range(grid):
+        mine = range(b, tiles, grid)
+        per_block.append(len(mine))
+        for t in mine:
+            m0, n0 = t % m_tiles * rows, t // m_tiles * cols
+            for h0 in range(m0, m0 + rows, 64):
+                if h0 < m:  # a half wholly past M stores nothing
+                    out.append((h0, min(h0 + 64, m), n0, min(n0 + cols, inner)))
+    return out, per_block
+
+
+@pytest.mark.parametrize("m,d,inner", [(m, d, 4 * d) for m, d in K4_PATH] + [(37, 24, 100), (130, 16, 33),
+                                                                               (3, 48, 64), (200, 40, 136)])
+def test_fwd_tiles_cover_the_output_once(m, d, inner):
+    """Every tile K4 offers covers y [M, I] exactly once: each element is
+    written by one tile (so reruns are bit-equal), and the blocks' static
+    walks differ by at most one tile."""
+    assert tgeglu.fwd_tile(m, d, inner) in tgeglu.FWD_TILES
+    for tile in tgeglu.FWD_TILES:
+        rects, per_block = _k4_schedule(m, inner, tile)
+        seen = np.zeros((m, inner), np.int32)
+        for m0, m1, n0, n1 in rects:
+            seen[m0:m1, n0:n1] += 1
+        assert (seen == 1).all(), tile
+        assert max(per_block) - min(per_block) <= 1
+
+
+def test_fwd_tile_fills_the_sms():
+    """Ping-pong at d = 320 (five K slots: the erff epilogue is as long as a
+    tile's products), cooperative deeper; there the wide tile (128 h + 128 g
+    columns) wherever its tiles number four waves of 132 SMs or more, and
+    the narrow one (64 + 64) where it lowers the busiest SM's work by more
+    than a tenth: at [1024, 1280] from 3 wide tiles (384 columns) to 5
+    narrow (320), ratio 0.83; at [512, 1280] from 2 (256) to 3 (192), 0.75.
+    At [256, 1280] both give one SM 128 columns: the wide tile stays."""
+    want = {(16384, 320): tgeglu.FWD_PINGPONG, (32768, 320): tgeglu.FWD_PINGPONG,
+            (1024, 1280): tgeglu.FWD_NARROW, (512, 1280): tgeglu.FWD_NARROW}
+    for m, d in K4_PATH:
+        assert tgeglu.fwd_tile(m, d, 4 * d) == want.get((m, d), tgeglu.FWD_WIDE)
+    for m in (64, 128, 300, 1000, 4096, 9000, 32768):
+        for d, inner in ((640, 2560), (1280, 5120), (48, 100), (640, 64)):
+            wide_tiles = -(-m // 128) * -(-inner // 128)
+            if wide_tiles >= 4 * 132:
+                assert tgeglu.fwd_tile(m, d, inner) == tgeglu.FWD_WIDE
+
+    def busiest(m, inner, tile):
+        _, per_block = _k4_schedule(m, inner, tile)
+        return max(per_block) * tile[1]
+
+    assert busiest(1024, 5120, tgeglu.FWD_NARROW) / busiest(1024, 5120, tgeglu.FWD_WIDE) == pytest.approx(320 / 384)
+    assert busiest(512, 5120, tgeglu.FWD_NARROW) / busiest(512, 5120, tgeglu.FWD_WIDE) == 0.75
+    assert busiest(256, 5120, tgeglu.FWD_NARROW) == busiest(256, 5120, tgeglu.FWD_WIDE) == 128

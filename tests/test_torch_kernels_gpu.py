@@ -8,9 +8,9 @@ order only (1e-5; 1e-4 for the backward kernels, whose outputs are sums of
 S*T products of exponentials). bf16 kernels vs the bf16 plain version differ by bf16
 rounding noise (~2e-3 of the output's scale), so the limits are set against
 that scale: every element within 0.1 * rms(plain) + 1e-2 * |plain|, rel L2
-within 1e-2 (a kernel that drops a 64-key or 32-deep tile moves the output
-by 1e-1 or more), and the kernel's rel L2 error against the fp64 version at
-most 1.5 times the plain bf16 version's. K6 (the merged backward) sums dq
+within 1e-2 (a kernel that drops a 64-key tile or a 64-deep K slot moves
+the output by 1e-1 or more), and the kernel's rel L2 error against the
+fp64 version at most 1.5 times the plain bf16 version's. K6 (the merged backward) sums dq
 over key blocks with bulk reduce-adds in no fixed order: only summation order differs
 from the plain version and K2, so the same limits hold.
 """
@@ -63,17 +63,49 @@ def test_flash_kernel_matches_plain(cuda, dtype, s, t, h, d):
     assert_matches(got, fa.flash_attention_plain(q, k, v), exact)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,d,inner", [(37, 24, 100), (1000, 320, 1280), (64, 1280, 5120), (3, 48, 64), (130, 16, 33)])
-def test_geglu_kernel_matches_plain(cuda, dtype, m, d, inner):
+# K4 at its edges (M off its 64- and 128-row tiles, I off its 128- and
+# 64-column tiles and not a multiple of 8, so y leaves by plain stores; d off
+# its 64-deep K slot: 16, 24, 48; d = 1280 at M = 512, the pair VJP's mid
+# block) and at the eight path shapes (generation's 4 rows, a pair VJP's 8)
+GEGLU_SHAPES = [(37, 24, 100), (1000, 320, 1280), (64, 1280, 5120), (3, 48, 64), (130, 16, 33),
+                (200, 40, 136), (512, 1280, 5120),
+                (16384, 320, 1280), (4096, 640, 2560), (1024, 1280, 5120), (256, 1280, 5120),
+                (32768, 320, 1280), (8192, 640, 2560), (2048, 1280, 5120)]
+
+
+def _geglu_inputs(cuda, dtype, m, d, inner):
     x = torch.randn(m, d, generator=cuda, device="cuda").to(dtype)
     w = (torch.randn(2 * inner, d, generator=cuda, device="cuda") * d**-0.5).to(dtype)
     b = (torch.randn(2 * inner, generator=cuda, device="cuda") * 0.1).to(dtype)
+    return x, w, b
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,d,inner", GEGLU_SHAPES)
+def test_geglu_kernel_matches_plain(cuda, dtype, m, d, inner):
+    """K4 against its plain version, and in bf16 run twice: every y element
+    is written once by one tile, so both runs are bit-equal. The reference
+    is fp64, or fp32 at the path shapes."""
+    x, w, b = _geglu_inputs(cuda, dtype, m, d, inner)
     before = gg.launches
     got = gg.geglu(x, w, b)
     assert gg.launches == before + 1
-    exact = gg.geglu_plain(x.double(), w.double(), b.double())
+    xd = torch.float32 if m * d * inner > 2**28 else torch.float64
+    exact = gg.geglu_plain(x.to(xd), w.to(xd), b.to(xd))
     assert_matches(got, gg.geglu_plain(x, w, b), exact)
+    if dtype == torch.bfloat16:
+        assert torch.equal(gg.geglu(x, w, b), got)
+
+
+@pytest.mark.parametrize("tile", [(64, 128), (128, 128), (128, 64)])
+@pytest.mark.parametrize("m,d,inner", [(37, 24, 100), (130, 16, 33), (200, 40, 136), (1000, 320, 1280),
+                                       (512, 1280, 5120)])
+def test_geglu_kernel_every_tile(cuda, tile, m, d, inner):
+    """Every y tile the bf16 kernel offers (`FWD_TILES`: ping-pong 64 x 128,
+    cooperative 128 x 128 and 128 x 64), whichever `fwd_tile` picks."""
+    x, w, b = _geglu_inputs(cuda, torch.bfloat16, m, d, inner)
+    got = gg.geglu_with_tile(x, w, b, tile)
+    assert_matches(got, gg.geglu_plain(x, w, b), gg.geglu_plain(x.double(), w.double(), b.double()))
 
 
 def test_wrappers_raise_instead_of_falling_back(cuda):
