@@ -56,7 +56,15 @@ Phases (any failure raises and exits non-zero):
      fp32 on the card; the detector on assets/detector.npz, card vs CPU;
  14. train-zoo: phase 10 with bench.py's filled real-architecture zoo;
  15. train-cli-zoo: phase 9 with --guidance_dir (a directory the phase
-     writes) and --flash_bwd merged: K6 launch counts, moved adapters.
+     writes) and --flash_bwd merged: K6 launch counts, moved adapters;
+ 16. train-exp3: phase 10 for exp-3 (gender x race, sampled OT with 200
+     draws; 32 lanes, micro-batch 4, 19 denoising steps, synthetic stack):
+     s/step, the phase split with phase 2 on its own line, peak memory,
+     exact launch counts, finite non-zero grads, a lane with a target for
+     each attribute, race_gap and gender_race_gap logged;
+ 17. train-exps: phase 9 for exp-2 to exp-6 (exp-2: the exported prefix
+     table moved and `gen_images` reads it back; exp-5: two prompt files
+     the phase writes, repeats 1 and 6).
 
 The line before the last is the card's name and power limit from
 nvidia-smi; the one before that is the per-kernel JSON summary; the last
@@ -1358,20 +1366,26 @@ def seed_guidance_dir(directory: str | Path, *, seed: int = 0, detector_npz: str
     return d
 
 
-def phase_train(flash_bwd: str = "split", zoo: bool = False) -> dict[str, int]:
-    """The slice: train_debias.main at full width for 2 optimizer steps; with
+def phase_train(flash_bwd: str = "split", zoo: bool = False, experiment: str = "exp1",
+                steps: int = 4) -> dict[str, int]:
+    """The slice: train_debias.main at full width for 2 optimizer steps of
+    `experiment` (4 lanes, micro-batch 2, `steps` denoising steps); with
     `zoo`, on a guidance directory this phase writes (`seed_guidance_dir`:
     assets/detector.npz with bench.py's every-lane-detects heads, seeded
-    classifier.npz and face_embedder.npz), and with `flash_bwd`."""
+    classifier.npz and face_embedder.npz), and with `flash_bwd`. exp-5 reads
+    two prompt files this phase writes (repeats 1 and 6). The adapters moved:
+    every LoRA `up` leaf (0 at the start) is non-zero, or the exported
+    prefix table differs from its initial rows, and `gen_images` reads it
+    back."""
     import io
 
     import numpy as np
 
     from fairdiff_torch.io.adapters_io import load_adapters
-    from fairdiff_torch.tools import train_debias
+    from fairdiff_torch.tools import gen_images, train_debias
     from fairdiff_torch.utils.tree import tree_leaves
 
-    tag = "[train-cli-zoo]" if zoo else "[train]"
+    tag = "[train-cli-zoo]" if zoo else "[train]" if experiment == "exp1" else f"[train-exps] {experiment}"
     root = Path(__file__).resolve().parent
     scratch = root / "build"
     scratch.mkdir(exist_ok=True)
@@ -1379,33 +1393,55 @@ def phase_train(flash_bwd: str = "split", zoo: bool = False) -> dict[str, int]:
         guidance_dir = ""
         if zoo:
             guidance_dir = str(seed_guidance_dir(Path(tmp) / "guidance", seed=7))
+        multi = ""
+        if experiment == "exp5":
+            domains = {"occupation": ["a photo of the face of a doctor, a person"],
+                       "sports": ["a photo of the face of a tennis player, a person",
+                                  "a photo of the face of a swimmer, a person"]}
+            for name, prompts in domains.items():
+                (Path(tmp) / f"{name}.json").write_text(json.dumps({"train_prompts": prompts}))
+            multi = ",".join(str(Path(tmp) / f"{name}.json") for name in domains)
         cfg = train_debias.TrainCLIConfig(
-            max_train_steps=2, train_images_per_prompt=4, train_micro_batch=2, steps=4,
-            output_dir=str(Path(tmp) / "out"), guidance_dir=guidance_dir, flash_bwd=flash_bwd,
+            experiment=experiment, max_train_steps=2, train_images_per_prompt=4, train_micro_batch=2,
+            steps=steps, output_dir=str(Path(tmp) / "out"), guidance_dir=guidance_dir, flash_bwd=flash_bwd,
+            multi_prompts_json=multi, multi_prompts_repeats="1,6",
         )
+        trainer = train_debias.build_trainer(cfg)
+        prefix = trainer.cfg.train_prefix
+        if prefix:  # the rows main's init_state draws (the same seed)
+            init_rows = trainer.init_state(cfg.seed).adapters["prefix"].detach().cpu().numpy()
         out = io.StringIO()
         reset_counts()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
-            train_debias.main(cfg)
+            train_debias.main(cfg, trainer)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         ran = launch_counts()
         lines = [json.loads(x) for x in out.getvalue().splitlines() if x.startswith("{")]
         for x in lines:
             log(f"{tag} {json.dumps(x)}")
-        saved = load_adapters(Path(cfg.output_dir) / "exported" / "te_lora.npz")
-        ups = [a for path, a in _npz_leaves(saved) if path[-1] == "up"]
-        moved = bool(ups) and all(np.abs(a).max() > 0 for a in ups)  # `up` starts at 0
-        n_leaves = len(tree_leaves(saved))
-    steps, pairs = 4, 4 * (4 // 2)  # denoising steps; pair VJPs a step (steps x lane chunks)
+        export = Path(cfg.output_dir) / "exported"
+        if prefix:
+            saved = load_adapters(export / "prefix.npz")
+            moved = list(saved) == ["prefix"] and not np.array_equal(saved["prefix"], init_rows)
+            written = gen_images.main(gen_images.GenImagesConfig(
+                load_prefix_embedding_from=str(export / "prefix.npz"), num_imgs_per_prompt=1, batch_size=1,
+                num_denoising_steps=2, save_dir=str(Path(tmp) / "gen")))
+            moved = moved and len(written) == 1 and written[0].stat().st_size > 0
+            what = f"prefix table {saved['prefix'].shape} moved and read back by gen_images: {moved}"
+        else:
+            saved = load_adapters(export / "te_lora.npz")
+            ups = [a for path, a in _npz_leaves(saved) if path[-1] == "up"]
+            moved = bool(ups) and all(np.abs(a).max() > 0 for a in ups)  # `up` starts at 0
+            what = f"{len(tree_leaves(saved))} LoRA leaves saved, every `up` moved: {moved}"
+    pairs = steps * (4 // 2)  # pair VJPs a step (steps x lane chunks)
     calls = 2 * steps  # no-grad CFG UNet calls a step (phases 1 and 3)
     per_pair = PAIR_VJP_LAUNCHES_MERGED if flash_bwd == "merged" else PAIR_VJP_LAUNCHES
     want = {k: 2 * (calls * UNET_CALL_LAUNCHES.get(k, 0) + pairs * v) for k, v in per_pair.items()}
-    log(f"{tag} train_debias.main: SD-1.5, 2 steps x 4 lanes, micro-batch 2, 4 denoising steps, "
-        f"guidance {'from ' + repr(Path(guidance_dir).name) if zoo else 'synthetic'}, flash_bwd={flash_bwd!r}, "
-        f"{seconds:.2f} s incl. setup; {n_leaves} LoRA leaves saved, every `up` moved: {moved}; "
-        f"launches {ran} (want {want})")
+    log(f"{tag} train_debias.main --experiment {experiment}: SD-1.5, 2 steps x 4 lanes, micro-batch 2, "
+        f"{steps} denoising steps, guidance {'from ' + repr(Path(guidance_dir).name) if zoo else 'synthetic'}, "
+        f"flash_bwd={flash_bwd!r}, {seconds:.2f} s incl. setup; {what}; launches {ran} (want {want})")
     failed = [name for name, ok in (
         ("two steps", [x["step"] for x in lines] == [1, 2]),
         ("finite grads", all(x["grads_finite"] and x["grad_norm"] > 0 for x in lines)),
@@ -1415,8 +1451,17 @@ def phase_train(flash_bwd: str = "split", zoo: bool = False) -> dict[str, int]:
         ("launches", ran == want),
     ) if not ok]
     if failed:
-        raise AssertionError(f"train phase failed: {failed}")
+        raise AssertionError(f"{tag} failed: {failed}")
     return ran
+
+
+TRAIN_EXPS = ("exp2", "exp3", "exp4", "exp5", "exp6")
+
+
+def phase_train_exps(steps: int = 4) -> None:
+    """`phase_train` for exp-2 to exp-6 on the synthetic stack."""
+    for experiment in TRAIN_EXPS:
+        phase_train(experiment=experiment, steps=steps)
 
 
 def _npz_leaves(tree, prefix=()):
@@ -1547,17 +1592,20 @@ def filled_zoo_stack(device: str = "cuda"):
     )
 
 
-def phase_train_step(power: str, zoo: bool = False) -> dict:
-    """One timed exp-1 step at the preset's shape after a warm-up step, on
-    the synthetic guidance stack or, with `zoo`, bench.py's filled
-    real-architecture zoo (`filled_zoo_stack`)."""
+def phase_train_step(power: str, zoo: bool = False, experiment: str = "exp1") -> dict:
+    """One timed step of `experiment` at its preset's shape (exp-1: 24
+    lanes, exp-3: 32 and 200 OT draws; micro-batch 4; 19 denoising steps)
+    after a warm-up step, on the synthetic guidance stack or, with `zoo`,
+    bench.py's filled real-architecture zoo (`filled_zoo_stack`). exp-3
+    stays on the synthetic stack: the filled zoo gives every lane the same
+    probabilities, so every OT problem would be one tie."""
     import numpy as np
 
     from fairdiff_torch.io.tokenizer import HashTokenizer
     from fairdiff_torch.tools import train_debias
 
-    tag = "[train-zoo]" if zoo else "[train-step]"
-    cfg = train_debias.TrainCLIConfig(steps=19)  # 24 lanes, micro-batch 4 (the exp-1 preset)
+    tag = "[train-zoo]" if zoo else "[train-step]" if experiment == "exp1" else f"[train-{experiment}]"
+    cfg = train_debias.TrainCLIConfig(experiment=experiment, steps=19)
     trainer = train_debias.build_trainer(cfg)
     if zoo:
         trainer.guidance = filled_zoo_stack()
@@ -1574,21 +1622,31 @@ def phase_train_step(power: str, zoo: bool = False) -> dict:
     ran = launch_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     split = {k: round(v, 3) for k, v in trainer.timers.last.items()}
-    steps, lanes, p = 19, 24, 4
+    dcfg = trainer.cfg
+    steps, lanes, p = 19, dcfg.train_images_per_prompt, dcfg.train_micro_batch
     want = {k: 2 * steps * UNET_CALL_LAUNCHES.get(k, 0) + steps * (lanes // p) * v
             for k, v in PAIR_VJP_LAUNCHES.items()}
-    log(f"{tag} exp-1 step, SD-1.5 bf16, 24 lanes, micro-batch 4, 19 denoising steps, "
+    ot = f", {trainer.ot_draws} OT draws" if dcfg.target_kind in ("ot2", "ot3") else ""
+    log(f"{tag} {experiment} step, SD-1.5 bf16, {lanes} lanes, micro-batch {p}, 19 denoising steps{ot}, "
         f"{'filled real-architecture zoo' if zoo else 'synthetic'} guidance: {seconds:.3f} s/step on {power}; "
         f"peak memory {peak_gib:.2f} GiB; phases (s) {split}")
+    log(f"{tag} phase 2 ({dcfg.target_kind} targets, host): {trainer.timers.last['phase2_targets']:.4f} s")
     log(f"{tag} launches in the step {ran} (want {want})")
     log(f"{tag} logs {json.dumps(logs)}")
+    kept = {a: int((t != -1).sum()) for a, t in trainer._last_targets.items()}
+    log(f"{tag} lanes with a target: {kept} of {lanes}")
     # the filled zoo's outputs are its biases, whatever the images, so its
     # step's gradients are 0 by construction (as in bench.py): that step is
     # held to finite gradients, a finite loss, a face in every lane and the
     # launch counts; the synthetic step to non-zero gradients too
     moved = logs["grad_norm"] > 0 if not zoo else logs["face_rate"] == 1.0 and np.isfinite(logs["train_loss"])
-    if not (logs["grads_finite"] and moved and logs["num_denoising_steps"] == 19 and ran == want):
-        raise AssertionError(f"train step failed: {logs}, launches {ran}")
+    # every attribute keeps a lane, and the multi-attribute metrics are logged
+    targeted = all(n > 0 for n in kept.values()) if dcfg.target_kind != "binary" else True
+    metrics = {"ot2": ("race_gap", "gender_race_gap"), "ot3": ("race_gap", "gender_race_gap", "age_gap"),
+               "enum": ("race_gap",)}.get(dcfg.target_kind, ())
+    if not (logs["grads_finite"] and moved and logs["num_denoising_steps"] == 19 and ran == want
+            and targeted and all(k in logs for k in metrics)):
+        raise AssertionError(f"{tag} failed: {logs}, launches {ran}, lanes with a target {kept}")
     return {"seconds": seconds, "peak_gib": peak_gib, "split": split}
 
 
@@ -1644,7 +1702,13 @@ def main() -> int:
     log(f"[time] train-zoo {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     cli_zoo_counts = phase_train(flash_bwd="merged", zoo=True)
-    log(f"[time] train-cli-zoo {time.perf_counter() - t:.1f} s; total {time.perf_counter() - t_start:.1f} s")
+    log(f"[time] train-cli-zoo {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    phase_train_step(power, experiment="exp3")
+    log(f"[time] train-exp3 {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    phase_train_exps()
+    log(f"[time] train-exps {time.perf_counter() - t:.1f} s; total {time.perf_counter() - t_start:.1f} s")
 
     summary = []
     for kname, main_shape, source, replaces, launches in (

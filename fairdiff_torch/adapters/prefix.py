@@ -1,10 +1,25 @@
 """Soft prompt prefix, the exp-2 adapter (counterpart of
 fairdiff/adapters/prefix.py): a trainable table [P, d] whose rows stand in
-for synthetic token ids vocab_size .. vocab_size + P - 1."""
+for synthetic token ids vocab_size .. vocab_size + P - 1.
+
+The pooled output of prefixed ids points at a prefix slot, the knowingly
+wrong output the JAX package and the reference keep; SD reads only the last
+hidden state."""
 
 from __future__ import annotations
 
 import torch
+
+
+def init_prefix(
+    token_embedding: torch.Tensor,  # frozen table [V, d]
+    num_tokens: int,
+    generator: torch.Generator,
+) -> torch.Tensor:
+    """Trainable prefix table [P, d]: copies of P rows of the frozen table
+    at indices drawn from `generator` (a CPU generator)."""
+    idx = torch.randint(0, token_embedding.shape[0], (num_tokens,), generator=generator)
+    return token_embedding.detach()[idx.to(token_embedding.device)].clone()
 
 
 def prepend_prefix_ids(

@@ -1,17 +1,21 @@
-"""Fairness-finetuning CLI, exp-1 (counterpart of
+"""Fairness-finetuning CLI, exp-1 to exp-6 (counterpart of
 fairdiff/tools/train_debias.py).
 
 Runs SD-1.5 at full width (or the tiny config) on seeded random weights,
 with the guidance stack of `--guidance_dir` (`training.model_zoo`, frozen
 weights in the SD dtype) or, without one, the synthetic stack, as the JAX
-CLI does. `--flash_bwd merged` sends the UNet's flash backward through K6
-instead of K2 + K3. Prints one JSON log line per step and saves the adapters
-and their EMA as `.npz` under `<output_dir>/exported/`.
+CLI does. `--experiment` picks the preset; exp-5 mixes the prompt files of
+`--multi_prompts_json` (comma-separated) with `--multi_prompts_repeats`.
+`--flash_bwd merged` sends the UNet's flash backward through K6 instead of
+K2 + K3. Prints one JSON log line per step and saves the adapters and their
+EMA as `.npz` under `<output_dir>/exported/` (exp-2's prefix table as
+`prefix.npz` with key `prefix`, which `gen_images
+--load_prefix_embedding_from` reads).
 
 Usage:
-  python -m fairdiff_torch.tools.train_debias --max_train_steps 2
+  python -m fairdiff_torch.tools.train_debias --experiment exp3 --max_train_steps 2
   python -m fairdiff_torch.tools.train_debias --device cpu --tiny_smoke 1 \
-      --max_train_steps 2 --output_dir outputs/debias [--guidance_dir DIR]
+      --experiment exp2 --max_train_steps 2 --output_dir outputs/debias [--guidance_dir DIR]
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ import numpy as np
 import torch
 
 from fairdiff_torch.io.adapters_io import save_adapters
-from fairdiff_torch.io.prompts import load_occupation_prompts
+from fairdiff_torch.io.prompts import load_multi_domain_prompts, load_occupation_prompts
 from fairdiff_torch.io.tokenizer import load_tokenizer
 from fairdiff_torch.sampling.pipeline import SDConfig, StableDiffusion
 from fairdiff_torch.training.debias import DebiasState, DebiasTrainer
@@ -49,6 +53,9 @@ class TrainCLIConfig:
     sd_config: str = "sd15"  # "sd15" or "tiny"
     tiny_smoke: bool = False  # tiny model and a 2-step, 4-lane step on the CPU
     prompts_json: str = ""
+    # exp-5's domain mixing: comma-separated prompt files and their repeats
+    multi_prompts_json: str = ""
+    multi_prompts_repeats: str = "1,6,20,4"
     guidance_dir: str = ""  # "" = the synthetic stack
     flash_bwd: str = "split"  # the UNet's flash backward: "split" (K2 + K3) or "merged" (K6)
     output_dir: str = "outputs/debias"
@@ -61,7 +68,7 @@ class TrainCLIConfig:
 
 
 def build_trainer(cfg: TrainCLIConfig) -> DebiasTrainer:
-    overrides: dict[str, typing.Any] = {"seed": cfg.seed}
+    overrides: dict[str, typing.Any] = {"seed": cfg.seed, "output_dir": cfg.output_dir}
     for field in ("max_train_steps", "train_images_per_prompt", "train_micro_batch"):
         if getattr(cfg, field):
             overrides[field] = getattr(cfg, field)
@@ -73,7 +80,7 @@ def build_trainer(cfg: TrainCLIConfig) -> DebiasTrainer:
         dcfg = dataclasses.replace(
             dcfg, steps_low=2, steps_high=2,
             train_images_per_prompt=min(dcfg.train_images_per_prompt, 4),
-            train_micro_batch=2, lora_rank=2,
+            train_micro_batch=2, val_images_per_prompt=2, eval_denoising_steps=2, lora_rank=2,
         )
     else:
         arch = {"sd15": SDConfig.sd15, "tiny": SDConfig.tiny}[cfg.sd_config]()
@@ -96,8 +103,10 @@ def tokenize_prompts(sd: StableDiffusion, tokenizer, prompts: list[str]) -> list
     ]
 
 
-def main(cfg: TrainCLIConfig) -> DebiasState:
-    trainer = build_trainer(cfg)
+def main(cfg: TrainCLIConfig, trainer: DebiasTrainer | None = None) -> DebiasState:
+    """Train `cfg.max_train_steps` steps and export the adapters; `trainer`
+    is `build_trainer(cfg)` unless given."""
+    trainer = trainer or build_trainer(cfg)
     sd, dcfg = trainer.sd, trainer.cfg
     tokenizer = load_tokenizer(None)
     if cfg.tiny_smoke or cfg.sd_config == "tiny":
@@ -105,10 +114,13 @@ def main(cfg: TrainCLIConfig) -> DebiasState:
         tokenizer.bos_token_id = 0
         tokenizer.eos_token_id = sd.config.text.vocab_size - 1
         tokenizer.pad_token_id = sd.config.text.vocab_size - 1
-    prompts = (
-        load_occupation_prompts(cfg.prompts_json)["train_prompts"] if cfg.prompts_json
-        else list(DEFAULT_PROMPTS)
-    )
+    if cfg.multi_prompts_json:
+        repeats = [int(r) for r in cfg.multi_prompts_repeats.split(",")]
+        prompts = load_multi_domain_prompts(cfg.multi_prompts_json.split(","), repeats)["train_prompts"]
+    elif cfg.prompts_json:
+        prompts = load_occupation_prompts(cfg.prompts_json)["train_prompts"]
+    else:
+        prompts = list(DEFAULT_PROMPTS)
     train_ids = tokenize_prompts(sd, tokenizer, prompts)
 
     state = trainer.init_state(cfg.seed)
@@ -125,9 +137,10 @@ def main(cfg: TrainCLIConfig) -> DebiasState:
         print(json.dumps({"step": state.step, **logs}), flush=True)
 
     export_dir = Path(cfg.output_dir) / "exported"
+    wrap = lambda t: t if isinstance(t, dict) else {"prefix": t}  # a bare prefix table
     for name, tree in state.adapters.items():
-        save_adapters(export_dir / f"{name}.npz", tree)
-        save_adapters(export_dir / f"{name}_EMA.npz", state.ema[name])
+        save_adapters(export_dir / f"{name}.npz", wrap(tree))
+        save_adapters(export_dir / f"{name}_EMA.npz", wrap(state.ema[name]))
     print(f"[train] done at step {state.step}; adapters -> {export_dir}", flush=True)
     return state
 

@@ -1,19 +1,25 @@
-"""The fairness-finetuning trainer, exp-1 (counterpart of
+"""The fairness-finetuning trainer, exp-1 to exp-6 (counterpart of
 fairdiff/training/debias.py `DebiasTrainer`).
 
 Per optimizer step, one prompt and N noise lanes:
 
-  phase 1  sample with the CURRENT adapters (no grad), face-analyse,
-           classify; keep the final latents and the trajectory
-  phase 2  dynamic targets from the phase-1 probabilities, uncertainty gate
-           (host numpy)
-  phase 3  sample with the FROZEN model -> original features/predictions
+  phase 1  sample with the CURRENT adapters (no grad) on the prompt with
+           the soft prefix when it trains (exp-2), face-analyse, classify;
+           keep the final latents and the trajectory
+  phase 2  dynamic targets from the phase-1 probabilities (`target_kind`:
+           binary ranks, sampled OT over 2 or 3 attributes, enumerated OT),
+           uncertainty gate per attribute (host numpy, the step's own
+           seeded `np.random.Generator`)
+  phase 3  sample with the FROZEN model on the plain prompt -> original
+           features/predictions
   phase 4  linearized (docs/LINEARIZED-PHASE4.md): dL/dx_final through
            decode + guidance + loss for each lane chunk; per-step
            cotangents gamma_t * dL/dx_final; the flat batch of single-step
            UNet VJPs over (step x lane chunk), whose context cotangents are
-           summed and sent through ONE text-encoder VJP
-  update   finite gate -> AdamW -> EMA
+           summed and sent through ONE text-encoder VJP into the
+           text-encoder LoRA and the prefix table
+  update   finite gate -> AdamW (linear warm-up of the learning rate over
+           the first `lr_warmup_steps` finite updates) -> EMA
 
 `phase4="chain"` instead differentiates the whole grad-mode sampling chain
 per lane chunk (the reference's autograd semantics); it is the golden of
@@ -23,7 +29,9 @@ trainer's jit programs, AOT warm-up, mesh sharding, evaluation or `fit`.
 Deliberate departures: the context cotangent is summed in fp32 (the JAX
 program sums it in the text encoder's dtype, bf16 at SD-1.5 width); the
 step's noises and step count come from `utils.rng` torch generators unless
-passed in.
+passed in; the prefix rows are drawn with a `torch.Generator`. The
+evaluation fields of `DebiasConfig` are carried for preset parity; no
+evaluation runs yet.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ import numpy as np
 import torch
 
 from fairdiff_torch.adapters import lora as lora_lib
+from fairdiff_torch.adapters import prefix as prefix_lib
 from fairdiff_torch.adapters.ema import init_ema, update_ema
 from fairdiff_torch.fairness import losses as loss_lib
 from fairdiff_torch.fairness import targets as targets_lib
@@ -51,18 +60,27 @@ from fairdiff_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 @dataclasses.dataclass(frozen=True)
 class DebiasConfig:
-    """exp-1's settings (the JAX `DebiasConfig` fields this slice uses): the
-    text-encoder LoRA always trains, the UNet LoRA when `train_unet`;
-    binary rank targets; lanes without a face get image weight 1 and face
-    search only on lanes with a target."""
+    """The JAX `DebiasConfig`: the same fields, defaults and order."""
 
+    # which adapters train (exp-2 trains the prefix instead of the LoRA)
+    train_text_encoder: bool = True
     train_unet: bool = False
+    train_prefix: bool = False
+    num_prefix_tokens: int = 5
     lora_rank: int = 50
+    # attributes and targets: "binary" (exp-1/2), "ot2" (exp-3/5), "ot3"
+    # (exp-4), "enum" (exp-6)
     attributes: tuple[str, ...] = ("gender",)
+    target_kind: str = "binary"
     target_ratio: float = 0.5
     uncertainty_thresholds: tuple[float, ...] = (0.2,)
+    # OT draws a step: ot_num_samples if set, else ot_samples_per_shard
+    # times the data shards (one here)
+    ot_samples_per_shard: int = 100
+    ot_num_samples: int = 0
     learning_rate: float = 5e-5
     weight_decay: float = 1e-2
+    lr_warmup_steps: int = 0
     max_train_steps: int = 10000
     train_images_per_prompt: int = 24  # lanes per step
     train_micro_batch: int = 4  # lanes per phase-4 chunk
@@ -74,8 +92,15 @@ class DebiasConfig:
     factor1: tuple[float, ...] = (0.2,)
     factor2: tuple[float, ...] = (0.1,)
     face_confidence_level: float = 0.9
+    no_face_img_weight_one: bool = True  # False: lanes without a face get min(factor1)
+    face_search_all_lanes: bool = False  # True: face realism on every face lane
     ema_decay: float = 0.996
+    # evaluation (carried for preset parity; not run yet)
+    eval_interval: int = 200
+    eval_denoising_steps: int = 25
+    val_images_per_prompt: int = 8
     seed: int = 42
+    output_dir: str = "outputs/debias"
 
     def factor_dict(self, which: str) -> dict[str, float]:
         return dict(zip(self.attributes, self.factor1 if which == "f1" else self.factor2))
@@ -83,10 +108,11 @@ class DebiasConfig:
 
 @dataclasses.dataclass
 class DebiasState:
-    adapters: dict  # {"te_lora": tree, "unet_lora": tree}: fp32 leaves that require grad
+    adapters: dict  # {"prefix": [P, d], "te_lora": tree, "unet_lora": tree}: fp32 leaves that require grad
     opt: torch.optim.Optimizer
     ema: dict
     step: int
+    updates: int = 0  # finite updates applied: the learning-rate schedule's count
 
 
 class PhaseTimers:
@@ -139,8 +165,10 @@ class DebiasTrainer:
 
     # ------------------------------------------------------------------
     def init_state(self, seed: int = 0, adapters: Optional[dict] = None) -> DebiasState:
-        """Fresh LoRA adapters from `seed` (down ~ N(0,1)/rank, up = 0), or
-        the given adapter tree (e.g. `io.from_jax.adapters_from_jax`)."""
+        """Fresh adapters from `seed`: the LoRAs that train (down ~
+        N(0,1)/rank, up = 0), then the prefix table (rows of the frozen
+        token table), all from one generator; or the given adapter tree
+        (e.g. `io.from_jax.adapters_from_jax`)."""
         cfg = self.cfg
         if adapters is None:
             g = torch.Generator().manual_seed(seed)
@@ -149,9 +177,14 @@ class DebiasTrainer:
                 adapters["unet_lora"] = lora_lib.init_lora(
                     self.sd.unet, lora_lib.unet_attention_targets, cfg.lora_rank, g
                 )
-            adapters["te_lora"] = lora_lib.init_lora(
-                self.sd.text_encoder, lora_lib.text_encoder_targets, cfg.lora_rank, g
-            )
+            if cfg.train_text_encoder:
+                adapters["te_lora"] = lora_lib.init_lora(
+                    self.sd.text_encoder, lora_lib.text_encoder_targets, cfg.lora_rank, g
+                )
+            if cfg.train_prefix:
+                adapters["prefix"] = prefix_lib.init_prefix(
+                    self.sd.text_encoder.token_embedding.weight, cfg.num_prefix_tokens, g
+                )
         adapters = tree_map(
             lambda x: x.detach().to(self.device, torch.float32).clone().requires_grad_(), adapters
         )
@@ -162,11 +195,28 @@ class DebiasTrainer:
         return DebiasState(adapters, opt, init_ema(adapters), 0)
 
     # ------------------------------------------------------------------
-    def make_targets(self, probs: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+    @property
+    def ot_draws(self) -> int:
+        """OT draws a step (the port has one data shard)."""
+        return self.cfg.ot_num_samples or self.cfg.ot_samples_per_shard
+
+    def make_targets(self, probs: dict[str, np.ndarray], step_rng: np.random.Generator) -> dict[str, np.ndarray]:
+        """Gated targets per attribute from the phase-1 probabilities."""
         cfg = self.cfg
         th = dict(zip(cfg.attributes, cfg.uncertainty_thresholds))
-        t = targets_lib.binary_rank_targets(probs["gender"], cfg.target_ratio)
-        return {"gender": targets_lib.gate_targets_by_uncertainty(t, th["gender"])}
+        if cfg.target_kind == "binary":
+            out = {"gender": targets_lib.binary_rank_targets(probs["gender"], cfg.target_ratio)}
+        elif cfg.target_kind == "ot2":
+            out = dict(zip(("gender", "race"), targets_lib.sampled_ot_targets_2attr(
+                probs["gender"], probs["race"], step_rng, self.ot_draws)))
+        elif cfg.target_kind == "ot3":
+            out = dict(zip(("gender", "race", "age"), targets_lib.sampled_ot_targets_3attr(
+                probs["gender"], probs["race"], probs["age"], step_rng, self.ot_draws)))
+        elif cfg.target_kind == "enum":
+            out = {"race": targets_lib.enumerated_ot_targets(probs["race"])}
+        else:
+            raise ValueError(cfg.target_kind)
+        return {a: targets_lib.gate_targets_by_uncertainty(t, th[a]) for a, t in out.items()}
 
     def _images_loss(self, images: torch.Tensor, targets: dict, ori: dict):
         """Composite fairness loss of decoded images (exp-1:1879-1940
@@ -204,7 +254,8 @@ class DebiasTrainer:
                     & (targets[name] != -1)
                     & (ori["probs_max"][name] >= cfg.face_confidence_level)
                 )
-                face_valid = face_valid & (targets[name] != -1)
+                if not cfg.face_search_all_lanes:
+                    face_valid = face_valid & (targets[name] != -1)
             searched = res.face_feats
             if self.guidance.face_db is not None:
                 _, searched = self.guidance.face_db.semantic_search(res.face_feats.detach())
@@ -215,7 +266,9 @@ class DebiasTrainer:
             loss_face = zeros
             face_valid = torch.zeros(n, dtype=torch.bool, device=images.device)
 
-        dyn_w = weights_lib.dynamic_weights_multi(ind, tg, pred_ori, cfg.factor_dict("f1"), no_face_weight=1.0)
+        dyn_w = weights_lib.dynamic_weights_multi(
+            ind, tg, pred_ori, cfg.factor_dict("f1"), no_face_weight=1.0 if cfg.no_face_img_weight_one else None
+        )
         out = loss_lib.composite_loss(
             loss_fair=loss_fair, loss_clip=loss_clip, loss_dino=loss_dino, loss_face=loss_face,
             dynamic_w=dyn_w, weight_img=cfg.weight_loss_img, weight_face=cfg.weight_loss_face,
@@ -224,7 +277,21 @@ class DebiasTrainer:
         return out.total, {k: v.detach() for k, v in out.logs.items()}
 
     def _gen_kwargs(self, adapters: dict) -> dict:
-        return {"unet_lora": adapters.get("unet_lora"), "te_lora": adapters.get("te_lora")}
+        return {
+            "unet_lora": adapters.get("unet_lora"),
+            "te_lora": adapters.get("te_lora"),
+            "prefix_table": adapters.get("prefix"),
+        }
+
+    def _prefix_ids(self, ids: torch.Tensor) -> torch.Tensor:
+        """The cond ids with the prefix's synthetic ids after BOS, when the
+        prefix trains."""
+        if not self.cfg.train_prefix:
+            return ids
+        text = self.sd.config.text
+        return prefix_lib.prepend_prefix_ids(
+            ids, self.cfg.num_prefix_tokens, text.vocab_size, text.max_position_embeddings
+        )
 
     # -- phase 4 -----------------------------------------------------------
     def _final_grads(self, x_final, targets, ori, n_chunks):
@@ -250,14 +317,15 @@ class DebiasTrainer:
         """Adapter grads from the flat (step x lane-chunk) batch of
         single-step UNet VJPs of the surrogate <cot_t, guided_eps(x_t)>; the
         context cotangents are summed over the batch and sent through one
-        text-encoder VJP."""
+        VJP of the context into the text-encoder LoRA and the prefix."""
         gs = self.cfg.guidance_scale
         unet_lora = adapters.get("unet_lora")
         unet_leaves = tree_leaves(unet_lora) if unet_lora is not None else []
-        te_lora = adapters.get("te_lora")
+        ctx_adapters = {k: adapters[k] for k in ("prefix", "te_lora") if k in adapters}
         with torch.enable_grad():
             context, key_mask = self.sd.build_context(
-                cond_ids, uncond_ids, p, te_lora=te_lora
+                cond_ids, uncond_ids, p, te_lora=adapters.get("te_lora"),
+                prefix_table=adapters.get("prefix"),
             )
             ctx_leaf = context.detach().requires_grad_()
             acc_c = torch.zeros(context.shape, dtype=torch.float32, device=context.device)
@@ -282,10 +350,11 @@ class DebiasTrainer:
             grads: dict[str, Any] = {}
             if unet_lora is not None:
                 grads["unet_lora"] = tree_unflatten(unet_lora, acc_u)
-            if te_lora is not None:
-                te_leaves = tree_leaves(te_lora)
-                g_te = torch.autograd.grad(context, te_leaves, grad_outputs=acc_c.to(context.dtype))
-                grads["te_lora"] = tree_unflatten(te_lora, list(g_te))
+            if ctx_adapters:
+                g_ctx = torch.autograd.grad(
+                    context, tree_leaves(ctx_adapters), grad_outputs=acc_c.to(context.dtype)
+                )
+                grads.update(tree_unflatten(ctx_adapters, list(g_ctx)))
         return grads
 
     def _chain_grads(self, adapters, noises, cond_ids, uncond_ids, n_steps, targets, ori, n_chunks):
@@ -313,6 +382,16 @@ class DebiasTrainer:
         grads = tree_unflatten(adapters, [a / n_chunks for a in acc])
         return grads, {k: torch.cat([lg[k] for lg in logs]) for k in logs[0]}
 
+    def learning_rate(self, count: int) -> float:
+        """The learning rate of the `count`-th finite update (0-based):
+        linear from 0 over the first `lr_warmup_steps`, then constant (the
+        JAX trainer's optax schedule, whose count only finite updates
+        advance)."""
+        cfg = self.cfg
+        if not cfg.lr_warmup_steps:
+            return cfg.learning_rate
+        return cfg.learning_rate * min(count, cfg.lr_warmup_steps) / cfg.lr_warmup_steps
+
     # ------------------------------------------------------------------
     def train_step(
         self,
@@ -335,7 +414,9 @@ class DebiasTrainer:
         if noises is None:
             noises = rng_lib.train_noises(cfg.seed, step, sd.latent_shape(n))
         noises = torch.as_tensor(np.array(noises, np.float32) if not torch.is_tensor(noises) else noises).float().to(dev)
-        cond_ids, uncond_raw = (torch.as_tensor(x).to(dev).long() for x in prompt_ids)
+        cond_raw, uncond_raw = (torch.as_tensor(x).to(dev).long() for x in prompt_ids)
+        # phases 1 and 4 condition on the prefixed prompt, phase 3 on the plain one
+        cond_ids = self._prefix_ids(cond_raw)
         uncond_ids = match_len(uncond_raw, cond_ids)
         adapters = state.adapters
         gs = cfg.guidance_scale
@@ -351,13 +432,15 @@ class DebiasTrainer:
             del images1
         # ---- phase 3: frozen model originals ----
         with self.timers("phase3_frozen_sample"), torch.no_grad():
-            images3 = sd.generate(noises, cond_ids, uncond_raw, n_steps, guidance_scale=gs)
+            images3 = sd.generate(noises, cond_raw, uncond_raw, n_steps, guidance_scale=gs)
             res3 = self.guidance.analyze(images3)
             del images3
         # ---- phase 2: dynamic targets (host) ----
         with self.timers("phase2_targets"):
             probs_host = {a: res1.attrs[a].probs.cpu().numpy() for a in cfg.attributes}
-            targets = {a: torch.as_tensor(v, device=dev) for a, v in self.make_targets(probs_host).items()}
+            step_rng = np.random.default_rng(cfg.seed * 1_000_003 + step)
+            targets_np = self.make_targets(probs_host, step_rng)
+            targets = {a: torch.as_tensor(v, device=dev) for a, v in targets_np.items()}
         self._last_targets = targets
         ori = {
             "face_bboxes": res3.faces.bboxes,
@@ -391,13 +474,17 @@ class DebiasTrainer:
         with self.timers("update"):
             params, grad_leaves = tree_leaves(adapters), tree_leaves(grads)
             finite = all(bool(torch.isfinite(g).all()) for g in grad_leaves)
+            updates = state.updates
             if finite:  # optax.apply_if_finite: a non-finite step changes nothing
                 for p_, g_ in zip(params, grad_leaves):
                     p_.grad = g_.detach()
+                for group in state.opt.param_groups:
+                    group["lr"] = self.learning_rate(updates)
                 state.opt.step()
+                updates += 1
             state.opt.zero_grad(set_to_none=True)
             update_ema(state.ema, adapters, decay)
-        new_state = DebiasState(adapters, state.opt, state.ema, step + 1)
+        new_state = DebiasState(adapters, state.opt, state.ema, step + 1, updates)
 
         logs: dict[str, Any] = {
             "num_denoising_steps": int(n_steps),

@@ -15,13 +15,21 @@ over key blocks with bulk reduce-adds in no fixed order: only summation order di
 from the plain version and K2, so the same limits hold.
 """
 
+import dataclasses
+
 import pytest
 import torch
 
+from chip_smoke import PAIR_VJP_LAUNCHES, UNET_CALL_LAUNCHES, launch_counts, reset_counts
 from fairdiff_torch.models.layers import FusedGroupNorm
+from fairdiff_torch.models.unet2d import UNetConfig
 from fairdiff_torch.ops import flash_attention as fa
 from fairdiff_torch.ops import geglu as gg
 from fairdiff_torch.ops import group_norm as gn
+from fairdiff_torch.sampling.pipeline import SDConfig, StableDiffusion
+from fairdiff_torch.training.debias import DebiasTrainer
+from fairdiff_torch.training.presets import PRESETS
+from fairdiff_torch.training.synthetic import synthetic_stack
 
 pytestmark = pytest.mark.gpu
 
@@ -384,3 +392,27 @@ def test_group_norm_module_gradients_match_plain(cuda, dtype):
                                  module.bias[:900].detach(), 32, 1e-5)
     with pytest.raises(RuntimeError, match="grad_fn"):
         gn._forward(x, module.weight, module.bias, 32, 1e-5, True)
+
+
+@pytest.mark.parametrize("experiment", ["exp3", "exp2"])
+def test_tiny_train_step_runs_the_kernels(cuda, experiment):
+    """One exp-3 step (gender x race, sampled OT) and one exp-2 step (the
+    soft prefix) of the trainer on the card: the tiny SD in bf16 with remat
+    at 64x64 latents, whose 4096- and 1024-token self-attentions are the
+    same 10 flash sites as SD-1.5's and its 16 feed-forwards the same GEGLU
+    sites (head dims 16 and 32), 4 lanes, micro-batch 2, 2 denoising steps.
+    Finite non-zero gradients, and every kernel launched as often as
+    chip_smoke.py's counts of a CFG UNet call and a pair VJP say."""
+    sd_cfg = dataclasses.replace(SDConfig.tiny(), unet=dataclasses.replace(UNetConfig.tiny(), sample_size=64),
+                                 dtype="bfloat16")
+    sd = StableDiffusion(sd_cfg, device="cuda", remat=True).init_random(0)
+    cfg = PRESETS[experiment](lora_rank=2, train_images_per_prompt=4, train_micro_batch=2, steps_low=2, steps_high=2)
+    trainer = DebiasTrainer(sd, synthetic_stack(cfg.attributes, device=sd.device), cfg)
+    state = trainer.init_state(0)
+    reset_counts()
+    state, logs = trainer.train_step(state, (torch.tensor([[0, 5, 6, 63]]), torch.tensor([[0, 63, 1, 1]])))
+    calls, pairs = 2 * 2, 2 * 2  # no-grad CFG UNet calls (phases 1 and 3); pair VJPs (steps x lane chunks)
+    want = {k: calls * UNET_CALL_LAUNCHES.get(k, 0) + pairs * v for k, v in PAIR_VJP_LAUNCHES.items()}
+    assert launch_counts() == want
+    assert logs["grads_finite"] and logs["grad_norm"] > 0 and state.step == 1
+    assert set(state.adapters) == ({"prefix"} if experiment == "exp2" else {"te_lora"})

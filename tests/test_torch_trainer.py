@@ -4,7 +4,9 @@
 - the port's linearized phase 4 against its own chain backward (the
   counterpart of tests/test_trainer.py::test_linearized_phase4_matches_chain);
 - (one full `train_step` against the JAX trainer is in
-  test_torch_trainer_step.py);
+  test_torch_trainer_step.py for exp-1, test_torch_trainer_ot.py and
+  test_torch_trainer_exps.py for the other experiments, all through
+  `assert_steps_match_jax`);
 - the CLI on the CPU.
 
 Float32 on the CPU; each tolerance is stated where it is used.
@@ -23,7 +25,9 @@ from fairdiff.adapters import ema as jema
 from fairdiff.sampling import dpm_solver as jdpm
 from fairdiff.sampling import pipeline as jpipe
 from fairdiff.training import debias as jdebias
+from fairdiff.training import presets as jpresets
 from fairdiff.training import synthetic as jsyn
+from fairdiff.utils import rng as jrng
 from fairdiff_torch.io.adapters_io import load_adapters
 from fairdiff_torch.io.from_jax import adapters_from_jax
 from fairdiff_torch.sampling import dpm_solver as tdpm
@@ -83,9 +87,12 @@ def test_grad_mode_denoise_matches_jax():
 
 
 def _jax_setup(cfg=CFG):
+    """The JAX trainer on the tiny SD and the synthetic stack for the
+    config's attributes, and its initial state with seeded non-zero LoRA
+    `up` leaves."""
     jsd = jpipe.StableDiffusion(jpipe.SDConfig.tiny())
     params = random_tree(jax.eval_shape(jsd.init_params, jax.random.key(0)), seed=3)
-    jstack = jsyn.synthetic_stack(("gender",))
+    jstack = jsyn.synthetic_stack(cfg.get("attributes", ("gender",)))
     jtr = jdebias.DebiasTrainer(jsd, params, jstack, jdebias.DebiasConfig(**cfg))
     state = jtr.init_state(jax.random.key(1))
     rng = np.random.default_rng(8)
@@ -100,21 +107,67 @@ def _jax_setup(cfg=CFG):
 
 def _port_trainer(params, jstack, cfg=CFG):
     tsd = tpipe.StableDiffusion(tpipe.SDConfig.tiny(), device="cpu").load_jax(params)
-    tstack = tsyn.synthetic_stack(("gender",), db_feats=np.asarray(jstack.face_db.feats))
-    port_cfg = {k: v for k, v in cfg.items() if k != "train_text_encoder"}  # the port always trains it
-    return tdebias.DebiasTrainer(tsd, tstack, tdebias.DebiasConfig(**port_cfg))
+    tstack = tsyn.synthetic_stack(cfg.get("attributes", ("gender",)), db_feats=np.asarray(jstack.face_db.feats))
+    return tdebias.DebiasTrainer(tsd, tstack, tdebias.DebiasConfig(**cfg))
+
+
+def preset_cfg(name: str, **overrides) -> dict:
+    """A JAX preset cut to these tests' tiny step: 4 lanes, micro-batch 2,
+    2 denoising steps, LoRA rank 2."""
+    cfg = dataclasses.asdict(jpresets.PRESETS[name]())
+    cfg.update(lora_rank=2, train_images_per_prompt=4, train_micro_batch=2, steps_low=2, steps_high=2)
+    cfg.update(overrides)
+    return cfg
+
+
+def assert_steps_match_jax(cfg: dict, n_train_steps: int = 1) -> list[dict]:
+    """`n_train_steps` port `train_step`s against the JAX trainer's from the
+    same weights, adapters, noises and step counts (linearized phase 4).
+    Each step: targets exact; per leaf the grads within 2e-4 relative L2
+    (fp32 through the tiny CLIP, UNet, VAE and the sampler, whose 1/alpha
+    amplifies summation-order noise ~15x); the updated adapters and EMA
+    within 1e-7 + 1e-6 relative (two fp32 ulps at |x| ~ 1, against a first
+    AdamW step of ~lr = 5e-5 per element); every logged loss, norm and bias
+    metric within 1e-4 relative. -> the port's targets of each step."""
+    jtr, params, jstack, jstate = _jax_setup(cfg)
+    jtr.keep_pair_inputs = True
+    ttr = _port_trainer(params, jstack, cfg)
+    tstate = ttr.init_state(adapters=adapters_from_jax(jstate.adapters))
+    key = jax.random.key(42)
+    ids = (jnp.asarray(COND), jnp.asarray(UNCOND))
+    targets = []
+    for step in range(n_train_steps):
+        jstate, jlogs = jtr.train_step(jstate, ids, key)
+        noises = np.asarray(jtr._last_pair_inputs["noises"])
+        n_steps = jrng.sample_num_denoising_steps(key, step, cfg["steps_low"], cfg["steps_high"])
+        tstate, tlogs = ttr.train_step(tstate, (COND, UNCOND), noises=noises, n_steps=n_steps)
+
+        jt = {a: np.asarray(v) for a, v in jtr._last_pair_inputs["targets"].items()}
+        assert set(ttr._last_targets) == set(jt) == set(ttr.cfg.attributes)
+        for a, v in jt.items():
+            np.testing.assert_array_equal(ttr._last_targets[a].numpy(), v)
+        targets.append(jt)
+        jg, tg = tree_leaves(jtr._last_grads), tree_leaves(ttr._last_grads)
+        assert len(jg) == len(tg) > 0 and any(float(np.abs(g).max()) > 0 for g in jg)
+        for j, t in zip(jg, tg):
+            assert _rel(t.numpy(), j) < 2e-4
+        for jtree, ttree in ((jstate.adapters, tstate.adapters), (jstate.ema, tstate.ema)):
+            for j, t in zip(tree_leaves(jtree), tree_leaves(ttree)):
+                np.testing.assert_allclose(t.detach().numpy(), np.asarray(j), atol=1e-7, rtol=1e-6)
+        assert tstate.step == jstate.step == step + 1
+        assert set(tlogs) - {"grads_finite"} == set(jlogs)
+        for k, v in jlogs.items():
+            assert tlogs[k] == pytest.approx(v, rel=1e-4, abs=1e-7), k
+    return targets
 
 
 def _rel(a, b):
     return float(np.linalg.norm(np.asarray(a) - np.asarray(b)) / max(np.linalg.norm(np.asarray(b)), 1e-30))
 
 
-def test_linearized_phase4_matches_chain():
-    """The port's linearized phase 4 equals its own chain backward, with
-    UNet and text-encoder LoRA trained: exact maths (the chain is affine in
-    the guided epsilons), so only fp32 summation order differs (5e-4
-    relative, as the JAX test)."""
-    cfg = dict(CFG, train_unet=True)
+def _linear_vs_chain(cfg) -> set:
+    """Grads of one port step by the linearized phase 4 and by the chain
+    backward, leaf for leaf. -> the trained adapters' names."""
     jtr, params, jstack, jstate = _jax_setup(cfg)
     ttr = _port_trainer(params, jstack, cfg)
     noises = np.random.default_rng(9).normal(size=(4, 8, 8, 4)).astype(np.float32)
@@ -124,10 +177,25 @@ def test_linearized_phase4_matches_chain():
         _, logs = ttr.train_step(state, (COND, UNCOND), noises=noises, n_steps=2, phase4=mode)
         grads[mode] = (tree_leaves(ttr._last_grads), logs["train_loss"])
     (gc, lc), (gl, ll) = grads["chain"], grads["linear"]
-    assert len(gc) == len(gl) and any(float(g.abs().max()) > 0 for g in gc)
+    assert len(gc) == len(gl) == len(tree_leaves(jstate.adapters)) and any(float(g.abs().max()) > 0 for g in gc)
     for c, l in zip(gc, gl):
         np.testing.assert_allclose(l.numpy(), c.numpy(), rtol=5e-4, atol=5e-7)
     assert abs(lc - ll) < 1e-5
+    return set(jstate.adapters)
+
+
+def test_linearized_phase4_matches_chain():
+    """The port's linearized phase 4 equals its own chain backward, with
+    UNet and text-encoder LoRA trained: exact maths (the chain is affine in
+    the guided epsilons), so only fp32 summation order differs (5e-4
+    relative, as the JAX test)."""
+    _linear_vs_chain(dict(CFG, train_unet=True))
+
+
+def test_linearized_phase4_matches_chain_with_prefix():
+    """The same with the soft prefix and the text-encoder LoRA trained
+    together: one VJP of the context into both."""
+    assert _linear_vs_chain(dict(CFG, train_prefix=True)) == {"prefix", "te_lora"}
 
 
 def test_train_debias_cli_on_cpu(tmp_path, capsys, monkeypatch):

@@ -122,8 +122,7 @@ def test_train_step_with_real_zoo_matches_jax_trainer():
     n_steps = jrng.sample_num_denoising_steps(key, 0, 2, 2)
 
     tsd = tpipe.StableDiffusion(tpipe.SDConfig.tiny(), device="cpu").load_jax(params)
-    port_cfg = {k: v for k, v in CFG.items() if k != "train_text_encoder"}
-    ttr = tdebias.DebiasTrainer(tsd, _port_stack(trees, db), tdebias.DebiasConfig(**port_cfg))
+    ttr = tdebias.DebiasTrainer(tsd, _port_stack(trees, db), tdebias.DebiasConfig(**CFG))
     tstate = ttr.init_state(adapters=adapters_from_jax(jstate.adapters))
     tnew, tlogs = ttr.train_step(tstate, (COND, UNCOND), noises=noises, n_steps=n_steps)
 
