@@ -64,7 +64,19 @@ Phases (any failure raises and exits non-zero):
      each attribute, race_gap and gender_race_gap logged;
  17. train-exps: phase 9 for exp-2 to exp-6 (exp-2: the exported prefix
      table moved and `gen_images` reads it back; exp-5: two prompt files
-     the phase writes, repeats 1 and 6).
+     the phase writes, repeats 1 and 6);
+ 18. unet-vjp-lora: phase 8 with a rank-4 UNet LoRA through the merged
+     weights: the LoRA and context gradients with remat on against off
+     (rel L2 1e-3) and against the plain routes and fp32, exact launch
+     counts (K1 with lse, K2 and K3 at all 10 flash sites), kernel time,
+     idle share, peak memory with remat on and off;
+ 19. train-lifecycle: `train_debias.main` on a config file the phase
+     writes (UNet and text-encoder LoRA), 4 steps unbroken against 2 steps
+     resumed to 4 from a checkpoint (adapters, EMA, AdamW moments, step,
+     update count and prompt order), evaluation of the adapters and their
+     EMA every 2 steps (metrics.jsonl, grids), `export_checkpoint` (.npz,
+     .pth) and `gen_images` reading unet_lora.pth, exact launch counts;
+ 20. train-unet-lora: phase 10 with the UNet LoRA trained too.
 
 The line before the last is the card's name and power limit from
 nvidia-smi; the one before that is the per-kernel JSON summary; the last
@@ -1146,6 +1158,11 @@ def reset_counts() -> None:
 PAIR_VJP_LAUNCHES = {"flash_attention": 2, "flash_attention_lse": 18, "flash_attention_dq": 9,
                      "flash_attention_dkv": 9, "flash_attention_bwd_merged": 0, "geglu": 32,
                      "geglu_dx": 16, "group_norm": 0}
+# the same with a UNet LoRA on every attention projection: the first
+# transformer block's self-attention now depends on trained weights, so it
+# runs K1 with lse and K2 and K3 like the other 9 sites
+PAIR_VJP_LAUNCHES_LORA = dict(PAIR_VJP_LAUNCHES, flash_attention=0, flash_attention_lse=20,
+                              flash_attention_dq=10, flash_attention_dkv=10)
 # the same with flash_bwd="merged": K6 takes K2's and K3's 9 launches
 PAIR_VJP_LAUNCHES_MERGED = dict(PAIR_VJP_LAUNCHES, flash_attention_dq=0, flash_attention_dkv=0,
                                 flash_attention_bwd_merged=9)
@@ -1293,8 +1310,14 @@ def phase_unet_vjp(power: str, flash_bwd: str = "split") -> dict:
     return {"seconds": seconds, "peak_gib": peak_gib, "launches": ran}
 
 
+# host calls that wait for the device
+HOST_WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize", "cudaMemcpy",
+              "aten::_local_scalar_dense", "aten::nonzero", "aten::equal")
+
+
 def profile_pair_vjp(run, wall_s: float, tag: str = "[unet-vjp]") -> None:
-    """Where one pair VJP's device time goes, by kernel name."""
+    """Where one pair VJP's device time goes, by kernel name, and its host
+    time, by op."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1318,6 +1341,18 @@ def profile_pair_vjp(run, wall_s: float, tag: str = "[unet-vjp]") -> None:
     for e in events[:14]:
         log(f"{tag}   {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x "
             f"{100 * e.self_device_time_total / 1e3 / busy:5.1f}%  {e.key[:90]}")
+    # the host side, in a second run: the ops that hold the host longest and
+    # every call that waits for the device
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    waits = {e.key: e.count for e in host if e.key in HOST_WAITS and e.count}
+    log(f"{tag} host profile of one pair VJP ({wall:.3f} s wall, profiler on): waits for the device {waits}")
+    for e in host[:12]:
+        log(f"{tag}   host {e.self_cpu_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
 
 
 # bench.py's detector heads for the costliest case: with zero head kernels
@@ -1592,21 +1627,26 @@ def filled_zoo_stack(device: str = "cuda"):
     )
 
 
-def phase_train_step(power: str, zoo: bool = False, experiment: str = "exp1") -> dict:
+def phase_train_step(power: str, zoo: bool = False, experiment: str = "exp1", unet: bool = False) -> dict:
     """One timed step of `experiment` at its preset's shape (exp-1: 24
     lanes, exp-3: 32 and 200 OT draws; micro-batch 4; 19 denoising steps)
     after a warm-up step, on the synthetic guidance stack or, with `zoo`,
-    bench.py's filled real-architecture zoo (`filled_zoo_stack`). exp-3
-    stays on the synthetic stack: the filled zoo gives every lane the same
-    probabilities, so every OT problem would be one tie."""
+    bench.py's filled real-architecture zoo (`filled_zoo_stack`); with
+    `unet`, the UNet LoRA trains too (its gradient finite and non-zero).
+    exp-3 stays on the synthetic stack: the filled zoo gives every lane the
+    same probabilities, so every OT problem would be one tie."""
     import numpy as np
 
     from fairdiff_torch.io.tokenizer import HashTokenizer
     from fairdiff_torch.tools import train_debias
+    from fairdiff_torch.utils.tree import tree_leaves
 
-    tag = "[train-zoo]" if zoo else "[train-step]" if experiment == "exp1" else f"[train-{experiment}]"
+    tag = ("[train-zoo]" if zoo else "[train-unet-lora]" if unet else "[train-step]" if experiment == "exp1"
+           else f"[train-{experiment}]")
     cfg = train_debias.TrainCLIConfig(experiment=experiment, steps=19)
     trainer = train_debias.build_trainer(cfg)
+    if unet:
+        trainer.cfg = dataclasses.replace(trainer.cfg, train_unet=True)
     if zoo:
         trainer.guidance = filled_zoo_stack()
     ids = train_debias.tokenize_prompts(trainer.sd, HashTokenizer(), list(train_debias.DEFAULT_PROMPTS))
@@ -1625,7 +1665,7 @@ def phase_train_step(power: str, zoo: bool = False, experiment: str = "exp1") ->
     dcfg = trainer.cfg
     steps, lanes, p = 19, dcfg.train_images_per_prompt, dcfg.train_micro_batch
     want = {k: 2 * steps * UNET_CALL_LAUNCHES.get(k, 0) + steps * (lanes // p) * v
-            for k, v in PAIR_VJP_LAUNCHES.items()}
+            for k, v in (PAIR_VJP_LAUNCHES_LORA if unet else PAIR_VJP_LAUNCHES).items()}
     ot = f", {trainer.ot_draws} OT draws" if dcfg.target_kind in ("ot2", "ot3") else ""
     log(f"{tag} {experiment} step, SD-1.5 bf16, {lanes} lanes, micro-batch {p}, 19 denoising steps{ot}, "
         f"{'filled real-architecture zoo' if zoo else 'synthetic'} guidance: {seconds:.3f} s/step on {power}; "
@@ -1644,10 +1684,238 @@ def phase_train_step(power: str, zoo: bool = False, experiment: str = "exp1") ->
     targeted = all(n > 0 for n in kept.values()) if dcfg.target_kind != "binary" else True
     metrics = {"ot2": ("race_gap", "gender_race_gap"), "ot3": ("race_gap", "gender_race_gap", "age_gap"),
                "enum": ("race_gap",)}.get(dcfg.target_kind, ())
+    if unet:
+        g_unet = torch.cat([t.flatten() for t in tree_leaves(trainer._last_grads["unet_lora"])])
+        log(f"{tag} unet_lora gradient: {g_unet.numel()} elements, norm {g_unet.norm().item():.4e}")
+        moved = moved and bool(torch.isfinite(g_unet).all()) and g_unet.abs().max().item() > 0
     if not (logs["grads_finite"] and moved and logs["num_denoising_steps"] == 19 and ran == want
             and targeted and all(k in logs for k in metrics)):
         raise AssertionError(f"{tag} failed: {logs}, launches {ran}, lanes with a target {kept}")
     return {"seconds": seconds, "peak_gib": peak_gib, "split": split}
+
+
+# remat on against off: the recompute is the forward's own kernels on the
+# same operands, so the gradients agree to the bf16 rounding of the
+# backward's sums at most
+REMAT_REL_L2_TOL = 1e-3
+
+
+def phase_unet_vjp_lora(power: str) -> dict:
+    """One full-width SD-1.5 pair VJP (8 rows, bf16, split backward) with a
+    UNet LoRA of rank 4 on every attention projection (`up` drawn non-zero,
+    so `down` gets a gradient), through `functional_call` with the merged
+    weights as `StableDiffusion.unet_eps` runs it: the LoRA gradient and the
+    context gradient with remat on against remat off, and both against the
+    plain routes and an fp32 run (within 1.1x the plain routes' error);
+    exact launch counts, kernel time and idle share, peak memory."""
+    from torch.func import functional_call
+
+    from fairdiff_torch.adapters import lora as lora_lib
+    from fairdiff_torch.models.layers import init_weights
+    from fairdiff_torch.models.unet2d import UNet2DCondition, UNetConfig
+    from fairdiff_torch.ops import flash_attention as fa
+    from fairdiff_torch.ops import geglu as gg
+    from fairdiff_torch.utils.tree import tree_leaves, tree_map
+
+    tag = "[unet-vjp-lora]"
+    g = torch.Generator().manual_seed(5)
+    unet = init_weights(UNet2DCondition(UNetConfig.sd15(), remat=True), g).cuda().requires_grad_(False)
+    lora = lora_lib.init_lora(unet, lora_lib.unet_attention_targets, 4, g)
+    lora = tree_map(lambda x: (torch.randn(x.shape, generator=g) * 0.02 if x.abs().max() == 0 else x).cuda(),
+                    lora)
+    leaves = [x.requires_grad_() for x in tree_leaves(lora)]
+    p = PAIR_ROWS // 2
+    x = torch.randn(p, 64, 64, 4, generator=g).cuda()
+    cot = torch.randn(p, 64, 64, 4, generator=g).cuda() * 1e-2
+    ctx0 = torch.randn(PAIR_ROWS, 77, 768, generator=g).cuda()
+    mask = (torch.arange(77)[None] < torch.tensor([[9]] * p + [[12]] * p)).int().cuda()
+
+    def grads(model, dtype):
+        ctx = ctx0.to(dtype).requires_grad_()
+        weights = lora_lib.apply_lora(model, lora)
+        eps2 = functional_call(model, weights, (torch.cat([x, x]), 500, ctx, mask), {"weights": weights}).float()
+        eps_u, eps_c = eps2.chunk(2)
+        out = torch.autograd.grad(((eps_u + 7.5 * (eps_c - eps_u)) * cot).sum(), [ctx, *leaves])
+        return out[0].float(), torch.cat([o.flatten() for o in out[1:]])
+
+    unet_bf16 = copy.deepcopy(unet).to(torch.bfloat16)
+    runs: dict[bool, dict] = {}
+    for remat in (True, False):
+        unet_bf16.remat = remat
+        grads(unet_bf16, torch.bfloat16)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = grads(unet_bf16, torch.bfloat16)
+        torch.cuda.synchronize()
+        runs[remat] = {"grads": out, "seconds": time.perf_counter() - t0, "launches": launch_counts(),
+                       "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2**30}
+    unet_bf16.remat = True
+    (ctx_on, lora_on), (ctx_off, lora_off) = runs[True]["grads"], runs[False]["grads"]
+    e_ctx, e_lora = rel_l2(ctx_on, ctx_off), rel_l2(lora_on, lora_off)
+    equal = bool(torch.equal(ctx_on, ctx_off) and torch.equal(lora_on, lora_off))
+
+    def plain_attention(q, k, v, *_):
+        return fa.flash_attention_plain(q, k, v)
+
+    with routes(plain_attention, gg.geglu_plain):
+        ctx_plain, lora_plain = grads(unet_bf16, torch.bfloat16)
+        ctx_exact, lora_exact = grads(unet, torch.float32)
+    acc = {}
+    for what, kern, plain, exact in (("context", ctx_on, ctx_plain, ctx_exact),
+                                     ("LoRA", lora_on, lora_plain, lora_exact)):
+        acc[what] = (rel_l2(kern, exact), rel_l2(plain, exact), rel_l2(kern, plain))
+        log(f"{tag} {what} gradient: kernels vs fp32 {acc[what][0]:.3e}, plain routes vs fp32 "
+            f"{acc[what][1]:.3e} (kernels <= {UNET_BF16_ACCURACY_RATIO} x plain), kernels vs plain "
+            f"{acc[what][2]:.3e}; norm {kern.norm().item():.4e}")
+    on, off = runs[True], runs[False]
+    log(f"{tag} SD-1.5 pair VJP (8 rows, bf16, split backward) with a rank-4 UNet LoRA on "
+        f"{len(leaves) // 2} projections: remat on vs off rel L2 context {e_ctx:.3e}, LoRA {e_lora:.3e} "
+        f"(tol {REMAT_REL_L2_TOL:.0e}), bit-equal {equal}")
+    log(f"{tag} remat on: {on['seconds']:.3f} s, peak {on['peak_gib']:.2f} GiB above the weights; remat off: "
+        f"{off['seconds']:.3f} s, peak {off['peak_gib']:.2f} GiB; launches {on['launches']} (want "
+        f"{PAIR_VJP_LAUNCHES_LORA}; remat off {off['launches']}) on {power}")
+    want_off = dict(PAIR_VJP_LAUNCHES_LORA, flash_attention_lse=10, geglu=16)  # no recompute
+    failed = [name for name, ok in (
+        ("launches", on["launches"] == PAIR_VJP_LAUNCHES_LORA),
+        ("launches remat off", off["launches"] == want_off),
+        ("finite", bool(torch.isfinite(ctx_on).all() and torch.isfinite(lora_on).all())),
+        ("non-zero", ctx_on.abs().max().item() > 0 and lora_on.abs().max().item() > 0),
+        ("remat context", e_ctx <= REMAT_REL_L2_TOL),
+        ("remat LoRA", e_lora <= REMAT_REL_L2_TOL),
+        ("accuracy context", acc["context"][0] <= UNET_BF16_ACCURACY_RATIO * acc["context"][1]),
+        ("accuracy LoRA", acc["LoRA"][0] <= UNET_BF16_ACCURACY_RATIO * acc["LoRA"][1]),
+    ) if not ok]
+    if failed:
+        raise AssertionError(f"{tag} failed: {failed}")
+    profile_pair_vjp(lambda: grads(unet_bf16, torch.bfloat16), on["seconds"], tag)
+    return {"seconds": on["seconds"], "peak_gib": on["peak_gib"], "peak_gib_no_remat": off["peak_gib"]}
+
+
+def _opt_moments(state) -> list[torch.Tensor]:
+    return [v for st in state.opt.state_dict()["state"].values() for k, v in sorted(st.items())
+            if k in ("exp_avg", "exp_avg_sq")]
+
+
+def phase_train_lifecycle(steps: int = 4) -> dict[str, int]:
+    """`train_debias.main` over a config file this phase writes (UNet and
+    text-encoder LoRA), at full width (4 lanes, micro-batch 2, `steps`
+    denoising steps, evaluation every 2 steps on 2 images at 4 denoising
+    steps, a checkpoint every 2 steps): run A takes 4 steps unbroken; run B
+    takes 2, then a second `main` resumes it from its checkpoint to step 4.
+    B's step, update count, adapters, EMA and AdamW moments against A's
+    (rel L2 1e-3; bit-equality printed), the same prompt order, `eval_` and
+    `eval_ema_` keys at steps 2 and 4 in metrics.jsonl, the grids, then
+    `export_checkpoint` (.npz and .pth) and `gen_images` reading
+    unet_lora.pth; exact launch counts, evaluation's generations
+    included."""
+    import io
+
+    import numpy as np
+
+    from fairdiff_torch.io.adapters_io import load_adapters
+    from fairdiff_torch.tools import export_checkpoint, gen_images, train_debias
+    from fairdiff_torch.utils.tree import tree_leaves
+
+    tag = "[train-lifecycle]"
+    root = Path(__file__).resolve().parent
+    (root / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=root / "build") as tmp:
+        config = Path(tmp) / "run.yaml"  # JSON syntax, which is YAML too
+        config.write_text(json.dumps({"train_unet": True, "train_text_encoder": True,
+                                      "val_images_per_prompt": 2, "eval_denoising_steps": 4}))
+        base = train_debias.TrainCLIConfig(
+            max_train_steps=4, train_images_per_prompt=4, train_micro_batch=2, steps=steps, eval_interval=2,
+            checkpoint_tmp_every=2, debias_config=str(config),
+        )
+        trainer = train_debias.build_trainer(base)
+        seen: list[int] = []
+        real_step = trainer.train_step
+
+        def recording_step(state, prompt_ids, **kw):
+            seen.append(int(torch.as_tensor(prompt_ids[0]).sum()))  # identifies the prompt
+            return real_step(state, prompt_ids, **kw)
+
+        trainer.train_step = recording_step
+        runs: dict[str, tuple] = {}
+        reset_counts()
+        t0 = time.perf_counter()
+        for name, plan in (("A", [(4, False)]), ("B", [(2, False), (4, True)])):
+            seen.clear()
+            out_dir = str(Path(tmp) / name)
+            for max_steps, resume in plan:
+                trainer._ori_grid_cache.clear()  # as a new process would start
+                trainer.cfg = dataclasses.replace(trainer.cfg, max_train_steps=max_steps, output_dir=out_dir)
+                with contextlib.redirect_stdout(io.StringIO()):
+                    state = train_debias.main(dataclasses.replace(
+                        base, max_train_steps=max_steps, output_dir=out_dir, resume_from_checkpoint=resume), trainer)
+            runs[name] = (state, list(seen), out_dir)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        ran = launch_counts()
+        (sa, order_a, dir_a), (sb, order_b, dir_b) = runs["A"], runs["B"]
+        compared = {}
+        for what, a, b in (("adapters", tree_leaves(sa.adapters), tree_leaves(sb.adapters)),
+                           ("ema", tree_leaves(sa.ema), tree_leaves(sb.ema)),
+                           ("adamw moments", _opt_moments(sa), _opt_moments(sb))):
+            va, vb = torch.cat([t.detach().flatten() for t in a]), torch.cat([t.detach().flatten() for t in b])
+            compared[what] = (rel_l2(vb, va), bool(torch.equal(va, vb)))
+        log(f"{tag} run A 4 steps unbroken, run B 2 steps then resumed to 4: "
+            + "; ".join(f"{w} rel L2 {e:.3e} bit-equal {eq}" for w, (e, eq) in compared.items())
+            + f"; step {sa.step}/{sb.step}, updates {sa.updates}/{sb.updates}; prompt order {order_a} / {order_b}")
+        records = [json.loads(x) for x in (Path(dir_b) / "metrics.jsonl").read_text().splitlines()]
+        evals = {(r["step"], "eval_ema_" if k.startswith("eval_ema_") else "eval_")
+                 for r in records for k in r if k.startswith("eval_")}
+        grids = sorted(p.name for p in (Path(dir_b) / "imgs").glob("*.png"))
+        log(f"{tag} run B metrics.jsonl: {len(records)} records, evaluations {sorted(evals)}; "
+            f"{len(grids)} grids: {grids}")
+        exported = export_checkpoint.main(export_checkpoint.ExportConfig(
+            debias_config=str(config), checkpoint_dir=str(Path(dir_b) / "checkpoints"), reference_format=True))
+        files = sorted(p.name for p in exported.iterdir())
+        same_export = all(np.array_equal(a, b) for a, b in zip(
+            _npz_leaves_list(load_adapters(exported / "unet_lora.npz")),
+            _npz_leaves_list(load_adapters(Path(dir_b) / "exported" / "unet_lora.npz"))))
+        reset_gen = launch_counts()
+        written = gen_images.main(gen_images.GenImagesConfig(
+            load_unet_lora_from=str(exported / "unet_lora.pth"), num_imgs_per_prompt=1, batch_size=1,
+            num_denoising_steps=2, save_dir=str(Path(tmp) / "gen")))
+        gen_calls = {k: launch_counts()[k] - reset_gen[k] for k in reset_gen}
+        gen_ok = len(written) == 1 and written[0].stat().st_size > 0
+        log(f"{tag} export_checkpoint of step 4: {files}; unet_lora.npz equal to the run's export: {same_export}; "
+            f"gen_images read unet_lora.pth and wrote {[w.name for w in written]} ({written[0].stat().st_size} bytes)")
+    # CFG UNet calls: 2 a denoising step of a training step (phases 1, 3);
+    # an evaluation samples its prompt with the adapters and with their EMA,
+    # and the frozen model once a process (its grid is copied later)
+    per_step_calls, per_step_pairs, ev = 2 * steps, steps * 2, 4
+    train_steps = 4 + 2 + 2
+    calls = train_steps * per_step_calls + (3 * ev + 2 * ev) + 3 * ev + 3 * ev
+    pairs = train_steps * per_step_pairs
+    want = {k: calls * UNET_CALL_LAUNCHES.get(k, 0) + pairs * v for k, v in PAIR_VJP_LAUNCHES_LORA.items()}
+    log(f"{tag} {seconds:.2f} s for the three runs; launches {ran} (want {want}); gen_images {gen_calls}")
+    evals_want = {(s, pre) for s in (2, 4) for pre in ("eval_", "eval_ema_")}
+    grids_want = {f"eval_{n}_{s}_a_photo_of_the_face_of_a_doctor,_a_person_{kind}.png"
+                  for s in (2, 4) for n, kind in (("main", "generated"), ("main", "ori"), ("ema", "generated"))}
+    failed = [name for name, ok in (
+        ("state", all(e <= REMAT_REL_L2_TOL for e, _ in compared.values())),
+        ("step", sa.step == sb.step == 4 and sa.updates == sb.updates == 4),
+        ("prompt order", order_a == order_b and len(order_a) == 4),
+        ("evaluations", evals >= evals_want),
+        ("grids", set(grids) == grids_want),
+        ("export", {"unet_lora.npz", "unet_lora.pth", "text_encoder_lora.pth", "te_lora_EMA.npz"} <= set(files)
+         and same_export),
+        ("gen_images", gen_ok),
+        ("launches", ran == want),
+        ("gen_images launches", gen_calls == {k: 2 * UNET_CALL_LAUNCHES.get(k, 0) for k in gen_calls}),
+    ) if not ok]
+    if failed:
+        raise AssertionError(f"{tag} failed: {failed}")
+    return ran
+
+
+def _npz_leaves_list(tree) -> list:
+    return [a for _, a in sorted(_npz_leaves(tree))]
 
 
 def main() -> int:
@@ -1708,7 +1976,16 @@ def main() -> int:
     log(f"[time] train-exp3 {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     phase_train_exps()
-    log(f"[time] train-exps {time.perf_counter() - t:.1f} s; total {time.perf_counter() - t_start:.1f} s")
+    log(f"[time] train-exps {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    phase_unet_vjp_lora(power)
+    log(f"[time] unet-vjp-lora {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    phase_train_lifecycle()
+    log(f"[time] train-lifecycle {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    phase_train_step(power, unet=True)
+    log(f"[time] train-unet-lora {time.perf_counter() - t:.1f} s; total {time.perf_counter() - t_start:.1f} s")
 
     summary = []
     for kname, main_shape, source, replaces, launches in (

@@ -65,13 +65,10 @@ def init_lora(
     return lora
 
 
-def apply_lora(module: nn.Module, lora: Mapping, scale: float = 1.0) -> dict[str, torch.Tensor]:
-    """{state-dict name: merged weight} for every Linear that `lora` covers.
-
-    Merges in fp32 and rounds once to the weight's dtype: adding a delta
-    already rounded to bf16 would round twice and can drop updates below
-    one ulp of the weight."""
-    merged: dict[str, torch.Tensor] = {}
+def lora_deltas(module: nn.Module, lora: Mapping) -> dict[str, torch.Tensor]:
+    """{state-dict name: (down @ up)ᵀ} in fp32, in torch's [out, in]
+    orientation, for every Linear that `lora` covers."""
+    deltas: dict[str, torch.Tensor] = {}
     for path, lin in _linears(module):
         node: Any = lora
         for name in path:
@@ -81,8 +78,19 @@ def apply_lora(module: nn.Module, lora: Mapping, scale: float = 1.0) -> dict[str
         else:
             if "down" not in node:
                 continue
-            w = lin.weight
-            down, up = (_tensor(node[k], w.device) for k in ("down", "up"))
-            delta = (down @ up).T  # JAX [in, out] -> torch [out, in]
-            merged[".".join(path) + ".weight"] = (w.float() + scale * delta).to(w.dtype)
+            down, up = (_tensor(node[k], lin.weight.device) for k in ("down", "up"))
+            deltas[".".join(path) + ".weight"] = (down @ up).T  # JAX [in, out] -> torch [out, in]
+    return deltas
+
+
+def apply_lora(module: nn.Module, lora: Mapping, scale: float = 1.0) -> dict[str, torch.Tensor]:
+    """{state-dict name: merged weight} for every Linear that `lora` covers.
+
+    Merges in fp32 and rounds once to the weight's dtype: adding a delta
+    already rounded to bf16 would round twice and can drop updates below
+    one ulp of the weight."""
+    merged: dict[str, torch.Tensor] = {}
+    for name, delta in lora_deltas(module, lora).items():
+        w = module.get_parameter(name)
+        merged[name] = (w.float() + scale * delta).to(w.dtype)
     return merged

@@ -24,7 +24,11 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
 
 def save_png(img: np.ndarray, path: str | Path) -> None:
     """Write one [H, W, 3] image in [-1, 1] as an 8-bit RGB PNG."""
-    pixels = to_uint8(img)
+    write_png(to_uint8(img), path)
+
+
+def write_png(pixels: np.ndarray, path: str | Path) -> None:
+    """Write [H, W, 3] uint8 pixels as an RGB PNG."""
     if pixels.ndim != 3 or pixels.shape[-1] != 3:
         raise ValueError(f"want an [H, W, 3] image, got {pixels.shape}")
     h, w, _ = pixels.shape

@@ -12,18 +12,23 @@ runs the fused GEGLU kernels on CUDA; both through autograd Functions where
 a gradient is wanted; `flash_bwd` ("split": K2 + K3, "merged": K6) picks the
 flash backward. `remat=True` recomputes each resnet and transformer block in
 the backward instead of keeping its activations (`torch.utils.checkpoint`, the
-counterpart of `nn.remat` in the JAX module).
+counterpart of `nn.remat` in the JAX module). A caller that runs the UNet
+under `torch.func.functional_call` with replaced weights (merged LoRA) passes
+the same mapping as `weights`: the recompute runs after `functional_call` has
+put the module's own weights back, so each checkpointed block swaps its slice
+of the mapping in again for it.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Mapping, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from fairdiff_torch.models.layers import dot_product_attention, expand_padding_mask
@@ -277,6 +282,7 @@ class UNet2DCondition(nn.Module):
         timesteps: torch.Tensor | int | float,
         encoder_hidden_states: torch.Tensor,
         encoder_attention_mask: Optional[torch.Tensor] = None,
+        weights: Optional[Mapping[str, torch.Tensor]] = None,
     ) -> torch.Tensor:
         cfg = self.config
         ch = cfg.block_out_channels
@@ -291,10 +297,17 @@ class UNet2DCondition(nn.Module):
         context = encoder_hidden_states.to(dtype)
         mask = encoder_attention_mask
         remat = self.remat and torch.is_grad_enabled()
+        block_weights: dict[str, dict[str, torch.Tensor]] = {}
+        for key, w in (weights or {}).items():
+            name, _, rest = key.partition(".")
+            block_weights.setdefault(name, {})[rest] = w
 
         def block(name: str):
             module = getattr(self, name)
             if remat and isinstance(module, (ResnetBlock2D, Transformer2D)):
+                own = block_weights.get(name)
+                if own:
+                    return lambda *args: checkpoint(functional_call, module, own, args, use_reentrant=False)
                 return lambda *args: checkpoint(module, *args, use_reentrant=False)
             return module
 

@@ -186,13 +186,9 @@ class StableDiffusion:
         *,
         unet_weights: Optional[Mapping[str, torch.Tensor]] = None,
     ) -> torch.Tensor:
-        if unet_weights and self.unet.remat and torch.is_grad_enabled():
-            # the recompute in the backward would run after functional_call
-            # has put the frozen weights back
-            raise ValueError("remat recomputes with the module's own weights: no UNet LoRA with remat")
-        return functional_call(
-            self.unet, dict(unet_weights or {}), (lat2, t, context, key_mask)
-        )
+        weights = dict(unet_weights or {})
+        # the remat UNet recomputes each block with `weights` swapped in again
+        return functional_call(self.unet, weights, (lat2, t, context, key_mask), {"weights": weights})
 
     def decode_images(self, latents: torch.Tensor, *, grad_mode: bool = False) -> torch.Tensor:
         """Final latents -> images in [-1, 1], NHWC, fp32. Without grad_mode

@@ -2,7 +2,8 @@
 
 Reproduces the reference gen-images behaviour: a deterministic noise bank
 per (seed, prompt, image index), optional TE-LoRA / UNet-LoRA / soft-prefix
-adapters from `.npz`, skip-existing resume, `prompt_i/img_j.png` outputs,
+adapters from `.npz` or from the reference's exported `.pth` (`.pt`, `.bin`)
+files, skip-existing resume, `prompt_i/img_j.png` outputs,
 and the reference defaults (30 steps, batch 10, guidance 7.5, 60 images a
 prompt). Without a checkpoint it runs SD-1.5 at full width on seeded random
 weights.
@@ -27,6 +28,7 @@ import torch
 from fairdiff_torch.adapters.prefix import prepend_prefix_ids
 from fairdiff_torch.io.adapters_io import load_adapters
 from fairdiff_torch.io.images import save_png
+from fairdiff_torch.io.reference_adapters import load_reference_adapters
 from fairdiff_torch.io.tokenizer import load_tokenizer
 from fairdiff_torch.sampling.pipeline import SDConfig, StableDiffusion
 from fairdiff_torch.utils.rng import prompt_noise_generator
@@ -54,6 +56,18 @@ class GenImagesConfig:
     tiny_smoke: bool = False  # tiny random model for CPU smoke runs
 
 
+def load_adapter_file(path: str, kind: str):
+    """An adapter of `kind` ("unet_lora", "te_lora", "prefix") from a
+    reference `.pth`/`.pt`/`.bin` file or the port's `.npz`."""
+    if path.endswith((".pth", ".pt", ".bin")):
+        got, tree = load_reference_adapters(path)
+        if got != kind:
+            raise ValueError(f"{path}: contains {got}, expected {kind}")
+        return tree
+    tree = load_adapters(path)
+    return torch.tensor(tree["prefix"]) if kind == "prefix" else tree
+
+
 def main(cfg: GenImagesConfig) -> list[Path]:
     sd_cfg = SDConfig.tiny() if cfg.tiny_smoke else SDConfig.sd15()
     sd = StableDiffusion(sd_cfg, device=cfg.device or None).init_random(cfg.random_seed)
@@ -64,14 +78,12 @@ def main(cfg: GenImagesConfig) -> list[Path]:
         tokenizer.eos_token_id = sd_cfg.text.vocab_size - 1
         tokenizer.pad_token_id = sd_cfg.text.vocab_size - 1
 
-    unet_lora = load_adapters(cfg.load_unet_lora_from) if cfg.load_unet_lora_from else None
-    te_lora = (
-        load_adapters(cfg.load_text_encoder_lora_from)
-        if cfg.load_text_encoder_lora_from else None
+    unet_lora, te_lora, prefix_table = (
+        load_adapter_file(path, kind) if path else None
+        for path, kind in ((cfg.load_unet_lora_from, "unet_lora"),
+                           (cfg.load_text_encoder_lora_from, "te_lora"),
+                           (cfg.load_prefix_embedding_from, "prefix"))
     )
-    prefix_table = None
-    if cfg.load_prefix_embedding_from:
-        prefix_table = torch.tensor(load_adapters(cfg.load_prefix_embedding_from)["prefix"])
 
     if cfg.prompts_json:
         with open(cfg.prompts_json) as f:

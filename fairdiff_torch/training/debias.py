@@ -23,23 +23,29 @@ Per optimizer step, one prompt and N noise lanes:
 
 `phase4="chain"` instead differentiates the whole grad-mode sampling chain
 per lane chunk (the reference's autograd semantics); it is the golden of
-the linearized path in the tests. There is no counterpart of the JAX
-trainer's jit programs, AOT warm-up, mesh sharding, evaluation or `fit`.
+the linearized path in the tests. `evaluate` generates each validation
+prompt's images with the given adapters and with the frozen model on the
+same noises and logs their bias metrics and annotated grids; `fit` runs the
+steps in the JAX trainer's prompt order (replayed on resume), logs each
+step, evaluates the adapters and their EMA every `eval_interval` steps and
+hands each state to a checkpoint callback. There is no counterpart of the
+JAX trainer's jit programs, AOT warm-up or mesh sharding.
 
 Deliberate departures: the context cotangent is summed in fp32 (the JAX
 program sums it in the text encoder's dtype, bf16 at SD-1.5 width); the
-step's noises and step count come from `utils.rng` torch generators unless
-passed in; the prefix rows are drawn with a `torch.Generator`. The
-evaluation fields of `DebiasConfig` are carried for preset parity; no
-evaluation runs yet.
+step's noises and step count, and the evaluation noises, come from
+`utils.rng` torch generators unless passed in; the prefix rows are drawn
+with a `torch.Generator`; grids are PNG files.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import shutil
 import time
-from typing import Any, Optional
+from pathlib import Path
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -54,6 +60,7 @@ from fairdiff_torch.sampling import dpm_solver as dpm
 from fairdiff_torch.sampling.pipeline import StableDiffusion
 from fairdiff_torch.training import metrics as metrics_lib
 from fairdiff_torch.training.stack import GuidanceStack
+from fairdiff_torch.utils import grids as grids_lib
 from fairdiff_torch.utils import rng as rng_lib
 from fairdiff_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -95,7 +102,7 @@ class DebiasConfig:
     no_face_img_weight_one: bool = True  # False: lanes without a face get min(factor1)
     face_search_all_lanes: bool = False  # True: face realism on every face lane
     ema_decay: float = 0.996
-    # evaluation (carried for preset parity; not run yet)
+    # evaluation (`fit`; 0 disables it)
     eval_interval: int = 200
     eval_denoising_steps: int = 25
     val_images_per_prompt: int = 8
@@ -147,6 +154,38 @@ def _global_norm(tensors: list[torch.Tensor]) -> float:
     return float(torch.sqrt(sum((t.detach().float() ** 2).sum() for t in tensors)))
 
 
+def init_adapters(cfg: DebiasConfig, text_encoder: torch.nn.Module, unet: torch.nn.Module,
+                  seed: int) -> dict:
+    """Fresh adapters from `seed`: the LoRAs that train (down ~ N(0,1)/rank,
+    up = 0), then the prefix table (rows of the frozen token table), all from
+    one generator. Only the LoRAs' shapes are read from the modules, so
+    modules on the `meta` device give the shapes of a checkpoint."""
+    g = torch.Generator().manual_seed(seed)
+    adapters: dict[str, Any] = {}
+    if cfg.train_unet:
+        adapters["unet_lora"] = lora_lib.init_lora(unet, lora_lib.unet_attention_targets, cfg.lora_rank, g)
+    if cfg.train_text_encoder:
+        adapters["te_lora"] = lora_lib.init_lora(
+            text_encoder, lora_lib.text_encoder_targets, cfg.lora_rank, g
+        )
+    if cfg.train_prefix:
+        adapters["prefix"] = prefix_lib.init_prefix(
+            text_encoder.token_embedding.weight, cfg.num_prefix_tokens, g
+        )
+    return adapters
+
+
+def new_state(cfg: DebiasConfig, adapters: dict, device: torch.device) -> DebiasState:
+    """Step 0 of training `adapters` on `device`: fp32 leaves that require
+    grad, their AdamW and their EMA."""
+    adapters = tree_map(lambda x: x.detach().to(device, torch.float32).clone().requires_grad_(), adapters)
+    opt = torch.optim.AdamW(
+        tree_leaves(adapters), lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8,
+        weight_decay=cfg.weight_decay,
+    )
+    return DebiasState(adapters, opt, init_ema(adapters), 0)
+
+
 class DebiasTrainer:
     def __init__(
         self,
@@ -159,40 +198,22 @@ class DebiasTrainer:
         self.cfg = config
         self.device = sd.device
         self.timers = PhaseTimers(sd.device)
+        # `fit` hands it (step, logs) for each step and evaluation
+        self.logger: Callable[[int, dict], None] = lambda step, logs: None
+        # the frozen model's eval grid of each (seed, prompt label): it
+        # depends on nothing else, so later evaluations copy the file
+        self._ori_grid_cache: dict[tuple[int, str], Path] = {}
         # inspection hooks for tests: the last step's grads and targets
         self._last_grads: Optional[dict] = None
         self._last_targets: Optional[dict] = None
 
     # ------------------------------------------------------------------
     def init_state(self, seed: int = 0, adapters: Optional[dict] = None) -> DebiasState:
-        """Fresh adapters from `seed`: the LoRAs that train (down ~
-        N(0,1)/rank, up = 0), then the prefix table (rows of the frozen
-        token table), all from one generator; or the given adapter tree
-        (e.g. `io.from_jax.adapters_from_jax`)."""
-        cfg = self.cfg
+        """Step 0 with fresh adapters from `seed` (`init_adapters`) or the
+        given adapter tree (e.g. `io.from_jax.adapters_from_jax`)."""
         if adapters is None:
-            g = torch.Generator().manual_seed(seed)
-            adapters = {}
-            if cfg.train_unet:
-                adapters["unet_lora"] = lora_lib.init_lora(
-                    self.sd.unet, lora_lib.unet_attention_targets, cfg.lora_rank, g
-                )
-            if cfg.train_text_encoder:
-                adapters["te_lora"] = lora_lib.init_lora(
-                    self.sd.text_encoder, lora_lib.text_encoder_targets, cfg.lora_rank, g
-                )
-            if cfg.train_prefix:
-                adapters["prefix"] = prefix_lib.init_prefix(
-                    self.sd.text_encoder.token_embedding.weight, cfg.num_prefix_tokens, g
-                )
-        adapters = tree_map(
-            lambda x: x.detach().to(self.device, torch.float32).clone().requires_grad_(), adapters
-        )
-        opt = torch.optim.AdamW(
-            tree_leaves(adapters), lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8,
-            weight_decay=cfg.weight_decay,
-        )
-        return DebiasState(adapters, opt, init_ema(adapters), 0)
+            adapters = init_adapters(self.cfg, self.sd.text_encoder, self.sd.unet, seed)
+        return new_state(self.cfg, adapters, self.device)
 
     # ------------------------------------------------------------------
     @property
@@ -276,7 +297,9 @@ class DebiasTrainer:
         )
         return out.total, {k: v.detach() for k, v in out.logs.items()}
 
-    def _gen_kwargs(self, adapters: dict) -> dict:
+    def _gen_kwargs(self, adapters: Optional[dict]) -> dict:
+        if not adapters:
+            return {}
         return {
             "unet_lora": adapters.get("unet_lora"),
             "te_lora": adapters.get("te_lora"),
@@ -315,12 +338,20 @@ class DebiasTrainer:
 
     def _pair_grads(self, adapters, traj, cot, ts, cond_ids, uncond_ids, p):
         """Adapter grads from the flat (step x lane-chunk) batch of
-        single-step UNet VJPs of the surrogate <cot_t, guided_eps(x_t)>; the
-        context cotangents are summed over the batch and sent through one
-        VJP of the context into the text-encoder LoRA and the prefix."""
+        single-step UNet VJPs of the surrogate <cot_t, guided_eps(x_t)>. The
+        adapters do not change within the batch, so the UNet LoRA is merged
+        once: each VJP stops at the merged weights, and their cotangents,
+        summed over the batch in fp32, go through one VJP of the merge into
+        `down` and `up`. Likewise the context cotangents are summed and sent
+        through one VJP of the context into the text-encoder LoRA and the
+        prefix."""
         gs = self.cfg.guidance_scale
         unet_lora = adapters.get("unet_lora")
-        unet_leaves = tree_leaves(unet_lora) if unet_lora is not None else []
+        weights: dict[str, torch.Tensor] = {}
+        if unet_lora is not None:
+            with torch.no_grad():
+                weights = {k: w.requires_grad_() for k, w in lora_lib.apply_lora(self.sd.unet, unet_lora).items()}
+        w_leaves = list(weights.values())
         ctx_adapters = {k: adapters[k] for k in ("prefix", "te_lora") if k in adapters}
         with torch.enable_grad():
             context, key_mask = self.sd.build_context(
@@ -329,27 +360,28 @@ class DebiasTrainer:
             )
             ctx_leaf = context.detach().requires_grad_()
             acc_c = torch.zeros(context.shape, dtype=torch.float32, device=context.device)
-            acc_u = [torch.zeros_like(x) for x in unet_leaves]
+            acc_w = [torch.zeros(w.shape, dtype=torch.float32, device=w.device) for w in w_leaves]
             n = traj.shape[1]
             for t_idx in range(traj.shape[0]):
                 for j in range(n // p):
                     sl = slice(j * p, (j + 1) * p)
                     x = traj[t_idx, sl]
-                    weights = (
-                        lora_lib.apply_lora(self.sd.unet, unet_lora) if unet_lora is not None else None
-                    )
                     eps2 = self.sd.unet_eps(
                         torch.cat([x, x]), int(ts[t_idx]), ctx_leaf, key_mask, unet_weights=weights
                     ).float()
                     eps_u, eps_c = eps2.chunk(2)
                     surrogate = ((eps_u + gs * (eps_c - eps_u)) * cot[t_idx, sl]).sum()
-                    g = torch.autograd.grad(surrogate, [ctx_leaf, *unet_leaves])
+                    g = torch.autograd.grad(surrogate, [ctx_leaf, *w_leaves])
                     acc_c += g[0].float()
-                    for a, gi in zip(acc_u, g[1:]):
+                    for a, gi in zip(acc_w, g[1:]):
                         a += gi
             grads: dict[str, Any] = {}
             if unet_lora is not None:
-                grads["unet_lora"] = tree_unflatten(unet_lora, acc_u)
+                # the merged weight is W + delta (rounded once), so its
+                # cotangent is delta's
+                deltas = lora_lib.lora_deltas(self.sd.unet, unet_lora)
+                g_unet = torch.autograd.grad(list(deltas.values()), tree_leaves(unet_lora), grad_outputs=acc_w)
+                grads["unet_lora"] = tree_unflatten(unet_lora, list(g_unet))
             if ctx_adapters:
                 g_ctx = torch.autograd.grad(
                     context, tree_leaves(ctx_adapters), grad_outputs=acc_c.to(context.dtype)
@@ -503,6 +535,142 @@ class DebiasTrainer:
             if len(v):
                 logs[f"train_{k}"] = float(v.mean())
         return new_state, logs
+
+    # -- evaluation and the run -------------------------------------------
+    def _eval_grid(self, path: Path, images: torch.Tensor, res) -> None:
+        attrs = {
+            a: (res.attrs[a].preds.cpu().numpy(), res.attrs[a].probs.amax(dim=-1).cpu().numpy())
+            for a in self.cfg.attributes
+        }
+        grids_lib.plot_in_grid_multi(
+            images.cpu().numpy(), path, attrs,
+            face_indicators=res.faces.indicators.cpu().numpy(),
+            face_bboxes=res.faces.bboxes.cpu().numpy(),
+        )
+
+    def _sample_analyze(self, adapters: Optional[dict], noises: torch.Tensor, cond_ids, uncond_ids):
+        """Generate at `eval_denoising_steps` and analyse (detection and the
+        attribute heads only)."""
+        with torch.no_grad():
+            images = self.sd.generate(
+                noises, cond_ids, uncond_ids, self.cfg.eval_denoising_steps,
+                guidance_scale=self.cfg.guidance_scale, **self._gen_kwargs(adapters),
+            )
+            return images, self.guidance.analyze(images, include_semantic=False, include_face_feats=False)
+
+    def evaluate(
+        self,
+        adapters: Optional[dict],
+        prompt_ids_list: list[tuple[Any, Any]],
+        *,
+        name: str = "main",
+        step: int = 0,
+        prompt_texts: Optional[list[str]] = None,
+        grids_dir: Optional[str | Path] = None,
+        ori_grids: bool = True,
+        noises: Optional[list] = None,
+    ) -> dict:
+        """The reference's evaluation: per validation prompt, generate
+        `val_images_per_prompt` images with `adapters` on the prompt's
+        evaluation noises (`utils.rng.eval_noises`, or `noises[i]`), and log
+        its bias metrics under `<metric>_<label>` beside the metrics of all
+        prompts together. With `grids_dir`, write the annotated grid
+        `eval_<name>_<step>_<label>_generated.png` and, unless `ori_grids`
+        is False, the frozen model's grid on the same noises
+        (`..._ori.png`), copied from the first evaluation that drew it."""
+        cfg = self.cfg
+        all_probs: dict[str, list] = {a: [] for a in cfg.attributes}
+        all_preds: dict[str, list] = {a: [] for a in cfg.attributes}
+        per_prompt: dict[str, float] = {}
+        used_labels: set[str] = set()
+        for i, (cond_ids, uncond_ids) in enumerate(prompt_ids_list):
+            z = (rng_lib.eval_noises(cfg.seed, i, self.sd.latent_shape(cfg.val_images_per_prompt))
+                 if noises is None else noises[i])
+            z = torch.as_tensor(np.array(z, np.float32) if not torch.is_tensor(z) else z).to(self.device)
+            cond_raw, uncond_raw = (torch.as_tensor(x).to(self.device).long() for x in (cond_ids, uncond_ids))
+            cond = self._prefix_ids(cond_raw) if adapters else cond_raw
+            images, res = self._sample_analyze(adapters, z, cond, match_len(uncond_raw, cond))
+            probs_i = {a: res.attrs[a].probs.cpu().numpy() for a in cfg.attributes}
+            preds_i = {a: res.attrs[a].preds.cpu().numpy() for a in cfg.attributes}
+            for a in cfg.attributes:
+                all_probs[a].append(probs_i[a])
+                all_preds[a].append(preds_i[a])
+            label = (
+                prompt_texts[i] if prompt_texts and i < len(prompt_texts) else f"prompt{i}"
+            ).strip().replace(" ", "_").replace("/", "_")[:60]
+            # folding and truncation can give two prompts one label; the
+            # later one is renamed rather than overwrite the earlier's keys
+            while label in used_labels:
+                label = f"{label}_p{i}"
+            used_labels.add(label)
+            for k, v in metrics_lib.multi_attr_metrics(probs_i, preds_i).items():
+                per_prompt[f"{k}_{label}"] = v
+            if grids_dir:
+                base = Path(grids_dir)
+                self._eval_grid(base / f"eval_{name}_{step}_{label}_generated.png", images, res)
+                if ori_grids:
+                    dst = base / f"eval_{name}_{step}_{label}_ori.png"
+                    src = self._ori_grid_cache.get((cfg.seed, label))
+                    if src is not None and src.exists():
+                        if src != dst:
+                            shutil.copyfile(src, dst)
+                    else:
+                        images_o, res_o = self._sample_analyze(None, z, cond_raw, uncond_raw)
+                        self._eval_grid(dst, images_o, res_o)
+                        self._ori_grid_cache[(cfg.seed, label)] = dst
+        probs = {a: np.concatenate(v) for a, v in all_probs.items()}
+        preds = {a: np.concatenate(v) for a, v in all_preds.items()}
+        out = metrics_lib.multi_attr_metrics(probs, preds)
+        out.update(per_prompt)
+        return out
+
+    def fit(
+        self,
+        state: DebiasState,
+        train_prompt_ids: list[tuple[Any, Any]],
+        val_prompt_ids: Optional[list] = None,
+        max_steps: Optional[int] = None,
+        checkpoint_cb: Optional[Callable[[DebiasState], None]] = None,
+        val_prompt_texts: Optional[list[str]] = None,
+        eval_grids: bool = True,
+    ) -> DebiasState:
+        """Train from `state.step` to `max_steps` (default
+        `max_train_steps`). Prompts come in the JAX trainer's order, one
+        permutation an epoch from `np.random.default_rng(seed + 1)`, fast-
+        forwarded through the epochs a resumed state has done. Each step is
+        logged with `step_time_s` and the phase times `time_<phase>_s`;
+        every `eval_interval` steps the adapters, then their EMA, are
+        evaluated (`eval_` and `eval_ema_` keys; grids under
+        `<output_dir>/imgs`); then `checkpoint_cb(state)`."""
+        cfg = self.cfg
+        max_steps = max_steps or cfg.max_train_steps
+        n_prompts = len(train_prompt_ids)
+        order_rng = np.random.default_rng(cfg.seed + 1)
+        order = order_rng.permutation(n_prompts).tolist()
+        for _ in range(state.step // n_prompts):
+            order = order_rng.permutation(n_prompts).tolist()
+        pos = state.step % n_prompts
+        while state.step < max_steps:
+            if pos >= n_prompts:
+                order = order_rng.permutation(n_prompts).tolist()
+                pos = 0
+            t0 = time.perf_counter()
+            state, logs = self.train_step(state, train_prompt_ids[order[pos]])
+            pos += 1
+            logs["step_time_s"] = time.perf_counter() - t0
+            logs.update({f"time_{k}_s": v for k, v in self.timers.last.items()})
+            self.logger(state.step, logs)
+            if val_prompt_ids and cfg.eval_interval > 0 and state.step % cfg.eval_interval == 0:
+                grids_dir = Path(cfg.output_dir) / "imgs" if eval_grids else None
+                kw = dict(step=state.step, prompt_texts=val_prompt_texts, grids_dir=grids_dir)
+                ev = self.evaluate(state.adapters, val_prompt_ids, name="main", **kw)
+                self.logger(state.step, {f"eval_{k}": v for k, v in ev.items()})
+                # the frozen model's grids are the main pass's
+                ev_ema = self.evaluate(state.ema, val_prompt_ids, name="ema", ori_grids=False, **kw)
+                self.logger(state.step, {f"eval_ema_{k}": v for k, v in ev_ema.items()})
+            if checkpoint_cb:
+                checkpoint_cb(state)
+        return state
 
 
 def _slice_tree(tree: Any, sl: slice) -> Any:

@@ -46,3 +46,9 @@ def sample_num_denoising_steps(seed: int, step: int, low: int = 19, high: int = 
 def train_noises(seed: int, step: int, shape: tuple[int, ...]) -> torch.Tensor:
     """The step's lane noises [N, h, w, 4], drawn on the CPU (`noise_key`)."""
     return torch.randn(shape, generator=_generator(f"{seed}/noise/{step}"))
+
+
+def eval_noises(seed: int, i: int, shape: tuple[int, ...]) -> torch.Tensor:
+    """The evaluation noises of the i-th validation prompt, the same at every
+    evaluation (`noise_key(root, 10_000_000 + i)` in the JAX trainer)."""
+    return train_noises(seed, 10_000_000 + i, shape)

@@ -20,7 +20,8 @@ import dataclasses
 import pytest
 import torch
 
-from chip_smoke import PAIR_VJP_LAUNCHES, UNET_CALL_LAUNCHES, launch_counts, reset_counts
+from chip_smoke import PAIR_VJP_LAUNCHES, PAIR_VJP_LAUNCHES_LORA, UNET_CALL_LAUNCHES, launch_counts, reset_counts
+from fairdiff_torch.adapters import lora as lora_lib
 from fairdiff_torch.models.layers import FusedGroupNorm
 from fairdiff_torch.models.unet2d import UNetConfig
 from fairdiff_torch.ops import flash_attention as fa
@@ -30,6 +31,7 @@ from fairdiff_torch.sampling.pipeline import SDConfig, StableDiffusion
 from fairdiff_torch.training.debias import DebiasTrainer
 from fairdiff_torch.training.presets import PRESETS
 from fairdiff_torch.training.synthetic import synthetic_stack
+from fairdiff_torch.utils.tree import tree_leaves, tree_map
 
 pytestmark = pytest.mark.gpu
 
@@ -416,3 +418,40 @@ def test_tiny_train_step_runs_the_kernels(cuda, experiment):
     assert launch_counts() == want
     assert logs["grads_finite"] and logs["grad_norm"] > 0 and state.step == 1
     assert set(state.adapters) == ({"prefix"} if experiment == "exp2" else {"te_lora"})
+
+
+def test_tiny_unet_lora_pair_vjp_remat_on_and_off(cuda):
+    """A pair VJP of the tiny SD's UNet in bf16 at 64x64 latents (the same 10
+    flash sites and 16 feed-forwards as SD-1.5) with a rank-2 UNet LoRA
+    (`up` non-zero) through `StableDiffusion.unet_eps`: the LoRA and context
+    gradients with remat on equal those with remat off within rel L2 1e-3
+    (the recompute runs the same kernels on the same operands), and the
+    launches are chip_smoke.py's counts with and without the recompute."""
+    sd_cfg = dataclasses.replace(SDConfig.tiny(), unet=dataclasses.replace(UNetConfig.tiny(), sample_size=64),
+                                 dtype="bfloat16")
+    sd = StableDiffusion(sd_cfg, device="cuda", remat=True).init_random(0)
+    g = torch.Generator().manual_seed(1)
+    lora = lora_lib.init_lora(sd.unet, lora_lib.unet_attention_targets, 2, g)
+    lora = tree_map(lambda x: (torch.randn(x.shape, generator=g) * 0.1 if x.abs().max() == 0 else x).cuda(), lora)
+    leaves = [x.requires_grad_() for x in tree_leaves(lora)]
+    x = torch.randn(2, 64, 64, 4, generator=g).cuda()
+    cot = torch.randn(2, 64, 64, 4, generator=g).cuda()
+    ctx0 = torch.randn(4, 4, 32, generator=g).cuda().bfloat16()
+
+    def grads():
+        ctx = ctx0.clone().requires_grad_()
+        eps2 = sd.unet_eps(torch.cat([x, x]), 500, ctx, None, unet_weights=lora_lib.apply_lora(sd.unet, lora))
+        out = torch.autograd.grad((eps2.float() * torch.cat([cot, cot])).sum(), [ctx, *leaves])
+        return torch.cat([o.float().flatten() for o in out[1:]]), out[0].float()
+
+    runs = {}
+    for remat in (True, False):
+        sd.unet.remat = remat
+        reset_counts()
+        runs[remat] = grads(), launch_counts()
+    (on, counts_on), (off, counts_off) = runs[True], runs[False]
+    assert counts_on == PAIR_VJP_LAUNCHES_LORA
+    assert counts_off == dict(PAIR_VJP_LAUNCHES_LORA, flash_attention_lse=10, geglu=16)
+    for a, b in zip(on, off):
+        assert torch.isfinite(a).all() and a.abs().max() > 0
+        assert ((a - b).norm() / b.norm()).item() <= 1e-3

@@ -14,15 +14,19 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.func import functional_call
 
+from fairdiff.adapters import lora as jlora
 from fairdiff.models.autoencoder_kl import AutoencoderKL as JVAE
 from fairdiff.models.clip_text import CLIPTextModel as JCLIP
 from fairdiff.models.unet2d import UNet2DCondition as JUNet
 from fairdiff.sampling.pipeline import SDConfig as JSDConfig
-from fairdiff_torch.io.from_jax import load_jax_params, state_dict_from_jax, tree_from_npz
+from fairdiff_torch.adapters import lora as tlora_lib
+from fairdiff_torch.io.from_jax import adapters_from_jax, load_jax_params, state_dict_from_jax, tree_from_npz
 from fairdiff_torch.models.autoencoder_kl import AutoencoderKL, VAEConfig
 from fairdiff_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
 from fairdiff_torch.models.unet2d import UNet2DCondition, UNetConfig
+from fairdiff_torch.utils.tree import tree_leaves, tree_map
 
 torch.set_num_threads(1)
 
@@ -126,9 +130,12 @@ def test_unet_matches_jax():
 
 def test_unet_context_vjp_with_remat_matches_jax():
     """The gradient of <w, eps> with respect to the context (the phase-4
-    pair VJP's path to the text encoder) through the remat UNet, against
-    jax.grad through the JAX module built with remat=True. Tolerance as the
-    forward, 1e-4 relative L2."""
+    pair VJP's path to the text encoder) and to a UNet LoRA on every
+    attention projection (non-zero `up`; merged by `apply_lora` and passed
+    to the remat blocks as `weights`, as `StableDiffusion.unet_eps` does)
+    through the remat UNet, against jax.grad through the JAX module built
+    with remat=True and the same LoRA. Tolerance as the forward, 1e-4
+    relative L2, for the context and for each LoRA leaf."""
     cfg = UNetConfig.tiny()
     jm = JUNet(JSDConfig.tiny().unet, remat=True)
     rng = np.random.default_rng(10)
@@ -141,13 +148,33 @@ def test_unet_context_vjp_with_remat_matches_jax():
         jm.init, jax.random.key(0), jnp.asarray(lat), jnp.asarray(t), jnp.asarray(ctx)
     )["params"]
     params = random_tree(shapes, seed=4)
-    want = jax.grad(lambda c: jnp.sum(jm.apply({"params": params}, jnp.asarray(lat), jnp.asarray(t), c,
-                                               jnp.asarray(mask)) * w))(jnp.asarray(ctx))
+    lora = jlora.init_lora(params, jlora.unet_attention_targets, 2, jax.random.key(3))
+    lrng = np.random.default_rng(11)
+    lora = jax.tree_util.tree_map_with_path(
+        lambda path, x: (0.1 * lrng.normal(size=x.shape)).astype(np.float32) if path[-1].key == "up"
+        else np.asarray(x), lora)
+
+    def jloss(c, lo):
+        eps = jm.apply({"params": jlora.apply_lora(params, lo)}, jnp.asarray(lat), jnp.asarray(t), c,
+                       jnp.asarray(mask))
+        return jnp.sum(eps * w)
+
+    want_ctx, want_lora = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(ctx), jax.tree.map(jnp.asarray, lora))
     tm = load_jax_params(UNet2DCondition(cfg, remat=True), params).requires_grad_(False)
     tctx = torch.from_numpy(ctx).requires_grad_()
-    out = tm(torch.from_numpy(lat), torch.from_numpy(t), tctx, torch.from_numpy(mask))
+    tlora = tree_map(lambda x: x.requires_grad_(), adapters_from_jax(lora))
+    weights = tlora_lib.apply_lora(tm, tlora)
+    out = functional_call(tm, weights, (torch.from_numpy(lat), torch.from_numpy(t), tctx, torch.from_numpy(mask)),
+                          {"weights": weights})
     (out * torch.from_numpy(w)).sum().backward()
-    assert rel_err(tctx.grad.numpy(), np.asarray(want)) < 1e-4
+    assert rel_err(tctx.grad.numpy(), np.asarray(want_ctx)) < 1e-4
+    got, want = tree_leaves(tlora), jax.tree_util.tree_leaves(want_lora)
+    assert len(got) == len(want) == 16 * 2 * 4 * 2  # 16 blocks x 2 attentions x q, k, v, out x down, up
+    for g, j in zip(got, want):
+        if not np.any(j):  # the mid block's self-attention sees one token: its q and k get no gradient
+            assert not g.grad.any()
+        else:
+            assert rel_err(g.grad.numpy(), np.asarray(j)) < 1e-4
 
 
 @pytest.fixture(scope="module")

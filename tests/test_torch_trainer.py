@@ -86,11 +86,11 @@ def test_grad_mode_denoise_matches_jax():
     np.testing.assert_allclose(theta.grad.item(), float(jg), rtol=1e-5)
 
 
-def _jax_setup(cfg=CFG):
-    """The JAX trainer on the tiny SD and the synthetic stack for the
-    config's attributes, and its initial state with seeded non-zero LoRA
-    `up` leaves."""
-    jsd = jpipe.StableDiffusion(jpipe.SDConfig.tiny())
+def _jax_setup(cfg=CFG, remat: bool = False):
+    """The JAX trainer on the tiny SD (its UNet rematerialised per block
+    with `remat`) and the synthetic stack for the config's attributes, and
+    its initial state with seeded non-zero LoRA `up` leaves."""
+    jsd = jpipe.StableDiffusion(jpipe.SDConfig.tiny(), remat=remat)
     params = random_tree(jax.eval_shape(jsd.init_params, jax.random.key(0)), seed=3)
     jstack = jsyn.synthetic_stack(cfg.get("attributes", ("gender",)))
     jtr = jdebias.DebiasTrainer(jsd, params, jstack, jdebias.DebiasConfig(**cfg))
@@ -105,8 +105,8 @@ def _jax_setup(cfg=CFG):
     return jtr, params, jstack, state
 
 
-def _port_trainer(params, jstack, cfg=CFG):
-    tsd = tpipe.StableDiffusion(tpipe.SDConfig.tiny(), device="cpu").load_jax(params)
+def _port_trainer(params, jstack, cfg=CFG, remat: bool = False):
+    tsd = tpipe.StableDiffusion(tpipe.SDConfig.tiny(), device="cpu", remat=remat).load_jax(params)
     tstack = tsyn.synthetic_stack(cfg.get("attributes", ("gender",)), db_feats=np.asarray(jstack.face_db.feats))
     return tdebias.DebiasTrainer(tsd, tstack, tdebias.DebiasConfig(**cfg))
 
@@ -120,18 +120,28 @@ def preset_cfg(name: str, **overrides) -> dict:
     return cfg
 
 
-def assert_steps_match_jax(cfg: dict, n_train_steps: int = 1) -> list[dict]:
+def assert_steps_match_jax(cfg: dict, n_train_steps: int = 1, remat: bool = False,
+                           adam_slack: bool = False) -> list[dict]:
     """`n_train_steps` port `train_step`s against the JAX trainer's from the
-    same weights, adapters, noises and step counts (linearized phase 4).
+    same weights, adapters, noises and step counts (linearized phase 4; with
+    `remat`, both UNets rematerialised per block).
     Each step: targets exact; per leaf the grads within 2e-4 relative L2
     (fp32 through the tiny CLIP, UNet, VAE and the sampler, whose 1/alpha
     amplifies summation-order noise ~15x); the updated adapters and EMA
     within 1e-7 + 1e-6 relative (two fp32 ulps at |x| ~ 1, against a first
     AdamW step of ~lr = 5e-5 per element); every logged loss, norm and bias
-    metric within 1e-4 relative. -> the port's targets of each step."""
-    jtr, params, jstack, jstate = _jax_setup(cfg)
+    metric within 1e-4 relative. -> the port's targets of each step.
+
+    `adam_slack` (one step only) lets each adapter and EMA element also
+    differ by the change in AdamW's first update that the two sides'
+    gradients explain, lr * |g_t / (|g_t| + eps) - g_j / (|g_j| + eps)|:
+    where an element's gradient is near Adam's eps (1e-8), its fp32
+    summation noise becomes a visible update. The tiny UNet LoRA has such
+    elements (|g| ~ 1e-7 against a leaf maximum of 2.4e-2, where the JAX
+    trainer's own remat and plain UNets differ by 2%)."""
+    jtr, params, jstack, jstate = _jax_setup(cfg, remat)
     jtr.keep_pair_inputs = True
-    ttr = _port_trainer(params, jstack, cfg)
+    ttr = _port_trainer(params, jstack, cfg, remat)
     tstate = ttr.init_state(adapters=adapters_from_jax(jstate.adapters))
     key = jax.random.key(42)
     ids = (jnp.asarray(COND), jnp.asarray(UNCOND))
@@ -151,9 +161,14 @@ def assert_steps_match_jax(cfg: dict, n_train_steps: int = 1) -> list[dict]:
         assert len(jg) == len(tg) > 0 and any(float(np.abs(g).max()) > 0 for g in jg)
         for j, t in zip(jg, tg):
             assert _rel(t.numpy(), j) < 2e-4
+        assert not adam_slack or n_train_steps == 1
+        norm = lambda g: np.asarray(g, np.float64) / (np.abs(np.asarray(g, np.float64)) + 1e-8)
+        slack = [ttr.cfg.learning_rate * np.abs(norm(t.numpy()) - norm(j)) if adam_slack else 0.0
+                 for j, t in zip(jg, tg)]
         for jtree, ttree in ((jstate.adapters, tstate.adapters), (jstate.ema, tstate.ema)):
-            for j, t in zip(tree_leaves(jtree), tree_leaves(ttree)):
-                np.testing.assert_allclose(t.detach().numpy(), np.asarray(j), atol=1e-7, rtol=1e-6)
+            for j, t, sl in zip(tree_leaves(jtree), tree_leaves(ttree), slack):
+                j, t = np.asarray(j), t.detach().numpy()
+                assert t.shape == j.shape and np.all(np.abs(t - j) <= 1e-7 + 1e-6 * np.abs(j) + sl)
         assert tstate.step == jstate.step == step + 1
         assert set(tlogs) - {"grads_finite"} == set(jlogs)
         for k, v in jlogs.items():
