@@ -76,7 +76,17 @@ Phases (any failure raises and exits non-zero):
      update count and prompt order), evaluation of the adapters and their
      EMA every 2 steps (metrics.jsonl, grids), `export_checkpoint` (.npz,
      .pth) and `gen_images` reading unet_lora.pth, exact launch counts;
- 20. train-unet-lora: phase 10 with the UNet LoRA trained too.
+ 20. train-unet-lora: phase 10 with the UNet LoRA trained too;
+ 21. weights: real-weight loading at full width through the reference's
+     file layouts: SD-1.5 (the seed `[slice]` uses) written as diffusers
+     files, `convert_sd`, the loaded weights bit-equal to the init,
+     `gen_images --model_dir` PNGs byte-equal to `[slice]`'s with its launch
+     counts; CLIP-ViT-H/14 and DINOv2 in the HF layouts and a det_10g-shaped
+     SCRFD `.onnx` through `convert_guidance`, SCRFD on the card against the
+     CPU (fp32, rel L2 1e-4, equal faces), `load_guidance_stack` with CLIP,
+     DINO and SCRFD composed over FaceDetectorNet, and `train_debias
+     --model_dir --guidance_dir` as phase 9 with the CLIP and DINO terms;
+     the write, convert and load seconds.
 
 The line before the last is the card's name and power limit from
 nvidia-smi; the one before that is the per-kernel JSON summary; the last
@@ -88,8 +98,11 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import hashlib
 import json
 import os
+import re
+import struct
 import subprocess
 import sys
 import tempfile
@@ -552,7 +565,12 @@ def read_png(path: Path) -> bytes:
     return b"".join(raw[r * stride + 1:(r + 1) * stride] for r in range(height))
 
 
-def phase_slice() -> dict[str, int]:
+SLICE_PROMPTS = ["a photo of the face of a firefighter, a person", "a photo of the face of a nurse, a person"]
+
+
+def phase_slice() -> tuple[dict[str, int], dict[str, str]]:
+    """-> the launch counts and each PNG's sha256 by its path under the
+    output directory (`[weights]` holds its own PNGs to them)."""
     from fairdiff_torch.ops import flash_attention as fa
     from fairdiff_torch.ops import geglu as gg
     from fairdiff_torch.tools import gen_images
@@ -561,10 +579,7 @@ def phase_slice() -> dict[str, int]:
     scratch.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=scratch) as tmp:
         prompts = Path(tmp) / "prompts.json"
-        prompts.write_text(json.dumps({"test_prompts": [
-            "a photo of the face of a firefighter, a person",
-            "a photo of the face of a nurse, a person",
-        ]}))
+        prompts.write_text(json.dumps({"test_prompts": SLICE_PROMPTS}))
         cfg = gen_images.GenImagesConfig(
             prompts_json=str(prompts), num_imgs_per_prompt=2, batch_size=2,
             save_dir=str(Path(tmp) / "out"),
@@ -590,7 +605,8 @@ def phase_slice() -> dict[str, int]:
             f"{seconds:.2f} s incl. setup; launches {counts} (want {want})")
         if counts != want:
             raise AssertionError(f"launch counts {counts} != {want}")
-    return counts
+        pngs = {str(p.relative_to(cfg.save_dir)): hashlib.sha256(p.read_bytes()).hexdigest() for p in expect_paths}
+    return counts, pngs
 
 
 def phase_throughput(power: str) -> float:
@@ -1402,13 +1418,15 @@ def seed_guidance_dir(directory: str | Path, *, seed: int = 0, detector_npz: str
 
 
 def phase_train(flash_bwd: str = "split", zoo: bool = False, experiment: str = "exp1",
-                steps: int = 4) -> dict[str, int]:
+                steps: int = 4, model_dir: str = "", guidance_dir: str = "") -> dict[str, int]:
     """The slice: train_debias.main at full width for 2 optimizer steps of
     `experiment` (4 lanes, micro-batch 2, `steps` denoising steps); with
     `zoo`, on a guidance directory this phase writes (`seed_guidance_dir`:
     assets/detector.npz with bench.py's every-lane-detects heads, seeded
     classifier.npz and face_embedder.npz), and with `flash_bwd`. exp-5 reads
-    two prompt files this phase writes (repeats 1 and 6). The adapters moved:
+    two prompt files this phase writes (repeats 1 and 6). With `model_dir`
+    and `guidance_dir` (`[weights]`), on converted SD weights and a converted
+    guidance directory, whose CLIP and DINO terms are logged. The adapters moved:
     every LoRA `up` leaf (0 at the start) is non-zero, or the exported
     prefix table differs from its initial rows, and `gen_images` reads it
     back."""
@@ -1420,12 +1438,12 @@ def phase_train(flash_bwd: str = "split", zoo: bool = False, experiment: str = "
     from fairdiff_torch.tools import gen_images, train_debias
     from fairdiff_torch.utils.tree import tree_leaves
 
-    tag = "[train-cli-zoo]" if zoo else "[train]" if experiment == "exp1" else f"[train-exps] {experiment}"
+    tag = ("[weights] train" if model_dir else "[train-cli-zoo]" if zoo else "[train]" if experiment == "exp1"
+           else f"[train-exps] {experiment}")
     root = Path(__file__).resolve().parent
     scratch = root / "build"
     scratch.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=scratch) as tmp:
-        guidance_dir = ""
         if zoo:
             guidance_dir = str(seed_guidance_dir(Path(tmp) / "guidance", seed=7))
         multi = ""
@@ -1438,7 +1456,8 @@ def phase_train(flash_bwd: str = "split", zoo: bool = False, experiment: str = "
             multi = ",".join(str(Path(tmp) / f"{name}.json") for name in domains)
         cfg = train_debias.TrainCLIConfig(
             experiment=experiment, max_train_steps=2, train_images_per_prompt=4, train_micro_batch=2,
-            steps=steps, output_dir=str(Path(tmp) / "out"), guidance_dir=guidance_dir, flash_bwd=flash_bwd,
+            steps=steps, output_dir=str(Path(tmp) / "out"), model_dir=model_dir, guidance_dir=guidance_dir,
+            flash_bwd=flash_bwd,
             multi_prompts_json=multi, multi_prompts_repeats="1,6",
         )
         trainer = train_debias.build_trainer(cfg)
@@ -1475,13 +1494,17 @@ def phase_train(flash_bwd: str = "split", zoo: bool = False, experiment: str = "
     per_pair = PAIR_VJP_LAUNCHES_MERGED if flash_bwd == "merged" else PAIR_VJP_LAUNCHES
     want = {k: 2 * (calls * UNET_CALL_LAUNCHES.get(k, 0) + pairs * v) for k, v in per_pair.items()}
     log(f"{tag} train_debias.main --experiment {experiment}: SD-1.5, 2 steps x 4 lanes, micro-batch 2, "
-        f"{steps} denoising steps, guidance {'from ' + repr(Path(guidance_dir).name) if zoo else 'synthetic'}, "
+        f"{steps} denoising steps, SD weights {'from ' + repr(model_dir) if model_dir else 'random'}, "
+        f"guidance {'from ' + repr(Path(guidance_dir).name) if guidance_dir else 'synthetic'}, "
         f"flash_bwd={flash_bwd!r}, {seconds:.2f} s incl. setup; {what}; launches {ran} (want {want})")
     failed = [name for name, ok in (
         ("two steps", [x["step"] for x in lines] == [1, 2]),
         ("finite grads", all(x["grads_finite"] and x["grad_norm"] > 0 for x in lines)),
         ("logged", all("face_rate" in x and np.isfinite(x.get("train_loss", np.nan)) for x in lines)),
         ("faces", all(x["face_rate"] == 1.0 for x in lines)),
+        ("clip and dino logged", not model_dir or all(
+            np.isfinite(x.get("train_loss_CLIP", np.nan)) and np.isfinite(x.get("train_loss_DINO", np.nan))
+            for x in lines)),
         ("adapters moved", moved),
         ("launches", ran == want),
     ) if not ok]
@@ -1914,6 +1937,390 @@ def phase_train_lifecycle(steps: int = 4) -> dict[str, int]:
     return ran
 
 
+# -- [weights]: the reference's external layouts, written from the port's modules --
+#
+# Each writer inverts a converter of fairdiff_torch/io on names: the port's
+# modules are named after the JAX package's tree paths, and a torch Linear or
+# Conv2d weight is already in the external [out, in] / OIHW layout. A CPU test
+# (tests/test_torch_weight_layouts.py) holds each writer's key set and shapes
+# at full width against diffusers' and transformers' own modules.
+
+_UNET_NAMES = (  # port module path -> diffusers UNet2DConditionModel / AutoencoderKL
+    (r"^(down|up)_(\d+)_resnet_(\d+)\.", r"\1_blocks.\2.resnets.\3."),
+    (r"^(down|up)_(\d+)_attn_(\d+)\.", r"\1_blocks.\2.attentions.\3."),
+    (r"^down_(\d+)_downsample\.(conv\.)?", r"down_blocks.\1.downsamplers.0.conv."),
+    (r"^up_(\d+)_upsample\.", r"up_blocks.\1.upsamplers.0."),
+    (r"^mid_resnet_(\d+)\.", r"mid_block.resnets.\1."),
+    (r"^mid_attn(_0)?\.", "mid_block.attentions.0."),
+    (r"\.transformer_blocks_0\.", ".transformer_blocks.0."),
+    (r"\.to_out\.", ".to_out.0."),
+    (r"\.ff\.proj\.", ".ff.net.0.proj."),
+    (r"\.ff\.out\.", ".ff.net.2."),
+)
+_CLIP_NAMES = (  # port -> transformers CLIPTextModel / CLIPVisionModelWithProjection
+    (r"^layers_(\d+)\.", r"encoder.layers.\1."),
+    (r"^(token_embedding|position_embedding|patch_embedding|class_embedding)", r"embeddings.\1"),
+    (r"^embeddings\.position_embedding$", "embeddings.position_embedding.weight"),
+)
+_DINO_NAMES = (  # port -> transformers Dinov2Model
+    (r"^layers_(\d+)\.", r"encoder.layer.\1."),
+    (r"\.attention\.q_proj\.", ".attention.attention.query."),
+    (r"\.attention\.k_proj\.", ".attention.attention.key."),
+    (r"\.attention\.v_proj\.", ".attention.attention.value."),
+    (r"\.attention\.out_proj\.", ".attention.output.dense."),
+    (r"\.(layer_scale[12])$", r".\1.lambda1"),
+    (r"^patch_embedding\.", "embeddings.patch_embeddings.projection."),
+    (r"^(cls_token|position_embeddings)$", r"embeddings.\1"),
+    (r"^norm\.", "layernorm."),
+)
+
+
+def _renamed(state: dict, rules, prefix: str = "") -> dict:
+    out = {}
+    for key, value in state.items():
+        for pattern, repl in rules:
+            key = re.sub(pattern, repl, key)
+        out[prefix + key] = value
+    return out
+
+
+def diffusers_unet(state: dict) -> dict:
+    """The port's UNet state dict in diffusers' UNet2DConditionModel layout."""
+    return _renamed(state, _UNET_NAMES)
+
+
+def diffusers_vae(state: dict) -> dict:
+    """The port's VAE state dict in diffusers' AutoencoderKL layout (the
+    current attention naming, to_q/to_k/to_v/to_out.0)."""
+    out = {}
+    for half in ("encoder", "decoder"):
+        sub = {k.removeprefix(half + "."): v for k, v in state.items() if k.startswith(half + ".")}
+        out.update(_renamed(sub, _UNET_NAMES, half + "."))
+    out.update({k: v for k, v in state.items() if k.split(".")[0] in ("quant_conv", "post_quant_conv")})
+    return out
+
+
+def hf_clip_text(state: dict) -> dict:
+    """The port's CLIP text encoder in transformers' CLIPTextModel layout."""
+    return _renamed(state, _CLIP_NAMES, "text_model.")
+
+
+def hf_clip_vision(state: dict) -> dict:
+    """The port's CLIP vision tower in transformers'
+    CLIPVisionModelWithProjection layout."""
+    out = _renamed({k: v for k, v in state.items() if not k.startswith("visual_projection.")},
+                   _CLIP_NAMES, "vision_model.")
+    out["visual_projection.weight"] = state["visual_projection.weight"]
+    return out
+
+
+def hf_dinov2(state: dict) -> dict:
+    """The port's DINOv2 in transformers' Dinov2Model layout (its position
+    table with the leading 1, and the mask token the model does not use,
+    as zeros)."""
+    out = _renamed(state, _DINO_NAMES)
+    out["embeddings.position_embeddings"] = out["embeddings.position_embeddings"][None]
+    cls = out["embeddings.cls_token"]
+    out["embeddings.mask_token"] = torch.zeros(1, cls.shape[-1], dtype=cls.dtype, device=cls.device)
+    return out
+
+
+_SAFETENSORS_DTYPES = {torch.float32: "F32", torch.float16: "F16", torch.bfloat16: "BF16",
+                       torch.int64: "I64", torch.int32: "I32"}
+
+
+def save_safetensors(tensors: dict, path: str | Path, metadata: dict | None = None) -> None:
+    """Write `.safetensors` without the safetensors package (the card's
+    machine has none): the header length, the JSON header padded with spaces
+    to 8 bytes, then each tensor's bytes in order."""
+    tensors = {k: v.detach().cpu().contiguous() for k, v in tensors.items()}
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": _SAFETENSORS_DTYPES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    if metadata:
+        header["__metadata__"] = metadata
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for t in tensors.values():
+            f.write(t.reshape(-1).view(torch.uint8).numpy())
+
+
+def write_sd_checkpoint(sd, root: str | Path) -> Path:
+    """A diffusers-layout SD directory from a StableDiffusion's weights: the
+    UNet as `.safetensors` in its own dtype, the VAE and text encoder as
+    torch `.bin` in fp32 (both hold bf16 values exactly)."""
+    root = Path(root)
+    for sub in ("unet", "vae", "text_encoder"):
+        (root / sub).mkdir(parents=True, exist_ok=True)
+    save_safetensors(diffusers_unet(sd.unet.state_dict()), root / "unet" / "diffusion_pytorch_model.safetensors",
+                     {"format": "pt"})
+    fp32 = lambda state: {k: v.float().cpu() for k, v in state.items()}
+    torch.save(fp32(diffusers_vae(sd.vae.state_dict())), root / "vae" / "diffusion_pytorch_model.bin")
+    torch.save(fp32(hf_clip_text(sd.text_encoder.state_dict())), root / "text_encoder" / "pytorch_model.bin")
+    return root
+
+
+# ONNX protobuf writer (the wire format; tests/test_onnx_bridge.py has the same)
+
+def _vint(v: int) -> bytes:
+    out = b""
+    while True:
+        b = v & 0x7F
+        v >>= 7
+        if not v:
+            return out + bytes([b])
+        out += bytes([b | 0x80])
+
+
+def _tag(field: int, wire: int) -> bytes:
+    return _vint(field << 3 | wire)
+
+
+def _lfield(field: int, payload: bytes) -> bytes:
+    return _tag(field, 2) + _vint(len(payload)) + payload
+
+
+def _sfield(field: int, s: str) -> bytes:
+    return _lfield(field, s.encode())
+
+
+def onnx_tensor(name: str, arr) -> bytes:
+    import numpy as np
+
+    dt = {np.dtype("float32"): 1, np.dtype("int64"): 7}[arr.dtype]
+    out = b"".join(_tag(1, 0) + _vint(d) for d in arr.shape)
+    return out + _tag(2, 0) + _vint(dt) + _sfield(8, name) + _lfield(9, arr.tobytes())
+
+
+def onnx_ints(name: str, vals) -> bytes:
+    return _sfield(1, name) + _lfield(8, b"".join(_vint(v & (2**64 - 1)) for v in vals))
+
+
+def onnx_float(name: str, v: float) -> bytes:
+    return _sfield(1, name) + _tag(2, 5) + struct.pack("<f", v)
+
+
+def onnx_node(op: str, inputs, outputs, *attrs) -> bytes:
+    out = b"".join(_sfield(1, i) for i in inputs) + b"".join(_sfield(2, o) for o in outputs)
+    return out + _sfield(4, op) + b"".join(_lfield(5, a) for a in attrs)
+
+
+def onnx_model(nodes, inits: dict, inputs, outputs, opset: int = 11) -> bytes:
+    g = b"".join(_lfield(1, n) for n in nodes)
+    g += b"".join(_lfield(5, onnx_tensor(n, a)) for n, a in inits.items())
+    g += b"".join(_lfield(11, _sfield(1, i)) for i in inputs)
+    g += b"".join(_lfield(12, _sfield(1, o)) for o in outputs)
+    return _lfield(7, g) + _lfield(8, _sfield(1, "") + _tag(2, 0) + _vint(opset))
+
+
+def scrfd_onnx(width: int = 16, seed: int = 0, head_scale: float = 0.01) -> bytes:
+    """A det_10g-shaped SCRFD graph, any input size divisible by 32: a
+    backbone of five 3x3 stride-2 convolutions (BatchNorm, ReLU) to stride
+    32; an FPN (1x1 laterals, top-down nearest x2 Resize and Add); at strides
+    8, 16 and 32 a 3x3 conv and ReLU, then 1x1 heads for 2 anchors' scores
+    (Sigmoid), boxes and landmarks, each transposed and reshaped to [N,
+    h*w*2, C] and output as insightface orders them, [scores x3, boxes x3,
+    landmarks x3]. Head weights are N(0, head_scale^2) and head biases are
+    `EVERY_LANE_DETECTS` (score +4: sigmoid 0.98, above SCRFD's 0.5), so
+    every image holds a face."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    nodes, inits = [], {}
+
+    def conv(x, out, cin, cout, k, stride=1, relu=True, bn=True):
+        w = f"{out}_w"
+        inits[w] = (rng.normal(size=(cout, cin, k, k)) * (cin * k * k) ** -0.5).astype(np.float32)
+        inits[f"{out}_b"] = np.zeros(cout, np.float32)
+        p = k // 2
+        y = f"{out}_conv" if (bn or relu) else out
+        nodes.append(onnx_node("Conv", [x, w, f"{out}_b"], [y], onnx_ints("kernel_shape", [k, k]),
+                               onnx_ints("strides", [stride, stride]), onnx_ints("pads", [p, p, p, p])))
+        if bn:
+            for name, v in (("s", 1 + 0.1 * rng.normal(size=cout)), ("o", 0.1 * rng.normal(size=cout)),
+                            ("m", 0.1 * rng.normal(size=cout)), ("v", rng.uniform(0.5, 1.5, cout))):
+                inits[f"{out}_bn{name}"] = v.astype(np.float32)
+            z = f"{out}_bn" if relu else out
+            nodes.append(onnx_node("BatchNormalization", [y] + [f"{out}_bn{n}" for n in "somv"], [z],
+                                   onnx_float("epsilon", 1e-5)))
+            y = z
+        if relu:
+            nodes.append(onnx_node("Relu", [y], [out]))
+        return out
+
+    w = width
+    x = conv("input.1", "c1", 3, w, 3, 2)
+    x = conv(x, "c2", w, w, 3, 2)
+    c3 = conv(x, "c3", w, 2 * w, 3, 2)
+    c4 = conv(c3, "c4", 2 * w, 4 * w, 3, 2)
+    c5 = conv(c4, "c5", 4 * w, 4 * w, 3, 2)
+    inits["up_scales"] = np.asarray([1, 1, 2, 2], np.float32)
+    p5 = conv(c5, "lat32", 4 * w, w, 1, relu=False, bn=False)
+    levels = {32: p5}
+    for stride, c, cin in ((16, c4, 4 * w), (8, c3, 2 * w)):
+        lat = conv(c, f"lat{stride}", cin, w, 1, relu=False, bn=False)
+        nodes.append(onnx_node("Resize", [levels[2 * stride], "", "up_scales"], [f"up{stride}"],
+                               _sfield(1, "mode") + _sfield(4, "nearest")))
+        nodes.append(onnx_node("Add", [lat, f"up{stride}"], [f"p{stride}"]))
+        levels[stride] = f"p{stride}"
+    outputs = {"cls": [], "box": [], "kps": []}
+    for stride in (8, 16, 32):
+        h = conv(levels[stride], f"head{stride}", w, w, 3, bn=False)
+        for head, ch in (("cls", 1), ("box", 4), ("kps", 10)):
+            wname, raw = f"{head}{stride}_w", f"{head}{stride}_raw"
+            inits[wname] = (rng.normal(size=(2 * ch, w, 1, 1)) * head_scale).astype(np.float32)
+            inits[f"{head}{stride}_b"] = every_lane_detects_bias(head, 2 * ch)
+            nodes.append(onnx_node("Conv", [h, wname, f"{head}{stride}_b"], [raw]))
+            nodes.append(onnx_node("Transpose", [raw], [f"{raw}_t"], onnx_ints("perm", [0, 2, 3, 1])))
+            inits[f"{head}{stride}_shape"] = np.asarray([0, -1, ch], np.int64)
+            name = f"{head}_{stride}"
+            if head == "cls":  # det_10g's score heads end in Sigmoid
+                nodes.append(onnx_node("Reshape", [f"{raw}_t", f"{head}{stride}_shape"], [f"{raw}_r"]))
+                nodes.append(onnx_node("Sigmoid", [f"{raw}_r"], [name]))
+            else:
+                nodes.append(onnx_node("Reshape", [f"{raw}_t", f"{head}{stride}_shape"], [name]))
+            outputs[head].append(name)
+    return onnx_model(nodes, inits, ["input.1"], outputs["cls"] + outputs["box"] + outputs["kps"])
+
+
+# the SCRFD graph in fp32 with TF32 off, card against CPU: summation order only
+SCRFD_CPU_REL_L2_TOL = 1e-4
+
+
+def phase_weights(slice_pngs: dict[str, str]) -> dict[str, int]:
+    """Real-weight loading at full width, through the files a user has:
+    SD-1.5 from `StableDiffusion(SDConfig.sd15()).init_random(42)` (the
+    weights `[slice]` generates with) written in the diffusers layout
+    (UNet `.safetensors` in bf16, VAE and text encoder `.bin` in fp32),
+    converted by `convert_sd`, loaded bit-equal to the init, and `gen_images
+    --model_dir` with `[slice]`'s settings writing byte-equal PNGs with 10 K1
+    and 16 K4 launches a UNet call. Then the guidance zoo: CLIP-ViT-H/14 and
+    DINOv2 ViT-B/14 from seeded port modules in the HF layouts, a
+    det_10g-shaped SCRFD `.onnx` at 640x640 (`scrfd_onnx`) and
+    `seed_guidance_dir`'s classifier, SFNet and detector, converted by
+    `convert_guidance`; SCRFD through the bridge on the card against the
+    CPU; `load_guidance_stack` with SCRFD composed over FaceDetectorNet; and
+    `train_debias --model_dir --guidance_dir` for 2 steps as `[train]`."""
+    from fairdiff_torch.io.onnx_bridge import build_onnx_fn, load_scrfd, parse_onnx
+    from fairdiff_torch.models.clip_vision import CLIPVisionConfig, CLIPVisionModel
+    from fairdiff_torch.models.dinov2 import DINOv2Config, DINOv2Model
+    from fairdiff_torch.models.layers import init_weights
+    from fairdiff_torch.sampling.pipeline import SDConfig, StableDiffusion
+    from fairdiff_torch.tools import convert_guidance, convert_sd, gen_images
+    from fairdiff_torch.training.model_zoo import load_guidance_stack
+    from fairdiff_torch.utils.resize import resize
+
+    power = smi_name_power()
+    scratch = Path(__file__).resolve().parent / "build"
+    scratch.mkdir(exist_ok=True)
+    failed = []
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        tmp = Path(tmp)
+        init = StableDiffusion(SDConfig.sd15()).init_random(42)
+        t0 = time.perf_counter()
+        write_sd_checkpoint(init, tmp / "sd15")
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        convert_sd.main(convert_sd.ConvertConfig(sd_dir=str(tmp / "sd15"), out_dir=str(tmp / "store")))
+        t_convert = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = StableDiffusion(SDConfig.sd15()).load_params(tmp / "store")
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        unequal = [f"{name}.{k}" for name, m in init.models().items()
+                   for k, v in m.state_dict().items() if not torch.equal(v, loaded.models()[name].state_dict()[k])]
+        n_tensors = sum(len(m.state_dict()) for m in init.models().values())
+        log(f"[weights] SD-1.5 in the diffusers layout written in {t_write:.1f} s; convert_sd {t_convert:.1f} s; "
+            f"load onto the card {t_load:.2f} s ({power}); {n_tensors - len(unequal)} of {n_tensors} tensors "
+            f"bit-equal to the init")
+        if unequal:
+            failed.append(f"loaded weights differ from the init: {unequal[:5]}")
+        del init, loaded
+        torch.cuda.empty_cache()
+
+        prompts = tmp / "prompts.json"
+        prompts.write_text(json.dumps({"test_prompts": SLICE_PROMPTS}))
+        cfg = gen_images.GenImagesConfig(model_dir=str(tmp / "store"), prompts_json=str(prompts),
+                                         num_imgs_per_prompt=2, batch_size=2, save_dir=str(tmp / "gen"))
+        reset_counts()
+        t0 = time.perf_counter()
+        written = gen_images.main(cfg)
+        torch.cuda.synchronize()
+        t_gen = time.perf_counter() - t0
+        ran = launch_counts()
+        calls = 2 * cfg.num_denoising_steps
+        want = {k: calls * UNET_CALL_LAUNCHES.get(k, 0) for k in ran}
+        pngs = {str(p.relative_to(cfg.save_dir)): hashlib.sha256(p.read_bytes()).hexdigest() for p in written}
+        log(f"[weights] gen_images --model_dir: {len(written)} PNGs in {t_gen:.2f} s incl. load, byte-equal to "
+            f"[slice]'s: {pngs == slice_pngs}; launches {ran} (want {want})")
+        if pngs != slice_pngs or len(pngs) != 4:
+            failed.append("gen_images --model_dir PNGs differ from [slice]'s")
+        if ran != want:
+            failed.append(f"gen launches {ran} != {want}")
+
+        g = torch.Generator().manual_seed(11)
+        towers = {"clip_vision": CLIPVisionModel(CLIPVisionConfig.vit_h14()), "dinov2": DINOv2Model(DINOv2Config.vitb14())}
+        for m in towers.values():
+            init_weights(m, g)
+        (tmp / "clip").mkdir()
+        t0 = time.perf_counter()
+        save_safetensors(hf_clip_vision(towers["clip_vision"].state_dict()), tmp / "clip" / "model.safetensors")
+        torch.save(hf_dinov2(towers["dinov2"].state_dict()), tmp / "dinov2_vitb14.pth")
+        (tmp / "det_10g.onnx").write_bytes(scrfd_onnx())
+        guidance = seed_guidance_dir(tmp / "guidance", seed=7)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        convert_guidance.main(convert_guidance.GuidanceConvertConfig(
+            out_dir=str(guidance), clip_vision_dir=str(tmp / "clip"), dinov2_pth=str(tmp / "dinov2_vitb14.pth"),
+            detector_onnx=str(tmp / "det_10g.onnx")))
+        t_convert = time.perf_counter() - t0
+
+        # SCRFD on the card against the CPU, fp32 (TF32 off since [device])
+        x = (torch.rand(2, 512, 512, 3, generator=g) * 2 - 1)
+        graph = parse_onnx(str(guidance / "det_10g.onnx"))
+        fn, params = build_onnx_fn(graph)
+        feed = resize(x, (2, 640, 640, 3), "bilinear").flip(-1).mul(127.5 / 128.0).permute(0, 3, 1, 2)
+        raw, faces = {}, {}
+        for dev in ("cpu", "cuda"):
+            with torch.no_grad():
+                outs = fn({k: v.to(dev) for k, v in params.items()}, {graph.inputs[0]: feed.to(dev)})
+                raw[dev] = torch.cat([outs[n].flatten(1).cpu() for n in graph.outputs], dim=1)
+                detect, p = load_scrfd(guidance / "det_10g.onnx", device=dev)
+                faces[dev] = detect(p, x.to(dev))
+        scrfd_rel = rel_l2(raw["cuda"], raw["cpu"])
+        same = bool(torch.equal(faces["cuda"].indicators.cpu(), faces["cpu"].indicators))
+        box_err = (faces["cuda"].bboxes.cpu() - faces["cpu"].bboxes).abs().max().item()
+        log(f"[weights] CLIP-ViT-H/14, DINOv2 ViT-B/14 (HF layouts), det_10g-shaped SCRFD (640x640) written in "
+            f"{t_write:.1f} s; convert_guidance {t_convert:.1f} s; SCRFD fp32 card vs CPU: 9 outputs rel L2 "
+            f"{scrfd_rel:.3e} (tol {SCRFD_CPU_REL_L2_TOL:.0e}), faces {faces['cpu'].indicators.tolist()} on both: "
+            f"{same}, box max abs diff {box_err:.3e} px")
+        if not (scrfd_rel <= SCRFD_CPU_REL_L2_TOL and same and bool(faces["cpu"].indicators.all())
+                and box_err <= 1e-2):
+            failed.append(f"SCRFD card vs CPU: rel L2 {scrfd_rel:.3e}, faces {same}, boxes {box_err:.3e}")
+
+        t0 = time.perf_counter()
+        stack = load_guidance_stack(guidance, ("gender",), device="cuda")
+        torch.cuda.synchronize()
+        t_stack = time.perf_counter() - t0
+        composed = stack.detect_fn.__qualname__.startswith("compose_detectors")
+        log(f"[weights] load_guidance_stack in {t_stack:.2f} s: clip {stack.clip_feat_fn is not None}, "
+            f"dino {stack.dino_feat_fn is not None}, SCRFD composed over FaceDetectorNet {composed}")
+        if not (stack.clip_feat_fn and stack.dino_feat_fn and composed):
+            failed.append("the guidance stack lacks CLIP, DINOv2 or the composed detector")
+        del stack, towers
+        torch.cuda.empty_cache()
+        if failed:
+            raise AssertionError(f"[weights] failed: {failed}")
+        counts = phase_train(model_dir=str(tmp / "store"), guidance_dir=str(guidance))
+    return counts
+
+
 def _npz_leaves_list(tree) -> list:
     return [a for _, a in sorted(_npz_leaves(tree))]
 
@@ -1938,7 +2345,7 @@ def main() -> int:
     phase_unet_768()
     log(f"[time] unet-768 {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    counts_gen = phase_slice()
+    counts_gen, slice_pngs = phase_slice()
     log(f"[time] slice {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     phase_throughput(power)
@@ -1985,7 +2392,10 @@ def main() -> int:
     log(f"[time] train-lifecycle {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     phase_train_step(power, unet=True)
-    log(f"[time] train-unet-lora {time.perf_counter() - t:.1f} s; total {time.perf_counter() - t_start:.1f} s")
+    log(f"[time] train-unet-lora {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    phase_weights(slice_pngs)
+    log(f"[time] weights {time.perf_counter() - t:.1f} s; total {time.perf_counter() - t_start:.1f} s")
 
     summary = []
     for kname, main_shape, source, replaces, launches in (

@@ -1,14 +1,16 @@
 """Batched face analysis, detect -> expand bbox -> crop chip -> align
-(counterpart of fairdiff/guidance/faces.py `analyze_faces`).
+(counterpart of fairdiff/guidance/faces.py), and the two-stage detector.
 
 One fixed-shape function over the batch, differentiable in the images (the
 crops and warps are bilinear), with the reference's -1 fill contract for
-lanes without a face.
+lanes without a face. `compose_detectors` fills the lanes a primary
+detector misses from a fallback, as the reference consults dlib only where
+insightface found nothing.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -64,3 +66,47 @@ def analyze_faces(
         landmarks=fill(safe_lms),
         aligned=fill(aligned),
     )
+
+
+def merge_detections(a: FaceDetections, b: FaceDetections) -> FaceDetections:
+    """Lanes `a` missed are filled from `b` (the reference's two-stage
+    semantics: the fallback is consulted only where the primary found
+    nothing)."""
+    use_b = ~a.indicators
+
+    def pick(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        return torch.where(use_b.reshape((-1,) + (1,) * (x.dim() - 1)), y, x)
+
+    return FaceDetections(
+        indicators=a.indicators | b.indicators,
+        bboxes=pick(a.bboxes, b.bboxes),
+        landmarks=pick(a.landmarks, b.landmarks),
+        scores=pick(a.scores, b.scores),
+    )
+
+
+def compose_detectors(
+    primary: Callable[[torch.Tensor], FaceDetections],
+    fallback: Callable[[torch.Tensor], FaceDetections],
+) -> Callable[[torch.Tensor], FaceDetections]:
+    """detect(images): both run batched, and the lanes the primary misses
+    are filled from the fallback."""
+
+    def detect(images: torch.Tensor) -> FaceDetections:
+        return merge_detections(primary(images), fallback(images))
+
+    return detect
+
+
+def compose_detect_fns(
+    primary: Callable[..., FaceDetections],
+    fallback: Callable[..., FaceDetections],
+) -> Callable[..., FaceDetections]:
+    """The same for detectors that take their weights first,
+    `detect(params, images)` with `params = {"primary": ..., "fallback":
+    ...}` (as `io.onnx_bridge.load_scrfd` returns its detector)."""
+
+    def detect(params, images: torch.Tensor) -> FaceDetections:
+        return merge_detections(primary(params["primary"], images), fallback(params["fallback"], images))
+
+    return detect

@@ -4,8 +4,7 @@ loss (counterpart of fairdiff/models/sfnet.py, opensphere's `sfnet*`).
 No normalisation (biased convolutions), 112x112 input, stride-2 conv blocks
 with residual basic blocks, flatten, a Linear to the 512-d embedding. The
 flatten is NHWC, as in the JAX package, so its `fc` weights carry over as
-they are. Converting the reference's torch checkpoints (`convert_sfnet`)
-waits with the other checkpoint converters.
+they are. `convert_sfnet` reads the reference's opensphere checkpoints.
 """
 
 from __future__ import annotations
@@ -15,6 +14,8 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from fairdiff_torch.io import torch_convert as tc
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,3 +106,22 @@ class SFNet(nn.Module):
             for bi in range(n_blocks + 1):
                 x = getattr(self, f"layer{li}_{bi}")(x)
         return self.fc(x.permute(0, 2, 3, 1).flatten(1))  # NHWC flatten
+
+
+def convert_sfnet(sd: tc.Tensors, config: SFNetConfig) -> dict:
+    """opensphere SFNet state_dict -> fairdiff params. Handles the
+    NCHW->NHWC flatten permutation of the fc kernel."""
+    params: dict = {}
+    for li, n_blocks in enumerate(config.layers, 1):
+        params[f"layer{li}_0"] = {"conv1": tc.conv(sd, f"layer{li}.0.conv1")}
+        for bi in range(n_blocks):
+            params[f"layer{li}_{bi + 1}"] = {
+                "conv1": tc.conv(sd, f"layer{li}.{bi + 1}.conv1"),
+                "conv2": tc.conv(sd, f"layer{li}.{bi + 1}.conv2"),
+            }
+    w = tc._np(sd["fc.weight"])  # [out, C*H*W] with torch CHW flatten
+    side = config.in_size // 16
+    c = config.channels[3]
+    w = w.reshape(-1, c, side, side).transpose(0, 2, 3, 1).reshape(w.shape[0], -1)
+    params["fc"] = {"kernel": w.T, "bias": tc._np(sd["fc.bias"])}
+    return params

@@ -24,6 +24,7 @@ from torch.utils.checkpoint import checkpoint
 from fairdiff_torch.adapters import lora as lora_lib
 from fairdiff_torch.adapters import prefix as prefix_lib
 from fairdiff_torch.device import resolve_device
+from fairdiff_torch.io import checkpoints as store
 from fairdiff_torch.io.from_jax import load_jax_params
 from fairdiff_torch.models.autoencoder_kl import AutoencoderKL, VAEConfig
 from fairdiff_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
@@ -81,8 +82,8 @@ def _ids(x: Any, device: torch.device) -> torch.Tensor:
 class StableDiffusion:
     """The three models on one device in the config's dtype.
 
-    Weights start uninitialised: call `init_random(seed)` or
-    `load_jax(params)` before use. `flash_bwd` picks the UNet's flash
+    Weights start uninitialised: call `init_random(seed)`, `load_params(dir)`
+    or `load_jax(params)` before use. `flash_bwd` picks the UNet's flash
     backward ("split": K2 + K3, "merged": K6)."""
 
     def __init__(self, config: SDConfig = SDConfig.sd15(), *, device: Optional[str] = None,
@@ -113,6 +114,14 @@ class StableDiffusion:
         parameter trees."""
         for name, m in self.models().items():
             load_jax_params(m, params[name])
+        return self
+
+    def load_params(self, directory) -> "StableDiffusion":
+        """Weights from the port's converted store (`tools/convert_sd`): one
+        model at a time, its memory-mapped state dict copied onto the
+        pipeline's device and dtype (strict), then released."""
+        for name, m in self.models().items():
+            m.load_state_dict(store.load_params(directory, [name])[name], strict=True)
         return self
 
     def latent_shape(self, batch: int) -> tuple[int, int, int, int]:

@@ -5,11 +5,12 @@ per (seed, prompt, image index), optional TE-LoRA / UNet-LoRA / soft-prefix
 adapters from `.npz` or from the reference's exported `.pth` (`.pt`, `.bin`)
 files, skip-existing resume, `prompt_i/img_j.png` outputs,
 and the reference defaults (30 steps, batch 10, guidance 7.5, 60 images a
-prompt). Without a checkpoint it runs SD-1.5 at full width on seeded random
-weights.
+prompt). `--model_dir` reads the weights that `tools/convert_sd` wrote;
+without it SD-1.5 runs at full width on seeded random weights.
 
 Usage:
-  python -m fairdiff_torch.tools.gen_images --save_dir outputs/gen --num_imgs_per_prompt 4
+  python -m fairdiff_torch.tools.convert_sd --sd_dir /path/sd15 --out_dir converted-sd15
+  python -m fairdiff_torch.tools.gen_images --model_dir converted-sd15 --save_dir outputs/gen
   python -m fairdiff_torch.tools.gen_images --tiny_smoke 1 --device cpu \
       --num_imgs_per_prompt 2 --batch_size 2 --num_denoising_steps 2
 """
@@ -37,6 +38,7 @@ from fairdiff_torch.utils.rng import prompt_noise_generator
 @dataclasses.dataclass(frozen=True)
 class GenImagesConfig:
     device: str = ""  # "" = cuda; "cpu" only when asked for
+    model_dir: str = ""  # converted SD weights (tools/convert_sd); "" = seeded random weights
     tokenizer_dir: str = ""
     load_text_encoder_lora_from: str = ""
     load_unet_lora_from: str = ""
@@ -70,7 +72,13 @@ def load_adapter_file(path: str, kind: str):
 
 def main(cfg: GenImagesConfig) -> list[Path]:
     sd_cfg = SDConfig.tiny() if cfg.tiny_smoke else SDConfig.sd15()
-    sd = StableDiffusion(sd_cfg, device=cfg.device or None).init_random(cfg.random_seed)
+    sd = StableDiffusion(sd_cfg, device=cfg.device or None)
+    if cfg.model_dir:
+        t0 = time.perf_counter()
+        sd.load_params(cfg.model_dir)
+        print(f"[gen-images] loaded {cfg.model_dir} in {time.perf_counter() - t0:.1f} s", flush=True)
+    else:
+        sd.init_random(cfg.random_seed)
     tokenizer = load_tokenizer(cfg.tokenizer_dir or None)
     if cfg.tiny_smoke:
         tokenizer.vocab_size = sd_cfg.text.vocab_size

@@ -1,10 +1,11 @@
 """Fairness-finetuning CLI, exp-1 to exp-6 (counterpart of
 fairdiff/tools/train_debias.py).
 
-Runs SD-1.5 at full width (or the tiny config) on seeded random weights,
-with the guidance stack of `--guidance_dir` (`training.model_zoo`, frozen
-weights in the SD dtype) or, without one, the synthetic stack, as the JAX
-CLI does. `--experiment` picks the preset; exp-5 mixes the prompt files of
+Runs SD-1.5 at full width (or the tiny config) on the weights of
+`--model_dir` (`tools/convert_sd`'s store) or, without one, on seeded random
+weights, with the guidance stack of `--guidance_dir` (`training.model_zoo`,
+`tools/convert_guidance`'s layout, frozen weights in the SD dtype) or,
+without one, the synthetic stack, as the JAX CLI does. `--experiment` picks the preset; exp-5 mixes the prompt files of
 `--multi_prompts_json` (comma-separated) with `--multi_prompts_repeats`.
 `--flash_bwd merged` sends the UNet's flash backward through K6 instead of
 K2 + K3. `--debias_config FILE` merges a YAML file onto the preset's
@@ -24,6 +25,7 @@ key `prefix`, which `gen_images --load_prefix_embedding_from` reads).
 
 Usage:
   python -m fairdiff_torch.tools.train_debias --experiment exp3 --max_train_steps 2
+  python -m fairdiff_torch.tools.train_debias --model_dir converted-sd15 --guidance_dir converted-guidance
   python -m fairdiff_torch.tools.train_debias --device cpu --tiny_smoke 1 \
       --experiment exp2 --max_train_steps 2 --output_dir outputs/debias [--guidance_dir DIR]
   python -m fairdiff_torch.tools.train_debias --device cpu --tiny_smoke 1 --max_train_steps 4 \
@@ -34,6 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import time
 import typing
 from pathlib import Path
 
@@ -63,7 +66,8 @@ DEFAULT_PROMPTS = (
 class TrainCLIConfig:
     device: str = ""  # "" = cuda; "cpu" only when asked for
     experiment: str = "exp1"
-    sd_config: str = "sd15"  # "sd15" or "tiny"
+    sd_config: str = "sd15"  # "sd15" or "tiny": the architecture --model_dir holds
+    model_dir: str = ""  # converted SD weights (tools/convert_sd); "" = seeded random weights
     tiny_smoke: bool = False  # tiny model and a 2-step, 4-lane step on the CPU
     prompts_json: str = ""
     # exp-5's domain mixing: comma-separated prompt files and their repeats
@@ -113,14 +117,25 @@ def sd_config(cfg: TrainCLIConfig) -> SDConfig:
 
 
 def build_trainer(cfg: TrainCLIConfig) -> DebiasTrainer:
-    """The trainer on seeded random SD weights; remat at SD-1.5 width."""
+    """The trainer on the SD weights of `model_dir` (else seeded random
+    ones) and the guidance stack of `guidance_dir` (else the synthetic one);
+    remat at SD-1.5 width."""
     dcfg = debias_config(cfg)
     remat = not cfg.tiny_smoke and cfg.sd_config != "tiny"
     sd = StableDiffusion(sd_config(cfg), device=cfg.device or None, remat=remat, flash_bwd=cfg.flash_bwd)
-    sd.init_random(cfg.seed)
+    if cfg.model_dir:
+        t0 = time.perf_counter()
+        sd.load_params(cfg.model_dir)
+        print(f"[train] loaded {cfg.model_dir} in {time.perf_counter() - t0:.1f} s", flush=True)
+    else:
+        if not cfg.tiny_smoke:
+            print("[train] WARNING: no --model_dir; random-init SD weights", flush=True)
+        sd.init_random(cfg.seed)
     if cfg.guidance_dir:
         guidance = load_guidance_stack(cfg.guidance_dir, dcfg.attributes, dtype=sd.dtype, device=sd.device)
     else:
+        if not cfg.tiny_smoke:
+            print("[train] WARNING: no --guidance_dir; synthetic guidance", flush=True)
         guidance = synthetic_stack(dcfg.attributes, device=sd.device)
     return DebiasTrainer(sd, guidance, dcfg)
 

@@ -7,7 +7,7 @@
   runs) and SFNet (both residual orderings), each with the same weights
   carried by `io.from_jax`;
 - `load_guidance_stack` on one temporary directory on both sides;
-- the files the port cannot read yet raise.
+- the files the port cannot read raise.
 
 Float32 on the CPU, inputs from numpy seeds. Tolerances, stated where used,
 are summation-order noise: 1e-4 relative to the output's scale for the
@@ -15,7 +15,6 @@ convolution nets (flax's GroupNorm takes var = E[x^2] - E[x]^2, torch's the
 two-pass form), 2e-5 absolute for the transformers.
 """
 
-import contextlib
 import dataclasses
 import pickle
 import shutil
@@ -200,14 +199,21 @@ def test_load_guidance_stack_matches_jax(guidance_dir):
 
 @pytest.mark.parametrize("name", ["det_10g.onnx", "clip_vision", "dinov2"])
 def test_unreadable_guidance_files_raise(tmp_path, name):
-    """Checked before anything is loaded: the directory needs nothing else."""
+    """A `det_10g.onnx` that is not ONNX fails to parse; the JAX package's
+    orbax trees `clip_vision/` and `dinov2/` raise before anything is loaded
+    (the directory needs nothing else), naming the port's converter."""
     shutil.copyfile(DETECTOR, tmp_path / "detector.npz")
     target = tmp_path / name
-    target.mkdir() if "." not in name else target.write_bytes(b"onnx")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tzoo.load_guidance_stack(tmp_path, ("gender",), dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md") if name == "det_10g.onnx" else contextlib.nullcontext():
-        tzoo.load_detector(tmp_path / name if name == "det_10g.onnx" else None, DETECTOR)
+    if name == "det_10g.onnx":
+        target.write_bytes(b"onnx")
+        with pytest.raises(ValueError):
+            tzoo.load_guidance_stack(tmp_path, ("gender",), dtype=torch.float32)
+        with pytest.raises(ValueError):
+            tzoo.load_detector(target, DETECTOR)
+    else:
+        target.mkdir()
+        with pytest.raises(NotImplementedError, match="orbax.*convert_guidance"):
+            tzoo.load_guidance_stack(tmp_path, ("gender",), dtype=torch.float32)
 
 
 def test_seeded_guidance_dir_loads_on_both_sides(tmp_path):
