@@ -86,7 +86,33 @@ Phases (any failure raises and exits non-zero):
      CPU (fp32, rel L2 1e-4, equal faces), `load_guidance_stack` with CLIP,
      DINO and SCRFD composed over FaceDetectorNet, and `train_debias
      --model_dir --guidance_dir` as phase 9 with the CLIP and DINO terms;
-     the write, convert and load seconds.
+     the write, convert and load seconds; with `[tokenizer]`'s directory,
+     `gen_images --model_dir --tokenizer_dir` byte-equal to its PNGs and the
+     train run tokenizing with it;
+ 22. tokenizer (before weights): a CLIP tokenizer directory in the published
+     layout (49408 entries, merges learned from the phases' prompts), then
+     `gen_images --tokenizer_dir` ([slice]'s settings) at full width,
+     `transformers` never imported ([weights] trains with the directory);
+ 23. eval: the reference's bias-evaluation protocol: `gen_images` at its
+     defaults (2 prompts x 60 images, 512x512, batch 10, 30 steps) and 64
+     `render_face_scene_dr` scenes at 128 px, each folder scored by
+     `eval_images` at batch 32 (SCRFD composed over assets/detector.npz,
+     three seeded MobileNetV3-Large heads): pickles' shapes and dtypes, faces
+     in at least half of the face scenes, card vs CPU on the first 32 of each
+     folder (indicators equal, boxes within 1e-3 px, logits rel L2 1e-4),
+     decode and scoring times;
+ 24. unet-vjp-recompute: phase 8 with flash_bwd="recompute": K1 without lse
+     only (20 launches), the context gradient against the plain routes, fp32
+     and the split route, wall, kernel time and peak memory beside phase 8's;
+ 25. train-profile: `train_debias --profile_steps 1` as phase 9: the
+     profiled step's trace, summed by `utils.trace_summary`, holds as many
+     flash-fwd, flash-dq, flash-dkv and GEGLU kernels as the launch counters
+     counted; the device total against the step's wall;
+ 26. detector: `train_detector` at the shipped recipe's shapes for 100 steps
+     (mining from step 40): s/step without and with mining, a falling finite
+     loss; `eval_detector` on assets/detector.npz at 256 scenes a shift on the
+     card beside docs/DETECTOR.md's table, and at 32 on the card and the CPU
+     (rates within 1/32).
 
 The line before the last is the card's name and power limit from
 nvidia-smi; the one before that is the per-kernel JSON summary; the last
@@ -1193,19 +1219,29 @@ PAIR_VJP_LAUNCHES_MERGED = dict(PAIR_VJP_LAUNCHES, flash_attention_dq=0, flash_a
 # run twice on its operands (`_merged_rerun`: dk and dv bit-equal, dq within
 # its fp32 reordering plus 1 ulp), here and in [kernels-bwd]
 MERGED_RERUN_REL_L2_TOL = UNET_BF16_REL_L2_TOL
+# the same with flash_bwd="recompute": every flash site runs K1 without lse,
+# in the forward and again in remat's recompute (10 sites x 2), and the
+# backward differentiates the plain attention, so no K1-lse, K2, K3 or K6
+PAIR_VJP_LAUNCHES_RECOMPUTE = dict(PAIR_VJP_LAUNCHES, flash_attention=20, flash_attention_lse=0,
+                                   flash_attention_dq=0, flash_attention_dkv=0)
 
 
-def phase_unet_vjp(power: str, flash_bwd: str = "split") -> dict:
+def phase_unet_vjp(power: str, flash_bwd: str = "split", beside: dict | None = None) -> dict:
     """One full-width SD-1.5 pair VJP on the card, as phase 4 runs it, with
-    the flash backward `flash_bwd` ("split": K2 + K3, "merged": K6)."""
+    the flash backward `flash_bwd` ("split": K2 + K3, "merged": K6,
+    "recompute": autograd through the plain attention). The recompute route
+    is also held against the split route's gradient on the same weights
+    (within the sanity bound two bf16 backward routes are held to), and its
+    time and peak memory are printed beside `beside` (`[unet-vjp]`'s)."""
     from fairdiff_torch.models.layers import init_weights
     from fairdiff_torch.models.unet2d import UNet2DCondition, UNetConfig
     from fairdiff_torch.ops import flash_attention as fa
     from fairdiff_torch.ops import geglu as gg
 
-    merged = flash_bwd == "merged"
-    tag = "[unet-vjp-merged]" if merged else "[unet-vjp]"
-    want = PAIR_VJP_LAUNCHES_MERGED if merged else PAIR_VJP_LAUNCHES
+    merged, recompute = flash_bwd == "merged", flash_bwd == "recompute"
+    tag = {"split": "[unet-vjp]", "merged": "[unet-vjp-merged]", "recompute": "[unet-vjp-recompute]"}[flash_bwd]
+    want = {"split": PAIR_VJP_LAUNCHES, "merged": PAIR_VJP_LAUNCHES_MERGED,
+            "recompute": PAIR_VJP_LAUNCHES_RECOMPUTE}[flash_bwd]
     parts = ("merged_dq", "merged_dk", "merged_dv") if merged else ("lse", "dq", "dk", "dv")
     g = torch.Generator().manual_seed(4)
     unet = init_weights(UNet2DCondition(UNetConfig.sd15(), remat=True, flash_bwd=flash_bwd), g)
@@ -1305,6 +1341,18 @@ def phase_unet_vjp(power: str, flash_bwd: str = "split") -> dict:
         + (f" (tol {MERGED_RERUN_REL_L2_TOL:.0e}: K6's dq summation order)" if merged else ""))
     log(f"{tag} {seconds:.3f} s for one VJP after a warm-up, peak memory {peak_gib:.2f} GiB "
         f"above the weights; launches {ran} (want {want}) on {power}")
+    e_split = None
+    if recompute:
+        attn = [m for m in unet_bf16.modules() if hasattr(m, "flash_bwd")]
+        for m in attn:
+            m.flash_bwd = "split"
+        try:
+            e_split = rel_l2(kern, context_grad(unet_bf16, torch.bfloat16))
+        finally:
+            for m in attn:
+                m.flash_bwd = flash_bwd
+        log(f"{tag} against the split route (K1-lse, K2, K3) on the same weights: rel L2 {e_split:.3e} "
+            f"(tol {UNET_BF16_REL_L2_TOL:.0e})")
     failed = [f"{name} launch {i} {pt}: {r[pt]['failed'] if pt else r['failed']}"
               for name, rs in per_launch.items() for i, r in enumerate(rs)
               for pt in (parts if name == "flash_attention_bwd" else (None,))
@@ -1312,7 +1360,9 @@ def phase_unet_vjp(power: str, flash_bwd: str = "split") -> dict:
     failed += [f"K6 launch {i} rerun: {r['failed']}" for i, r in enumerate(reruns) if r["failed"]]
     failed += [name for name, ok in (
         ("launches", ran == want),
-        ("checked launches", [len(per_launch["flash_attention_bwd"]), len(per_launch["geglu_dx"])] == [9, 16]),
+        ("checked launches",
+         [len(per_launch["flash_attention_bwd"]), len(per_launch["geglu_dx"])] == [0 if recompute else 9, 16]),
+        ("recompute vs split", e_split is None or e_split <= UNET_BF16_REL_L2_TOL),
         ("finite", bool(torch.isfinite(kern).all())),
         ("non-zero", kern.abs().max().item() > 0),
         ("rerun", rerun_ok),
@@ -1322,8 +1372,13 @@ def phase_unet_vjp(power: str, flash_bwd: str = "split") -> dict:
     ) if not ok]
     if failed:
         raise AssertionError(f"pair VJP checks failed: {failed}")
-    profile_pair_vjp(lambda: context_grad(unet_bf16, torch.bfloat16), seconds, tag)
-    return {"seconds": seconds, "peak_gib": peak_gib, "launches": ran}
+    kernel_ms = profile_pair_vjp(lambda: context_grad(unet_bf16, torch.bfloat16), seconds, tag)
+    if beside:
+        ms = lambda x: "not measured" if x is None else f"{x:.3f}"
+        log(f"{tag} beside [unet-vjp]: wall {seconds:.3f} vs {beside['seconds']:.3f} s, kernel time "
+            f"{ms(kernel_ms)} vs {ms(beside['kernel_ms'])} ms, peak {peak_gib:.2f} vs {beside['peak_gib']:.2f} GiB "
+            f"above the weights on {power}")
+    return {"seconds": seconds, "peak_gib": peak_gib, "launches": ran, "kernel_ms": kernel_ms}
 
 
 # host calls that wait for the device
@@ -1331,9 +1386,10 @@ HOST_WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchr
               "aten::_local_scalar_dense", "aten::nonzero", "aten::equal")
 
 
-def profile_pair_vjp(run, wall_s: float, tag: str = "[unet-vjp]") -> None:
+def profile_pair_vjp(run, wall_s: float, tag: str = "[unet-vjp]") -> float | None:
     """Where one pair VJP's device time goes, by kernel name, and its host
-    time, by op."""
+    time, by op; -> the kernel time in ms (None where the profiler recorded
+    no device time)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1343,7 +1399,7 @@ def profile_pair_vjp(run, wall_s: float, tag: str = "[unet-vjp]") -> None:
     busy = sum(e.self_device_time_total for e in events) / 1e3
     if busy == 0.0:
         log(f"{tag} kernel time not measured (the profiler recorded no device time)")
-        return
+        return None
     log(f"{tag} profile of one pair VJP: {busy:.3f} ms kernel time, device idle share "
         f"{max(0.0, 1 - busy / (wall_s * 1e3)):.3f} against the timed run's wall")
     # the port's kernels by family, from their CUDA names (K4: `k4::` and the
@@ -1369,6 +1425,7 @@ def profile_pair_vjp(run, wall_s: float, tag: str = "[unet-vjp]") -> None:
     log(f"{tag} host profile of one pair VJP ({wall:.3f} s wall, profiler on): waits for the device {waits}")
     for e in host[:12]:
         log(f"{tag}   host {e.self_cpu_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
+    return busy
 
 
 # bench.py's detector heads for the costliest case: with zero head kernels
@@ -1418,7 +1475,7 @@ def seed_guidance_dir(directory: str | Path, *, seed: int = 0, detector_npz: str
 
 
 def phase_train(flash_bwd: str = "split", zoo: bool = False, experiment: str = "exp1",
-                steps: int = 4, model_dir: str = "", guidance_dir: str = "") -> dict[str, int]:
+                steps: int = 4, model_dir: str = "", guidance_dir: str = "", tokenizer_dir: str = "") -> dict[str, int]:
     """The slice: train_debias.main at full width for 2 optimizer steps of
     `experiment` (4 lanes, micro-batch 2, `steps` denoising steps); with
     `zoo`, on a guidance directory this phase writes (`seed_guidance_dir`:
@@ -1426,7 +1483,8 @@ def phase_train(flash_bwd: str = "split", zoo: bool = False, experiment: str = "
     classifier.npz and face_embedder.npz), and with `flash_bwd`. exp-5 reads
     two prompt files this phase writes (repeats 1 and 6). With `model_dir`
     and `guidance_dir` (`[weights]`), on converted SD weights and a converted
-    guidance directory, whose CLIP and DINO terms are logged. The adapters moved:
+    guidance directory, whose CLIP and DINO terms are logged. With
+    `tokenizer_dir`, the prompts go through that CLIP tokenizer. The adapters moved:
     every LoRA `up` leaf (0 at the start) is non-zero, or the exported
     prefix table differs from its initial rows, and `gen_images` reads it
     back."""
@@ -1457,7 +1515,7 @@ def phase_train(flash_bwd: str = "split", zoo: bool = False, experiment: str = "
         cfg = train_debias.TrainCLIConfig(
             experiment=experiment, max_train_steps=2, train_images_per_prompt=4, train_micro_batch=2,
             steps=steps, output_dir=str(Path(tmp) / "out"), model_dir=model_dir, guidance_dir=guidance_dir,
-            flash_bwd=flash_bwd,
+            flash_bwd=flash_bwd, tokenizer_dir=tokenizer_dir,
             multi_prompts_json=multi, multi_prompts_repeats="1,6",
         )
         trainer = train_debias.build_trainer(cfg)
@@ -1496,6 +1554,7 @@ def phase_train(flash_bwd: str = "split", zoo: bool = False, experiment: str = "
     log(f"{tag} train_debias.main --experiment {experiment}: SD-1.5, 2 steps x 4 lanes, micro-batch 2, "
         f"{steps} denoising steps, SD weights {'from ' + repr(model_dir) if model_dir else 'random'}, "
         f"guidance {'from ' + repr(Path(guidance_dir).name) if guidance_dir else 'synthetic'}, "
+        f"tokenizer {'CLIP BPE' if tokenizer_dir else 'hash'}, "
         f"flash_bwd={flash_bwd!r}, {seconds:.2f} s incl. setup; {what}; launches {ran} (want {want})")
     failed = [name for name, ok in (
         ("two steps", [x["step"] for x in lines] == [1, 2]),
@@ -2193,7 +2252,8 @@ def scrfd_onnx(width: int = 16, seed: int = 0, head_scale: float = 0.01) -> byte
 SCRFD_CPU_REL_L2_TOL = 1e-4
 
 
-def phase_weights(slice_pngs: dict[str, str]) -> dict[str, int]:
+def phase_weights(slice_pngs: dict[str, str], tokenizer_dir: str = "",
+                  tokenizer_pngs: dict[str, str] | None = None) -> dict[str, int]:
     """Real-weight loading at full width, through the files a user has:
     SD-1.5 from `StableDiffusion(SDConfig.sd15()).init_random(42)` (the
     weights `[slice]` generates with) written in the diffusers layout
@@ -2206,7 +2266,10 @@ def phase_weights(slice_pngs: dict[str, str]) -> dict[str, int]:
     `seed_guidance_dir`'s classifier, SFNet and detector, converted by
     `convert_guidance`; SCRFD through the bridge on the card against the
     CPU; `load_guidance_stack` with SCRFD composed over FaceDetectorNet; and
-    `train_debias --model_dir --guidance_dir` for 2 steps as `[train]`."""
+    `train_debias --model_dir --guidance_dir` for 2 steps as `[train]`. With
+    `tokenizer_dir` (`[tokenizer]`'s CLIP tokenizer), `gen_images --model_dir
+    --tokenizer_dir` writes PNGs byte-equal to `tokenizer_pngs` (`[tokenizer]`'s
+    run on the same seeded weights), and `train_debias` takes the directory too."""
     from fairdiff_torch.io.onnx_bridge import build_onnx_fn, load_scrfd, parse_onnx
     from fairdiff_torch.models.clip_vision import CLIPVisionConfig, CLIPVisionModel
     from fairdiff_torch.models.dinov2 import DINOv2Config, DINOv2Model
@@ -2263,6 +2326,14 @@ def phase_weights(slice_pngs: dict[str, str]) -> dict[str, int]:
             failed.append("gen_images --model_dir PNGs differ from [slice]'s")
         if ran != want:
             failed.append(f"gen launches {ran} != {want}")
+        if tokenizer_dir:
+            tok_cfg = dataclasses.replace(cfg, tokenizer_dir=tokenizer_dir, save_dir=str(tmp / "gen-tok"))
+            written = gen_images.main(tok_cfg)
+            pngs = {str(p.relative_to(tok_cfg.save_dir)): hashlib.sha256(p.read_bytes()).hexdigest() for p in written}
+            log(f"[weights] gen_images --model_dir --tokenizer_dir: {len(written)} PNGs byte-equal to "
+                f"[tokenizer]'s: {pngs == tokenizer_pngs}")
+            if pngs != tokenizer_pngs or len(pngs) != 4:
+                failed.append("gen_images --model_dir --tokenizer_dir PNGs differ from [tokenizer]'s")
 
         g = torch.Generator().manual_seed(11)
         towers = {"clip_vision": CLIPVisionModel(CLIPVisionConfig.vit_h14()), "dinov2": DINOv2Model(DINOv2Config.vitb14())}
@@ -2317,8 +2388,387 @@ def phase_weights(slice_pngs: dict[str, str]) -> dict[str, int]:
         torch.cuda.empty_cache()
         if failed:
             raise AssertionError(f"[weights] failed: {failed}")
-        counts = phase_train(model_dir=str(tmp / "store"), guidance_dir=str(guidance))
+        counts = phase_train(model_dir=str(tmp / "store"), guidance_dir=str(guidance), tokenizer_dir=tokenizer_dir)
+    if tokenizer_dir:
+        log(f"[weights] transformers imported: {'transformers' in sys.modules}")
+        if "transformers" in sys.modules:
+            raise AssertionError("[weights] transformers was imported")
     return counts
+
+
+CLIP_VOCAB_SIZE = 49408  # SD-1.5's tokenizer: <|startoftext|> 49406, <|endoftext|> 49407
+
+
+def write_clip_tokenizer(directory: str | Path, texts: list[str], vocab_size: int | None = CLIP_VOCAB_SIZE) -> Path:
+    """A CLIP tokenizer directory in the published format (`vocab.json`,
+    `merges.txt` with its version line, `tokenizer_config.json`) whose
+    merges are learned from `texts` by byte-level BPE until every word of
+    them is one token: the 256 byte symbols and their `</w>` forms first,
+    as in CLIP's vocabulary, then each merge's token, then (with
+    `vocab_size`) filler entries up to the two special tokens at its end."""
+    from fairdiff_torch.io.tokenizer import BOS, EOS, bytes_to_unicode, clean_text, split_words
+
+    byte_map = bytes_to_unicode()
+    base = list(byte_map.values())
+    vocab = base + [c + "</w>" for c in base]
+    counts: dict[tuple[str, ...], int] = {}
+    for t in texts:
+        for w in split_words(clean_text(t)):
+            mapped = "".join(byte_map[b] for b in w.encode("utf-8"))
+            key = (*mapped[:-1], mapped[-1] + "</w>")
+            counts[key] = counts.get(key, 0) + 1
+    merges = []
+    while True:
+        pairs: dict[tuple[str, str], int] = {}
+        for word, n in counts.items():
+            for pair in zip(word, word[1:]):
+                pairs[pair] = pairs.get(pair, 0) + n
+        if not pairs:
+            break
+        best = min(pairs, key=lambda p: (-pairs[p], p))
+        merges.append(best)
+        if best[0] + best[1] not in vocab:  # two merges may spell one token
+            vocab.append(best[0] + best[1])
+        merged = {}
+        for word, n in counts.items():
+            out, i = [], 0
+            while i < len(word):
+                if word[i: i + 2] == best:
+                    out.append(best[0] + best[1])
+                    i += 2
+                else:
+                    out.append(word[i])
+                    i += 1
+            merged[tuple(out)] = merged.get(tuple(out), 0) + n
+        counts = merged
+    if vocab_size is not None:
+        vocab += [f"<|fill{i}|>" for i in range(vocab_size - 2 - len(vocab))]
+    vocab += [BOS, EOS]
+    d = Path(directory)
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "vocab.json").write_text(json.dumps({tok: i for i, tok in enumerate(vocab)}), encoding="utf-8")
+    (d / "merges.txt").write_text("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges), encoding="utf-8")
+    (d / "tokenizer_config.json").write_text(json.dumps({"model_max_length": 77}))
+    return d
+
+
+TOKENIZER_DIR = Path(__file__).resolve().parent / "build" / "clip-tokenizer"
+
+
+def phase_tokenizer(power: str) -> tuple[str, dict[str, str]]:
+    """A CLIP tokenizer directory in the published layout (49408 entries,
+    merges learned from the prompts the phases use), then `gen_images
+    --tokenizer_dir` with `[slice]`'s settings at full SD-1.5 width on the
+    card, without `transformers` -> (the directory, the PNGs' sha256 by
+    path). `[weights]` runs `train_debias --tokenizer_dir` for `[train]`'s 2
+    steps (on the converted weights) and checks again that `transformers`
+    was never imported."""
+    from fairdiff_torch.io.tokenizer import load_tokenizer
+    from fairdiff_torch.tools import gen_images, train_debias
+
+    t0 = time.perf_counter()
+    d = write_clip_tokenizer(TOKENIZER_DIR, SLICE_PROMPTS + list(train_debias.DEFAULT_PROMPTS))
+    tok = load_tokenizer(d)
+    ids = tok(SLICE_PROMPTS, padding="max_length").input_ids
+    t_tok = time.perf_counter() - t0
+    # every word of the prompts is one token of its own: bos, words, eos, pad
+    words = [len(p.replace(",", " ,").split()) for p in SLICE_PROMPTS]
+    framed = all(r[0] == 49406 and r[n + 1] == 49407 and (r[n + 1:] == 49407).all() for r, n in zip(ids, words))
+    log(f"[tokenizer] {tok.vocab_size} entries, {len(tok.ranks)} merges written and read in {t_tok:.2f} s; "
+        f"SLICE_PROMPTS -> {[r[:n + 2].tolist() for r, n in zip(ids, words)]}")
+    scratch = Path(__file__).resolve().parent / "build"
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        prompts = Path(tmp) / "prompts.json"
+        prompts.write_text(json.dumps({"test_prompts": SLICE_PROMPTS}))
+        cfg = gen_images.GenImagesConfig(tokenizer_dir=str(d), prompts_json=str(prompts), num_imgs_per_prompt=2,
+                                         batch_size=2, save_dir=str(Path(tmp) / "out"))
+        reset_counts()
+        t0 = time.perf_counter()
+        written = gen_images.main(cfg)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        ran = launch_counts()
+        calls = 2 * cfg.num_denoising_steps
+        want = {k: calls * UNET_CALL_LAUNCHES.get(k, 0) for k in ran}
+        pngs = {str(p.relative_to(cfg.save_dir)): hashlib.sha256(p.read_bytes()).hexdigest() for p in written}
+        varied = all(len(set(read_png(p))) > 1 for p in written)
+        log(f"[tokenizer] gen_images --tokenizer_dir: {len(written)} PNGs at 512x512, {cfg.num_denoising_steps} "
+            f"steps, {seconds:.2f} s incl. setup on {power}; launches {ran} (want {want})")
+    imported = "transformers" in sys.modules
+    log(f"[tokenizer] transformers imported: {imported}")
+    if imported or not (framed and tok.vocab_size == CLIP_VOCAB_SIZE and len(pngs) == 4 and varied and ran == want):
+        raise AssertionError(f"[tokenizer] failed: ids framed {framed}, {len(pngs)} PNGs, varied {varied}, "
+                             f"launches {ran}, transformers imported {imported}")
+    return str(d), pngs
+
+
+def _eval_heads(directory: Path) -> dict[str, str]:
+    """Three seeded full-width MobileNetV3-Large heads (gender 2, race 4, age
+    2 classes) written as the JAX package's `.npz` trees."""
+    from fairdiff_torch.io.adapters_io import save_adapters
+    from fairdiff_torch.io.from_jax import jax_tree_from_module
+    from fairdiff_torch.models.layers import init_weights
+    from fairdiff_torch.models.mobilenet_v3 import MobileNetV3Large
+    from fairdiff_torch.tools.eval_images import HEADS
+
+    g = torch.Generator().manual_seed(13)
+    paths = {}
+    for name, n_cls in HEADS:
+        paths[f"{name}_classifier"] = str(directory / f"{name}.npz")
+        save_adapters(paths[f"{name}_classifier"], jax_tree_from_module(init_weights(MobileNetV3Large(n_cls), g)))
+    return paths
+
+
+EVAL_PROMPTS = ["a photo of the face of a doctor, a person", "a photo of the face of a firefighter, a person"]
+EVAL_FACE_SCENES = 64  # render_face_scene_dr at 128 px, the detector's training size
+EVAL_BOX_TOL_PX = 1e-3
+EVAL_LOGIT_REL_L2_TOL = 1e-4
+
+
+def phase_eval(power: str) -> dict:
+    """The reference's bias-evaluation protocol at full width: `gen_images`
+    with its defaults (2 prompts x 60 images, 512x512, batch 10, 30 steps)
+    into one folder, and a folder of `render_face_scene_dr` scenes; both
+    scored by `eval_images` at batch 32 with SCRFD (`scrfd_onnx`) composed
+    over assets/detector.npz and three seeded heads. Checks the pickles'
+    shapes and dtypes, a face in at least half of the face scenes, and the
+    card against the CPU on the first batch of 32 of each folder."""
+    import io
+    import pickle
+
+    import numpy as np
+
+    from fairdiff_torch.guidance.detector_train import render_face_scene_dr
+    from fairdiff_torch.io.images import load_image, save_png
+    from fairdiff_torch.tools import eval_images, gen_images
+
+    scratch = Path(__file__).resolve().parent / "build"
+    failed = []
+    out: dict = {}
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        tmp = Path(tmp)
+        prompts = tmp / "prompts.json"
+        prompts.write_text(json.dumps({"test_prompts": EVAL_PROMPTS}))
+        gcfg = gen_images.GenImagesConfig(prompts_json=str(prompts), save_dir=str(tmp / "gen"))
+        reset_counts()
+        t0 = time.perf_counter()
+        written = gen_images.main(gcfg)
+        torch.cuda.synchronize()
+        t_gen = time.perf_counter() - t0
+        ran = launch_counts()
+        calls = len(EVAL_PROMPTS) * -(-gcfg.num_imgs_per_prompt // gcfg.batch_size) * gcfg.num_denoising_steps
+        want = {k: calls * UNET_CALL_LAUNCHES.get(k, 0) for k in ran}
+        log(f"[eval] gen_images (reference defaults): {len(written)} PNGs at 512x512, batch {gcfg.batch_size}, "
+            f"{gcfg.num_denoising_steps} steps in {t_gen:.1f} s incl. setup ({len(written) / t_gen:.3f} img/s) on "
+            f"{power}; launches {ran} (want {want})")
+        if len(written) != 120 or ran != want:
+            failed.append(f"gen_images wrote {len(written)} PNGs, launches {ran}")
+
+        rng = np.random.default_rng(21)
+        for i in range(EVAL_FACE_SCENES):
+            save_png(render_face_scene_dr(rng, 128)[0], tmp / "faces" / "scenes" / f"img_{i}.png")
+        zoo = tmp / "zoo"
+        zoo.mkdir()
+        (zoo / "det_10g.onnx").write_bytes(scrfd_onnx())
+        heads = _eval_heads(zoo)
+        common = dict(scrfd_onnx=str(zoo / "det_10g.onnx"), detector_params=str(DETECTOR_NPZ), batch_size=32, **heads)
+
+        for folder, n_imgs in (("gen", 120), ("faces", EVAL_FACE_SCENES)):
+            files = [f for d in sorted((tmp / folder).iterdir()) for f in eval_images.list_images(d)]
+            t0 = time.perf_counter()
+            imgs = np.stack([load_image(f) for f in files])
+            t_decode = time.perf_counter() - t0
+            cfg = eval_images.EvalImagesConfig(generated_imgs_dir=str(tmp / folder),
+                                               save_dir=str(tmp / f"eval-{folder}"), **common)
+            printed = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                summary = eval_images.main(cfg)
+            torch.cuda.synchronize()
+            t_main = time.perf_counter() - t0
+            for line in printed.getvalue().splitlines():
+                log(line)
+            scored = sum(float(m.group(1)) for m in re.finditer(r"scored in ([0-9.]+) s", printed.getvalue()))
+            pkls = {}
+            for name in summary:
+                with open(tmp / f"eval-{folder}" / f"{name}_test_results.pkl", "rb") as f:
+                    pkls[name] = pickle.load(f)
+            shapes_ok = all(
+                p[0].dtype == np.bool_ and p[0].shape == (len(p[0]),) and p[1].dtype == np.int32
+                and p[1].shape == (len(p[0]), 4)
+                and all(x.dtype == np.float32 and x.shape == (len(p[0]), n) for x, n in zip(p[2:], (2, 4, 2)))
+                for p in pkls.values())
+            inds = np.concatenate([p[0] for p in pkls.values()])
+            log(f"[eval] {folder}: {len(files)} images ({imgs.shape[1]}x{imgs.shape[2]}) decoded in {t_decode:.2f} s; "
+                f"eval_images.main {t_main:.2f} s (scoring {scored:.2f} s, {len(files) / scored:.1f} img/s) on "
+                f"{power}; faces {int(inds.sum())} of {len(inds)}; pickles {list(pkls)} shapes and dtypes ok "
+                f"{shapes_ok}; summary {json.dumps({k: {m: round(v, 4) for m, v in d.items()} for k, d in summary.items()})}")
+            if len(inds) != n_imgs or not shapes_ok:
+                failed.append(f"{folder}: {len(inds)} indicators, shapes ok {shapes_ok}")
+            if folder == "faces" and inds.mean() < 0.5:
+                failed.append(f"faces found in {inds.mean():.2f} of the face scenes")
+            out[folder] = {"decode_s": t_decode, "score_s": scored, "faces": float(inds.mean())}
+
+            # the card against the CPU on the first batch of 32
+            batch = imgs[:32]
+            res = {}
+            for dev in ("cuda", "cpu"):
+                detect, hs = eval_images._load_stack(dataclasses.replace(cfg, device=dev), torch.device(dev))
+                with torch.no_grad():
+                    det = detect(torch.as_tensor(batch, device=dev))
+                    res[dev] = (det.indicators.cpu(), det.bboxes.float().cpu(),
+                                eval_images.analyze(detect, hs, batch, cfg.chip_size, torch.device(dev))[2])
+            same = bool(torch.equal(res["cuda"][0], res["cpu"][0]))
+            box = (res["cuda"][1] - res["cpu"][1]).abs().max().item()
+            logit = max(rel_l2(torch.from_numpy(res["cuda"][2][k]), torch.from_numpy(res["cpu"][2][k]))
+                        for k in res["cpu"][2])
+            log(f"[eval] {folder}: first batch of 32, card vs CPU: indicators equal {same}, boxes max abs diff "
+                f"{box:.3e} px (tol {EVAL_BOX_TOL_PX:.0e}), logits worst rel L2 {logit:.3e} "
+                f"(tol {EVAL_LOGIT_REL_L2_TOL:.0e})")
+            if not (same and box <= EVAL_BOX_TOL_PX and logit <= EVAL_LOGIT_REL_L2_TOL):
+                failed.append(f"{folder} card vs CPU: indicators {same}, boxes {box:.3e}, logits {logit:.3e}")
+    if failed:
+        raise AssertionError(f"[eval] failed: {failed}")
+    return out
+
+
+def phase_train_profile(power: str) -> dict:
+    """`train_debias --profile_steps 1` on `[train]`'s configuration: the
+    profiled step's Chrome trace, summed by `summarize_trace`, holds as many
+    launches of each port kernel as the launch counters counted in that
+    step; the device total against the step's wall time."""
+    import io
+
+    from fairdiff_torch.tools import train_debias
+    from fairdiff_torch.utils.trace_summary import launches_by_bucket, summarize_trace
+
+    scratch = Path(__file__).resolve().parent / "build"
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        cfg = train_debias.TrainCLIConfig(max_train_steps=2, train_images_per_prompt=4, train_micro_batch=2,
+                                          steps=4, output_dir=str(Path(tmp) / "out"), profile_steps=1)
+        trainer = train_debias.build_trainer(cfg)
+        fit, counts = trainer.fit, []
+
+        def counted_fit(*args, **kw):  # the launch counters of each fit call
+            reset_counts()
+            state = fit(*args, **kw)
+            counts.append(launch_counts())
+            return state
+
+        trainer.fit = counted_fit
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            train_debias.main(cfg, trainer)
+        seconds = time.perf_counter() - t0
+        lines = [json.loads(x) for x in out.getvalue().splitlines() if x.startswith("{")]
+        t0 = time.perf_counter()
+        summary = summarize_trace(Path(cfg.output_dir) / "trace", top=10**6)
+        t_summary = time.perf_counter() - t0
+        trace_mb = sum(f.stat().st_size for f in (Path(cfg.output_dir) / "trace").glob("*.gz")) / 2**20
+    per_bucket = launches_by_bucket(summary)
+    by_name = lambda key: sum(c for name, _, c in summary["top_ops"] if key in name)
+    k = counts[0]
+    k4, gm, reduce = by_name("k4::fwd_kernel"), by_name("gm::gemm_kernel"), by_name("gm::dx_reduce_kernel")
+    # K5's wrapper launches two GEMMs (dproj, dx), and a reduce below a wave
+    checks = {
+        "flash-fwd": (per_bucket.get("flash-fwd", 0), k["flash_attention"] + k["flash_attention_lse"]),
+        "flash-dq": (per_bucket.get("flash-dq", 0), k["flash_attention_dq"]),
+        "flash-dkv": (per_bucket.get("flash-dkv", 0), k["flash_attention_dkv"]),
+        "geglu": (per_bucket.get("geglu", 0), k["geglu"] + 2 * k["geglu_dx"] + reduce),
+        "geglu K4": (k4, k["geglu"]),
+        "geglu K5 GEMMs": (gm, 2 * k["geglu_dx"]),
+    }
+    step = lines[0]
+    device_s = summary["total_s"]
+    log(f"[train-profile] train_debias --profile_steps 1 ([train]'s configuration): {seconds:.2f} s incl. setup; "
+        f"trace {trace_mb:.1f} MiB gzipped, summarized in {t_summary:.1f} s; launch counters of the profiled step "
+        f"{k}")
+    for name, (got, want) in checks.items():
+        log(f"[train-profile]   {name}: {got} device events in the trace, {want} by the counters")
+    log(f"[train-profile] profiled step: device total {device_s:.3f} s against {step['step_time_s']:.3f} s wall "
+        f"(device idle share {max(0.0, 1 - device_s / step['step_time_s']):.3f}, profiler on); the next step "
+        f"unprofiled {lines[1]['step_time_s']:.3f} s wall, on {power}")
+    for bucket, sec in list(summary["by_bucket"].items())[:10]:
+        log(f"[train-profile]   {sec:8.4f} s {100 * sec / device_s:5.1f}% {per_bucket.get(bucket, 0):7d}x  {bucket}")
+    for name, sec, count in summary["top_ops"][:8]:
+        log(f"[train-profile]   top {sec:8.4f} s {count:6d}x  {name[:100]}")
+    bad = [name for name, (got, want) in checks.items() if got != want]
+    if bad or len(counts) != 2 or [x["step"] for x in lines] != [1, 2] or device_s <= 0:
+        raise AssertionError(f"[train-profile] failed: {bad}, {len(counts)} fit calls, steps "
+                             f"{[x['step'] for x in lines]}, device {device_s}")
+    return {"device_s": device_s, "wall_s": step["step_time_s"], "counts": k}
+
+
+# the shipped detector's recall on 256 scenes a shift and its fp rates
+# (docs/DETECTOR.md, r5, measured with the JAX package on a TPU)
+DETECTOR_MD_R5 = {"train_dist": 1.000, "blur": 0.992, "offcenter": 0.996, "scale_large": 1.000,
+                  "textured_bg": 0.992, "multiface": 0.961, "occlusion": 0.961, "skin_tone": 0.996,
+                  "low_contrast": 1.000, "scale_small": 0.914}
+DETECTOR_MD_R5_FP = {"base": 0.016, "blur": 0.070, "low_contrast": 0.055, "textured_bg": 0.039}
+
+
+def phase_detector(power: str) -> dict:
+    """`train_detector` on the card at the shipped recipe's shapes
+    (`DetectorConfig()`, batch 16, 128 px, dr scenes) for 100 steps, mining
+    from step 40; then `eval_detector` on assets/detector.npz, 256 scenes a
+    shift, seed 777, on the card, and at 32 scenes on the card and on the
+    CPU (each rate within 1/32)."""
+    import io
+
+    import numpy as np
+
+    from fairdiff_torch.tools import eval_detector, train_detector
+
+    scratch = Path(__file__).resolve().parent / "build"
+    failed = []
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        cfg = train_detector.DetTrainConfig(steps=100, out=str(Path(tmp) / "detector.npz"), log_every=20,
+                                            eval_scenes=64)
+        t0 = time.perf_counter()
+        _, metrics, hist = train_detector.main(cfg)
+        seconds = time.perf_counter() - t0
+        saved = Path(cfg.out).exists()
+    m0 = hist["mine_start"]
+    plain_s = float(np.mean(hist["step_s"][1:m0]))
+    mined_s = float(np.mean(hist["step_s"][m0:]))
+    loss = np.asarray(hist["loss"])
+    first, last = float(loss[:10].mean()), float(loss[-10:].mean())
+    log(f"[detector] train_detector: DetectorConfig(), batch {cfg.batch_size}, {cfg.image_size} px, {cfg.scenes} "
+        f"scenes, {cfg.steps} steps, mining from step {m0}: {seconds:.1f} s incl. the held-out eval; s/step "
+        f"{plain_s:.4f} without mining, {mined_s:.4f} with (the scenes rendered on the host included) on {power}; "
+        f"loss {first:.4f} over the first 10 steps -> {last:.4f} over the last 10; held-out "
+        f"{json.dumps({k: round(v, 4) for k, v in metrics.items()})}")
+    if not (saved and np.isfinite(loss).all() and last < first and m0 == 40):
+        failed.append(f"train_detector: saved {saved}, finite {np.isfinite(loss).all()}, loss {first} -> {last}")
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        t0 = time.perf_counter()
+        full = eval_detector.main(eval_detector.DetEvalConfig(n_scenes=256))
+        t_full = time.perf_counter() - t0
+        small = {dev: eval_detector.main(eval_detector.DetEvalConfig(device=dev, n_scenes=32)) for dev in ("", "cpu")}
+    log(f"[detector] eval_detector assets/detector.npz, 256 scenes a shift, seed 777, on the card: {t_full:.1f} s "
+        f"on {power}")
+    log("[detector]   shift          recall  (DETECTOR.md r5)  det_rate  mean_iou  lm_err  | 32 scenes card / CPU")
+    worst = 0.0
+    for shift, m in full.items():
+        if shift == "fp_rates":
+            continue
+        card, cpu = small[""][shift], small["cpu"][shift]
+        worst = max(worst, abs(card["recall"] - cpu["recall"]), abs(card["det_rate"] - cpu["det_rate"]))
+        log(f"[detector]   {shift:<14} {m['recall']:.4f}  ({DETECTOR_MD_R5.get(shift, float('nan')):.3f})"
+            f"           {m['det_rate']:.4f}    {m['mean_iou']:.4f}    {m['lm_err_112px']:.3f}   | "
+            f"{card['recall']:.4f} / {cpu['recall']:.4f}")
+    for fam, rate in full["fp_rates"].items():
+        card, cpu = small[""]["fp_rates"][fam], small["cpu"]["fp_rates"][fam]
+        worst = max(worst, abs(card - cpu))
+        log(f"[detector]   fp {fam:<12} {rate:.4f}  ({DETECTOR_MD_R5_FP[fam]:.3f})  | {card:.4f} / {cpu:.4f}")
+    log(f"[detector] 32 scenes a shift, card vs CPU: worst rate difference {worst:.4f} (tol {1 / 32:.4f})")
+    if worst > 1 / 32 + 1e-9:
+        failed.append(f"eval_detector card vs CPU differ by {worst}")
+    if failed:
+        raise AssertionError(f"[detector] failed: {failed}")
+    return {"plain_s": plain_s, "mined_s": mined_s, "full": full}
 
 
 def _npz_leaves_list(tree) -> list:
@@ -2354,7 +2804,7 @@ def main() -> int:
     rows.update(phase_kernels_bwd())
     log(f"[time] kernels-bwd {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    phase_unet_vjp(power)
+    vjp_split = phase_unet_vjp(power)
     log(f"[time] unet-vjp {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     train_counts = phase_train()
@@ -2394,8 +2844,23 @@ def main() -> int:
     phase_train_step(power, unet=True)
     log(f"[time] train-unet-lora {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    phase_weights(slice_pngs)
-    log(f"[time] weights {time.perf_counter() - t:.1f} s; total {time.perf_counter() - t_start:.1f} s")
+    tokenizer_dir, tokenizer_pngs = phase_tokenizer(power)
+    log(f"[time] tokenizer {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    phase_weights(slice_pngs, tokenizer_dir, tokenizer_pngs)
+    log(f"[time] weights {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    phase_eval(power)
+    log(f"[time] eval {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    phase_unet_vjp(power, flash_bwd="recompute", beside=vjp_split)
+    log(f"[time] unet-vjp-recompute {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    phase_train_profile(power)
+    log(f"[time] train-profile {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    phase_detector(power)
+    log(f"[time] detector {time.perf_counter() - t:.1f} s; total {time.perf_counter() - t_start:.1f} s")
 
     summary = []
     for kname, main_shape, source, replaces, launches in (

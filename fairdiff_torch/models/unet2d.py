@@ -9,8 +9,8 @@ latents at 512 px; the 576-token ones of the 1280-channel blocks, head dim
 160, at 768 px) runs the flash-attention kernels on CUDA (`use_flash`, set
 here only, as the JAX package sets it for the UNet), and every feed-forward
 runs the fused GEGLU kernels on CUDA; both through autograd Functions where
-a gradient is wanted; `flash_bwd` ("split": K2 + K3, "merged": K6) picks the
-flash backward. `remat=True` recomputes each resnet and transformer block in
+a gradient is wanted; `flash_bwd` ("split": K2 + K3, "merged": K6,
+"recompute": the plain attention's autograd) picks the flash backward. `remat=True` recomputes each resnet and transformer block in
 the backward instead of keeping its activations (`torch.utils.checkpoint`, the
 counterpart of `nn.remat` in the JAX module). A caller that runs the UNet
 under `torch.func.functional_call` with replaced weights (merged LoRA) passes

@@ -7,8 +7,11 @@ with `with_lse=True` the forward of the custom_vjp), `_dq_pallas` (K2),
 `_dkv_pallas` (K3), `_flash_backward_merged` (K6), `_flash_backward` and the
 `custom_vjp` `flash_attention` (`_fa_fwd` / `_fa_bwd`). The JAX package picks
 the merged backward with the environment variable FAIRDIFF_FLASH_BWD=merged,
-read at trace time; here it is the explicit argument
-`flash_bwd="split" | "merged"`. K6 sums dq across key blocks with fp32
+and its recompute fallback with FAIRDIFF_FLASH_BWD=recompute, read at trace
+time; here it is the explicit argument `flash_bwd="split" | "merged" |
+"recompute"`. The recompute route saves only q, k and v (its forward is K1
+without lse) and its backward differentiates the plain attention, which
+holds the [S, T] scores, as the JAX route differentiates `_xla_attention`. K6 sums dq across key blocks with fp32
 reduce-adds in no fixed order, so its dq differs from run to run in the
 last bits. Every bf16 kernel runs its products on wgmma with tiles fed by
 TMA: K1 and K2 are the query-block design (a block owns q rows and streams
@@ -58,8 +61,8 @@ launches_merged = 0
 MAX_D = 160
 MERGED_MAX_D = 128
 
-# the backward routes: K2 + K3, or K6
-FLASH_BWD = ("split", "merged")
+# the backward routes: K2 + K3, K6, or autograd through the plain attention
+FLASH_BWD = ("split", "merged", "recompute")
 # K6 sums dq in an fp32 buffer [B, H, S_pad, D], S_pad a multiple of its
 # kernel's 64-row q tile, so that every tile's bulk add is one whole
 # contiguous span
@@ -310,18 +313,28 @@ def check_flash_bwd(flash_bwd: str) -> str:
 
 class FlashAttention(torch.autograd.Function):
     """Counterpart of the JAX custom_vjp: forward with lse (K1), backward
-    through K2 and K3 (`flash_bwd="split"`) or K6 (`"merged"`). The
-    residuals are q, k, v, o and lse."""
+    through K2 and K3 (`flash_bwd="split"`) or K6 (`"merged"`), with q, k,
+    v, o and lse as the residuals; or (`"recompute"`) forward without lse
+    (K1), q, k and v the residuals, and the backward by autograd through
+    `flash_attention_plain`, recomputed."""
 
     @staticmethod
     def forward(ctx, q, k, v, flash_bwd="split"):
         ctx.flash_bwd = flash_bwd  # checked by `flash_attention`
+        if flash_bwd == "recompute":
+            ctx.save_for_backward(q, k, v)
+            return _forward(q, k, v, with_lse=False)[0]
         o, lse = flash_attention_lse(q, k, v)
         ctx.save_for_backward(q, k, v, o, lse)
         return o
 
     @staticmethod
     def backward(ctx, do):
+        if ctx.flash_bwd == "recompute":
+            qkv = [x.detach().requires_grad_() for x in ctx.saved_tensors]
+            with torch.enable_grad():
+                o = flash_attention_plain(*qkv)
+            return (*torch.autograd.grad(o, qkv, do), None)
         q, k, v, o, lse = ctx.saved_tensors
         bwd = {"split": flash_attention_bwd, "merged": flash_attention_bwd_merged}[ctx.flash_bwd]
         return (*bwd(q, k, v, o, lse, do.contiguous()), None)

@@ -84,7 +84,8 @@ class StableDiffusion:
 
     Weights start uninitialised: call `init_random(seed)`, `load_params(dir)`
     or `load_jax(params)` before use. `flash_bwd` picks the UNet's flash
-    backward ("split": K2 + K3, "merged": K6)."""
+    backward ("split": K2 + K3, "merged": K6, "recompute": the plain
+    attention's autograd)."""
 
     def __init__(self, config: SDConfig = SDConfig.sd15(), *, device: Optional[str] = None,
                  remat: bool = False, flash_bwd: str = "split"):

@@ -8,7 +8,13 @@ weights, with the guidance stack of `--guidance_dir` (`training.model_zoo`,
 without one, the synthetic stack, as the JAX CLI does. `--experiment` picks the preset; exp-5 mixes the prompt files of
 `--multi_prompts_json` (comma-separated) with `--multi_prompts_repeats`.
 `--flash_bwd merged` sends the UNet's flash backward through K6 instead of
-K2 + K3. `--debias_config FILE` merges a YAML file onto the preset's
+K2 + K3, and `--flash_bwd recompute` through the plain attention's autograd
+(the forward runs K1 without lse). `--tokenizer_dir` reads a CLIP tokenizer
+directory (`vocab.json`, `merges.txt`) with the port's own BPE; without it a
+hash tokenizer stands in, which a real text encoder cannot read.
+`--profile_steps N` first runs N steps under `torch.profiler` and writes
+their Chrome trace to `<output_dir>/trace` (`python -m
+fairdiff_torch.utils.trace_summary <output_dir>/trace` sums it by kernel). `--debias_config FILE` merges a YAML file onto the preset's
 `DebiasConfig` (e.g. `train_unet: true`; unknown keys raise), and `--config
 FILE` sets this CLI's own fields the same way.
 
@@ -54,6 +60,7 @@ from fairdiff_torch.training.model_zoo import load_guidance_stack
 from fairdiff_torch.training.presets import PRESETS
 from fairdiff_torch.training.synthetic import synthetic_stack
 from fairdiff_torch.utils import config as cfglib
+from fairdiff_torch.utils.profiling import trace_to
 
 # the JAX CLI's prompts when no --prompts_json is given
 DEFAULT_PROMPTS = (
@@ -68,13 +75,15 @@ class TrainCLIConfig:
     experiment: str = "exp1"
     sd_config: str = "sd15"  # "sd15" or "tiny": the architecture --model_dir holds
     model_dir: str = ""  # converted SD weights (tools/convert_sd); "" = seeded random weights
+    tokenizer_dir: str = ""  # a CLIP tokenizer directory; "" = the hash tokenizer
     tiny_smoke: bool = False  # tiny model and a 2-step, 4-lane step on the CPU
     prompts_json: str = ""
     # exp-5's domain mixing: comma-separated prompt files and their repeats
     multi_prompts_json: str = ""
     multi_prompts_repeats: str = "1,6,20,4"
     guidance_dir: str = ""  # "" = the synthetic stack
-    flash_bwd: str = "split"  # the UNet's flash backward: "split" (K2 + K3) or "merged" (K6)
+    # the UNet's flash backward: "split" (K2 + K3), "merged" (K6) or "recompute" (plain attention)
+    flash_bwd: str = "split"
     output_dir: str = "outputs/debias"
     # a YAML file merged onto the preset's DebiasConfig
     debias_config: str = ""
@@ -89,6 +98,8 @@ class TrainCLIConfig:
     steps: int = 0  # fixes the denoising step count (steps_low = steps_high)
     checkpoint_tmp_every: int = 20
     checkpoint_perm_every: int = 200
+    # >0: a torch.profiler trace of the first N steps to <output_dir>/trace
+    profile_steps: int = 0
 
 
 def debias_config(cfg: TrainCLIConfig) -> DebiasConfig:
@@ -170,7 +181,7 @@ def main(cfg: TrainCLIConfig, trainer: DebiasTrainer | None = None) -> DebiasSta
     `build_trainer(cfg)` unless given."""
     trainer = trainer or build_trainer(cfg)
     sd, dcfg = trainer.sd, trainer.cfg
-    tokenizer = load_tokenizer(None)
+    tokenizer = load_tokenizer(cfg.tokenizer_dir or None)
     if cfg.tiny_smoke or cfg.sd_config == "tiny":
         tokenizer.vocab_size = sd.config.text.vocab_size
         tokenizer.bos_token_id = 0
@@ -208,6 +219,10 @@ def main(cfg: TrainCLIConfig, trainer: DebiasTrainer | None = None) -> DebiasSta
     if cfg.resume_from_checkpoint and ckpt.latest_step() is not None:
         state = ckpt.restore(state)
         print(f"[train] resumed from step {state.step}", flush=True)
+    if cfg.profile_steps > 0:
+        with trace_to(Path(cfg.output_dir) / "trace", device=sd.device):
+            state = trainer.fit(state, train_ids, max_steps=state.step + cfg.profile_steps)
+        print(f"[train] trace written to {Path(cfg.output_dir) / 'trace'}", flush=True)
     state = trainer.fit(state, train_ids, val_prompt_ids=val_ids, checkpoint_cb=ckpt.maybe_save,
                         val_prompt_texts=val_prompts)
     ckpt.close()

@@ -40,7 +40,6 @@ with a `torch.Generator`; grids are PNG files.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import shutil
 import time
@@ -62,6 +61,7 @@ from fairdiff_torch.training import metrics as metrics_lib
 from fairdiff_torch.training.stack import GuidanceStack
 from fairdiff_torch.utils import grids as grids_lib
 from fairdiff_torch.utils import rng as rng_lib
+from fairdiff_torch.utils.profiling import PhaseTimers
 from fairdiff_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -120,25 +120,6 @@ class DebiasState:
     ema: dict
     step: int
     updates: int = 0  # finite updates applied: the learning-rate schedule's count
-
-
-class PhaseTimers:
-    """Wall seconds per named phase of the last step, the device synchronised
-    at each exit so a phase's time includes its device work."""
-
-    def __init__(self, device: torch.device):
-        self.device = device
-        self.last: dict[str, float] = {}
-
-    @contextlib.contextmanager
-    def __call__(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            self.last[name] = time.perf_counter() - t0
 
 
 def match_len(uncond_ids: torch.Tensor, cond_ids: torch.Tensor) -> torch.Tensor:

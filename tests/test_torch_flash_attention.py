@@ -251,10 +251,49 @@ def test_merged_plain_matches_jax_merged_kernel(monkeypatch):
         np.testing.assert_allclose(g.numpy(), w, atol=2e-5, err_msg=name)
 
 
+# -- the recompute route ----------------------------------------------------------
+# The JAX `flash_attention` with FAIRDIFF_FLASH_BWD=recompute keeps no lse and
+# differentiates `_xla_attention` in its backward; the port's
+# `flash_bwd="recompute"` runs the lse-free forward and differentiates
+# `flash_attention_plain`. Float32, 2e-5 absolute as above.
+
+
+@pytest.mark.parametrize("s,t,d", [(600, 300, 40), (512, 512, 64), (1024, 77, 80), (600, 300, 160)])
+def test_recompute_route_grads_match_jax_recompute(monkeypatch, s, t, d):
+    monkeypatch.setattr(pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True))
+    monkeypatch.setenv("FAIRDIFF_FLASH_BWD", "recompute")
+    q, k, v, do = _bwd_inputs(s, t, d, seed=17)
+    jloss = lambda a, b, c: jnp.sum(jfa.flash_attention(a, b, c) * jnp.asarray(do))
+    want = [np.asarray(x) for x in jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))]
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    before = tuple(getattr(tfa, n) for n in ("launches", "launches_lse", "launches_dq", "launches_dkv",
+                                             "launches_merged"))
+    out = tfa.flash_attention(tq, tk, tv, flash_bwd="recompute")
+    assert isinstance(out.grad_fn, tfa.FlashAttention._backward_cls)
+    (out * torch.from_numpy(do)).sum().backward()
+    for x, w, name in zip((tq, tk, tv), want, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(x.grad.numpy(), w, atol=2e-5, err_msg=name)
+    assert tuple(getattr(tfa, n) for n in ("launches", "launches_lse", "launches_dq", "launches_dkv",
+                                           "launches_merged")) == before  # CPU: plain versions
+
+
+def test_recompute_saves_no_lse_and_reaches_the_unet():
+    """The route's residuals are q, k and v alone, and the UNet and the
+    pipeline take it."""
+    from fairdiff_torch.sampling.pipeline import SDConfig, StableDiffusion
+
+    q, k, v = (torch.randn(1, 16, 2, 8, requires_grad=True) for _ in range(3))
+    out = tfa.flash_attention(q, k, v, flash_bwd="recompute")
+    assert len(out.grad_fn.saved_tensors) == 3
+    assert len(tfa.flash_attention(q, k, v).grad_fn.saved_tensors) == 5
+    unet = StableDiffusion(SDConfig.tiny(), device="cpu", flash_bwd="recompute").unet
+    assert {m.flash_bwd for m in unet.modules() if hasattr(m, "to_q")} == {"recompute"}
+
+
 def test_bad_flash_bwd_raises():
     q, k, v = (torch.zeros(1, 8, 2, 4) for _ in range(3))
     with pytest.raises(ValueError, match="flash_bwd"):
-        tfa.flash_attention(q, k, v, flash_bwd="recompute")
+        tfa.flash_attention(q, k, v, flash_bwd="pallas")
     from fairdiff_torch.models.unet2d import CrossAttention, UNet2DCondition, UNetConfig
     from fairdiff_torch.sampling.pipeline import SDConfig, StableDiffusion
 

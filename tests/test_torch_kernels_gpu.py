@@ -341,7 +341,67 @@ def test_flash_merged_route_through_autograd(cuda):
     assert (fa.launches_merged, fa.launches_dq, fa.launches_dkv) == (before[0] + 1, *before[1:])
     assert all(x.grad is not None and torch.isfinite(x.grad).all() for x in (q, k, v))
     with pytest.raises(ValueError, match="flash_bwd"):
-        fa.flash_attention(q, k, v, flash_bwd="recompute")
+        fa.flash_attention(q, k, v, flash_bwd="pallas")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_recompute_route_through_autograd(cuda, dtype):
+    """flash_bwd="recompute" runs K1 without lse and no backward kernel; its
+    gradients are the plain attention's autograd (the same ops, bit for
+    bit) and agree with the split route's (K1-lse, K2, K3): fp32 within
+    1e-4, bf16 within the rel L2 two bf16 backward routes are held to in a
+    pair VJP (3e-2)."""
+    q, k, v, do = _qkv_do(cuda, dtype, 64, 600, 2, 40)
+    names = ("launches", "launches_lse", "launches_dq", "launches_dkv", "launches_merged")
+
+    def grads(fn):
+        xs = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        fn(*xs).backward(do)
+        return [x.grad for x in xs]
+
+    before = [getattr(fa, n) for n in names]
+    got = grads(lambda *xs: fa.flash_attention(*xs, flash_bwd="recompute"))
+    assert [getattr(fa, n) for n in names] == [before[0] + 1, *before[1:]]
+    plain = grads(fa.flash_attention_plain)
+    split = grads(lambda *xs: fa.flash_attention(*xs, flash_bwd="split"))
+    for g, p_, s_ in zip(got, plain, split):
+        assert torch.equal(g, p_)
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, s_, atol=1e-4, rtol=1e-4)
+        else:
+            assert ((g.float() - s_.float()).norm() / s_.float().norm()).item() <= 3e-2
+
+
+def test_eval_images_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """`eval_images` on a tiny folder of face scenes (assets/detector.npz,
+    three seeded MobileNetV3-Large heads): the card's pickles against
+    `device="cpu"`: indicators and boxes equal, logits within rel L2 1e-4."""
+    import pickle
+
+    import numpy as np
+
+    from chip_smoke import DETECTOR_NPZ, _eval_heads
+    from fairdiff_torch.guidance.detector_train import render_face_scene_dr
+    from fairdiff_torch.io.images import save_png
+    from fairdiff_torch.tools import eval_images
+
+    rng = np.random.default_rng(0)
+    for i in range(6):
+        save_png(render_face_scene_dr(rng, 128)[0], tmp_path / "imgs" / "p" / f"img_{i}.png")
+    heads = _eval_heads(tmp_path)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        eval_images.main(eval_images.EvalImagesConfig(
+            device=dev, generated_imgs_dir=str(tmp_path / "imgs"), save_dir=str(tmp_path / dev),
+            detector_params=str(DETECTOR_NPZ), batch_size=4, chip_size=64, **heads))
+        with open(tmp_path / dev / "p_test_results.pkl", "rb") as f:
+            out[dev] = pickle.load(f)
+    got, want = out["cuda"], out["cpu"]
+    assert got[0].any()
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    for g, w in zip(got[2:], want[2:]):
+        assert np.linalg.norm(g - w) <= 1e-4 * np.linalg.norm(w)
 
 
 # (shape, groups): C = 960 and 2560 at 64 rows, ragged row counts (7 x 5 and
