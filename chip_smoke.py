@@ -108,7 +108,21 @@ Phases (any failure raises and exits non-zero):
      profiled step's trace, summed by `utils.trace_summary`, holds as many
      flash-fwd, flash-dq, flash-dkv and GEGLU kernels as the launch counters
      counted; the device total against the step's wall;
- 26. detector: `train_detector` at the shipped recipe's shapes for 100 steps
+ 26. facerec: the face-recognition path at full width on data the phase
+     draws (8631 one-face class folders of 112x112 PNGs listed by
+     `create_facerec_list`, 256 verification pairs, 512 IJB loose crops with
+     5-point landmarks): `train_facerec` on vggface2_sfnet20_sphereface.yml
+     through base.yml (sfnet20_deprecated, SphereFace, batch 512, head
+     [512, 8631]) for 20 steps with validation and checkpoints at 10 and 20:
+     s/step with and without the loader, the loader's img/s alone, peak
+     memory; two steps at batch 16 from the trained weights on the card and
+     the CPU (loss and every leaf within 1e-3) and the first step's gradients
+     at the seeded init against fp64 (the card's worst leaf within 1.5x the
+     CPU's); IResNet-100 for 3 steps at batch 256 with an MS1M head; all 11
+     heads at x [512, 512], w [512, 8631] on the card and the CPU (1e-4);
+     `eval_facerec` with the trained weights (img/s, metrics), and at a small
+     size on the card and the CPU (metrics within 1e-6);
+ 27. detector: `train_detector` at the shipped recipe's shapes for 100 steps
      (mining from step 40): s/step without and with mining, a falling finite
      loss; `eval_detector` on assets/detector.npz at 256 scenes a shift on the
      card beside docs/DETECTOR.md's table, and at 32 on the card and the CPU
@@ -140,6 +154,7 @@ import torch
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak (datasheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bandwidth (datasheet)
+PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores (datasheet); facerec runs fp32 without TF32
 # exponentials a second on the H100 SXM's special-function units (16 per SM
 # per clock, 132 SMs, 1.83 GHz): at head dim 40 they bound flash attention
 # harder than the tensor cores
@@ -1455,7 +1470,7 @@ def seed_guidance_dir(directory: str | Path, *, seed: int = 0, detector_npz: str
     import numpy as np
 
     from fairdiff_torch.io.adapters_io import load_adapters, save_adapters
-    from fairdiff_torch.io.from_jax import jax_tree_from_module
+    from fairdiff_torch.io import from_jax
     from fairdiff_torch.models.layers import init_weights
     from fairdiff_torch.models.mobilenet_v3 import MobileNetV3Large
     from fairdiff_torch.models.sfnet import SFNet, SFNetConfig
@@ -1468,8 +1483,8 @@ def seed_guidance_dir(directory: str | Path, *, seed: int = 0, detector_npz: str
         tree[head]["bias"] = every_lane_detects_bias(head, tree[head]["bias"].shape[0])
     save_adapters(d / "detector.npz", tree)
     g = torch.Generator().manual_seed(seed)
-    save_adapters(d / "classifier.npz", jax_tree_from_module(init_weights(MobileNetV3Large(80), g)))
-    save_adapters(d / "face_embedder.npz", jax_tree_from_module(init_weights(SFNet(SFNetConfig.sfnet20()), g)))
+    save_adapters(d / "classifier.npz", from_jax.jax_tree_from_module(init_weights(MobileNetV3Large(80), g)))
+    save_adapters(d / "face_embedder.npz", from_jax.jax_tree_from_module(init_weights(SFNet(SFNetConfig.sfnet20()), g)))
     (d / "face_embedder_variant.txt").write_text("sfnet20\n")
     return d
 
@@ -2506,7 +2521,7 @@ def _eval_heads(directory: Path) -> dict[str, str]:
     """Three seeded full-width MobileNetV3-Large heads (gender 2, race 4, age
     2 classes) written as the JAX package's `.npz` trees."""
     from fairdiff_torch.io.adapters_io import save_adapters
-    from fairdiff_torch.io.from_jax import jax_tree_from_module
+    from fairdiff_torch.io import from_jax
     from fairdiff_torch.models.layers import init_weights
     from fairdiff_torch.models.mobilenet_v3 import MobileNetV3Large
     from fairdiff_torch.tools.eval_images import HEADS
@@ -2515,7 +2530,7 @@ def _eval_heads(directory: Path) -> dict[str, str]:
     paths = {}
     for name, n_cls in HEADS:
         paths[f"{name}_classifier"] = str(directory / f"{name}.npz")
-        save_adapters(paths[f"{name}_classifier"], jax_tree_from_module(init_weights(MobileNetV3Large(n_cls), g)))
+        save_adapters(paths[f"{name}_classifier"], from_jax.jax_tree_from_module(init_weights(MobileNetV3Large(n_cls), g)))
     return paths
 
 
@@ -2700,6 +2715,498 @@ def phase_train_profile(power: str) -> dict:
     return {"device_s": device_s, "wall_s": step["step_time_s"], "counts": k}
 
 
+# ----- [facerec]: the face-recognition trainer and evaluation at full width -----
+
+FACEREC_CLASSES = 8631  # VGGFace2's training identities
+MS1M_CLASSES = 85742  # MS1M's, for the IResNet-100 head
+ARCFACE_112 = ((38.2946, 51.6963), (73.5318, 51.5014), (56.0252, 71.7366), (41.5493, 92.3655), (70.7299, 92.2041))
+FACEREC_TRAIN_TOL = 1e-3  # card vs CPU, two steps at batch 16 from the trained weights: loss and every leaf, rel L2
+# fp32 gradients at the seeded init carry up to ~4e-3 of error on either device (the ReLU net's features
+# start nearly parallel, and the weight gradients cancel across the batch; measured against fp64 on the
+# CPU): the card's worst leaf against fp64 may be at most this times the CPU's worst (the leaves' errors
+# are random in size, so one leaf's pair says little)
+FACEREC_GRAD_RATIO = 1.5
+FACEREC_HEAD_TOL = 1e-4  # card vs CPU, every head's loss (rel) and gradients (rel L2), fp32 without TF32
+FACEREC_EVAL_TOL = 1e-6  # card vs CPU, every evaluation metric (percentages)
+FACEREC_FEAT_TOL = 1e-5  # card vs CPU, the trained weights' flip-sum features, rel L2 (fp32 without TF32)
+IRESNET100_EST_GB = 25.0  # a rough estimate of IResNet-100's activations at batch 256 (fp32, ~0.1 GB an image)
+
+
+def face_identities(n: int, seed: int):
+    """Per-identity drawing parameters: skin and background colours, face
+    proportions, eye size, mouth colour."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return {"skin": rng.uniform(90, 230, (n, 3)), "bg": rng.uniform(20, 200, (n, 3)),
+            "face_w": rng.uniform(1.05, 1.45, n), "face_h": rng.uniform(1.45, 1.95, n),
+            "eye_r": rng.uniform(0.10, 0.20, n), "mouth": rng.uniform(30, 140, (n, 3))}
+
+
+def draw_faces(rng, ident, params, landmarks, size: int):
+    """uint8 [N, size, size, 3] faces drawn in numpy around 5-point
+    `landmarks` [N, 5, 2] (eyes, nose, mouth corners): a background
+    gradient, an ellipse of skin, dark eyes, a nose and a mouth, with the
+    identity's colours and proportions and a little pixel noise."""
+    import numpy as np
+
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    yy, xx = yy[None], xx[None]
+    p = {k: v[ident].astype(np.float32) for k, v in params.items()}
+    lm = landmarks.astype(np.float32)
+    eye_d = np.linalg.norm(lm[:, 1] - lm[:, 0], axis=-1)[:, None, None]
+
+    def disc(cx, cy, rx, ry):
+        return (((xx - cx[:, None, None]) / rx) ** 2 + ((yy - cy[:, None, None]) / ry) ** 2) <= 1.0
+
+    # one region label a pixel, later regions on top: 0 background, 1 skin, 2 eyes, 3 nose, 4 mouth
+    center = lm.mean(axis=1)
+    region = disc(center[:, 0], center[:, 1] - 0.2 * eye_d[:, 0, 0], p["face_w"][:, None, None] * eye_d,
+                  p["face_h"][:, None, None] * eye_d).astype(np.uint8)
+    r = p["eye_r"][:, None, None] * eye_d
+    region[disc(lm[:, 0, 0], lm[:, 0, 1], r, r) | disc(lm[:, 1, 0], lm[:, 1, 1], r, r)] = 2
+    region[disc(lm[:, 2, 0], lm[:, 2, 1], 0.12 * eye_d, 0.16 * eye_d)] = 3
+    mc = 0.5 * (lm[:, 3] + lm[:, 4])
+    half = 0.5 * np.linalg.norm(lm[:, 4] - lm[:, 3], axis=-1)[:, None, None]
+    region[disc(mc[:, 0], mc[:, 1], half, 0.14 * eye_d)] = 4
+    n = len(ident)
+    palette = np.stack([p["bg"], p["skin"], np.full((n, 3), 25.0, np.float32), 0.75 * p["skin"], p["mouth"]], 1)
+    img = palette[np.arange(n)[:, None, None], region]
+    shade = (0.6 + 0.4 * yy / size)[..., None] * (region == 0)[..., None] + (region != 0)[..., None]
+    img = img * shade + rng.integers(-4, 5, img.shape, dtype=np.int8)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def jittered_landmarks(rng, n: int, scale=(1.0, 1.0), angle: float = 0.0, shift: float = 3.0, center: float = 56.0):
+    """The ArcFace template under a random similarity (scale range, angle
+    range in radians, shift in pixels) about `center`, plus 1-px jitter."""
+    import numpy as np
+
+    t = np.asarray(ARCFACE_112, np.float64) - 56.0
+    s = rng.uniform(*scale, n)[:, None, None]
+    a = rng.uniform(-angle, angle, n)
+    rot = np.stack([np.stack([np.cos(a), -np.sin(a)], -1), np.stack([np.sin(a), np.cos(a)], -1)], -2)
+    lm = s * np.einsum("nij,kj->nki", rot, t) + center + rng.uniform(-shift, shift, (n, 1, 2))
+    return (lm + rng.normal(0.0, 1.0, lm.shape)).astype(np.float32)
+
+
+def write_pngs(items, threads: int = 8) -> None:
+    """(path, uint8 image) pairs written as unfiltered (filter 0) PNGs on a
+    thread pool (zlib releases the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from fairdiff_torch.io.images import write_png
+
+    with ThreadPoolExecutor(threads) as pool:
+        list(pool.map(lambda it: write_png(it[1], it[0]), items))
+
+
+def write_facerec_data(root: Path, seed: int = 0, classes: int = FACEREC_CLASSES, pairs: int = 256,
+                       ijb_subjects: int = 64, chunk: int = 512) -> dict:
+    """The phase's data, drawn from `seed`: a class-folder tree of 112x112
+    faces (one a class) listed by `create_facerec_list`, a verification
+    pair list (half mated: two draws of one identity), and an IJB layout of
+    144x144 loose crops with their 5-point landmarks (4 images a template,
+    2 media a template, a gallery and a probe template a subject, mated and
+    non-mated template pairs), plus a small IJB meta set over its first 4
+    subjects."""
+    import io
+
+    import numpy as np
+
+    from fairdiff_torch.tools.create_facerec_list import CreateListConfig, create_list
+
+    rng = np.random.default_rng(seed)
+    ids = face_identities(classes, seed + 1)
+    train = root / "train"
+    for s in range(0, classes, chunk):
+        ident = np.arange(s, min(s + chunk, classes))
+        imgs = draw_faces(rng, ident, ids, jittered_landmarks(rng, len(ident)), 112)
+        write_pngs([(train / f"id{k:05d}" / "0.png", img) for k, img in zip(ident, imgs)])
+    with contextlib.redirect_stdout(io.StringIO()):
+        train_ann = create_list(CreateListConfig(dataset_dir=str(train), list_path=str(root / "train_ann.txt")))
+
+    # verification pairs: mated pairs are two draws of one identity
+    half = pairs // 2
+    ident = np.concatenate([rng.choice(classes, half, replace=False)] * 2
+                           + [rng.choice(classes, half), rng.choice(classes, half)])
+    ident[3 * half:] = np.where(ident[3 * half:] == ident[2 * half:3 * half], (ident[3 * half:] + 1) % classes,
+                                ident[3 * half:])
+    imgs = draw_faces(rng, ident, ids, jittered_landmarks(rng, len(ident)), 112)
+    names = [f"p{i:04d}.png" for i in range(len(ident))]
+    write_pngs([(root / "val" / n, img) for n, img in zip(names, imgs)])
+    lines = [f"{names[i]} {names[i + half]} 1" for i in range(half)]
+    lines += [f"{names[2 * half + i]} {names[3 * half + i]} 0" for i in range(half)]
+    (root / "pairs.txt").write_text("\n".join(lines) + "\n")
+
+    # IJB: subject s has gallery template 2s and probe template 2s+1
+    meta = root / "ijb_meta"
+    meta.mkdir(parents=True, exist_ok=True)
+    n_img = ijb_subjects * 8
+    subj = np.repeat(np.arange(ijb_subjects), 8)
+    lms = jittered_landmarks(rng, n_img, scale=(0.85, 1.2), angle=0.25, shift=8.0, center=72.0)
+    imgs = draw_faces(rng, rng.choice(classes, ijb_subjects, replace=False)[subj], ids, lms, 144)
+    write_pngs([(root / "ijb" / f"{i:05d}.png", img) for i, img in enumerate(imgs)])
+    data = [f"{i:05d}.png " + " ".join(f"{v:.3f}" for v in lms[i].reshape(-1)) + f" {rng.uniform(0.5, 1.0):.3f}"
+            for i in range(n_img)]
+    tmpl = [i // 4 for i in range(n_img)]
+    tid = [f"{i:05d}.png {tmpl[i]} {2 * tmpl[i] + (i % 4) // 2}" for i in range(n_img)]
+
+    def write_meta(tag: str, n_subj: int) -> dict:
+        n = n_subj * 8
+        (meta / f"data{tag}.txt").write_text("\n".join(data[:n]) + "\n")
+        (meta / f"tid{tag}.txt").write_text("\n".join(tid[:n]) + "\n")
+        (meta / f"gallery{tag}.csv").write_text("TEMPLATE_ID,SUBJECT_ID\n" + "".join(
+            f"{2 * s},{s}\n" for s in range(n_subj)))
+        (meta / f"probe{tag}.csv").write_text("TEMPLATE_ID,SUBJECT_ID\n" + "".join(
+            f"{2 * s + 1},{s}\n" for s in range(n_subj)))
+        (meta / f"pairs{tag}.txt").write_text("".join(
+            f"{2 * s} {2 * s + 1} 1\n{2 * s} {2 * ((s + 1) % n_subj) + 1} 0\n" for s in range(n_subj)))
+        return {"type": "IJBDataset", "name": f"IJB-synthetic{tag}", "data_dir": str(root / "ijb"),
+                "meta_dir": str(meta), "data_ann_file": f"data{tag}.txt", "tmpl_ann_file": f"tid{tag}.txt",
+                "gallery_ann_files": [f"gallery{tag}.csv"], "probe_ann_files": [f"probe{tag}.csv"],
+                "pair_ann_file": f"pairs{tag}.txt", "src_landmark": [list(p) for p in ARCFACE_112]}
+
+    pair_entry = {"type": "PairDataset", "name": "pairs", "data_dir": str(root / "val"),
+                  "ann_path": str(root / "pairs.txt")}
+    (root / "pairs_small.txt").write_text("\n".join(lines[:8] + lines[half:half + 8]) + "\n")
+    return {"train": str(train), "train_ann": str(train_ann), "pair": pair_entry, "ijb": write_meta("", ijb_subjects),
+            "pair_small": dict(pair_entry, name="pairs-small", ann_path=str(root / "pairs_small.txt")),
+            "ijb_small": write_meta("_small", 4), "n_pair_images": len(names), "n_ijb_images": n_img}
+
+
+def facerec_recipe(name: str, tree: dict, **over) -> dict:
+    """A shipped recipe of the port's copy, read raw, with its `base:` made
+    absolute (so base.yml's trainer block, `lr_decay_gamma` included, stays
+    on the path) and its data pointed at the phase's tree; `over` replaces
+    top-level blocks (deep-merged)."""
+    import yaml
+
+    from fairdiff_torch.facerec.builder import CONFIG_DIR, deep_merge
+
+    recipe = yaml.safe_load((CONFIG_DIR / name).read_text())
+    recipe["base"] = str(CONFIG_DIR / recipe["base"])
+    train = {"dataset": {"type": "ClassDataset", "data_dir": tree["train"], "ann_path": tree["train_ann"]}}
+    recipe["data"] = deep_merge(recipe.get("data", {}), {"train": train, "val": {"dataset": {
+        k: v for k, v in tree["pair"].items() if k != "name"}}})
+    return deep_merge(recipe, over)
+
+
+def _reset_peak(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak_gib(device: torch.device) -> float:
+    return torch.cuda.max_memory_allocated() / 2**30 if device.type == "cuda" else float("nan")
+
+
+def train_flop_per_image(backbone, in_size: int) -> float:
+    """Convolution and linear operations of one training image through
+    `backbone` (2 per multiply-add), counted on the meta device from the
+    shapes: the forward's, times 3 for the backward's two products."""
+    count = [0.0]
+
+    def hook(m, inputs, out):
+        if isinstance(m, torch.nn.Conv2d):
+            kh, kw = m.kernel_size
+            count[0] += 2.0 * out.numel() * (m.in_channels // m.groups) * kh * kw
+        else:
+            count[0] += 2.0 * out.numel() * m.in_features
+
+    net = copy.deepcopy(backbone).to("meta")
+    handles = [m.register_forward_hook(hook) for m in net.modules()
+               if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    net(torch.empty(1, in_size, in_size, 3, device="meta"))
+    for h in handles:
+        h.remove()
+    return 3.0 * count[0]
+
+
+def _facerec_grads(trainer, tree, images, labels, dtype) -> dict:
+    """The gradient of the trainer's loss (weight decay included) in every
+    trained leaf at the parameters `tree`, computed in `dtype` on the
+    trainer's device -> name -> fp64 CPU tensor."""
+    st = trainer.init_state(params=tree)
+    params = {"backbone": {k: v.detach().to(dtype).requires_grad_() for k, v in st["params"]["backbone"].items()},
+              "head_w": st["params"]["head_w"].detach().to(dtype).requires_grad_()}
+    x = torch.as_tensor(images, device=trainer.device, dtype=dtype)
+    total, _ = trainer.loss(params, x, torch.as_tensor(labels, device=trainer.device))
+    names = [f"backbone/{k}" for k in params["backbone"]] + ["head_w"]
+    grads = torch.autograd.grad(total, [*params["backbone"].values(), params["head_w"]])
+    return {n: g.detach().double().cpu() for n, g in zip(names, grads)}
+
+
+def _params_tree(trainer, state) -> dict:
+    """A trainer state's parameters as the JAX package's tree (numpy)."""
+    tree = {"backbone": trainer.backbone_tree(state),
+            "head_w": state["params"]["head_w"].detach().cpu().numpy()}
+    if "head_b" in state["params"]:
+        tree["head_b"] = state["params"]["head_b"].detach().cpu().numpy()
+    return tree
+
+
+def phase_facerec(power: str, classes: int = FACEREC_CLASSES, steps: int = 20, batch: int = 512,
+                  batch_100: int = 256, ms1m_classes: int = MS1M_CLASSES, pairs: int = 256,
+                  ijb_subjects: int = 64) -> dict:
+    """The face-recognition path of the port at full width: `train_facerec`
+    on vggface2_sfnet20_sphereface.yml (through base.yml; sfnet20_deprecated,
+    512-d, 112 px, SphereFace s=30 m=1.5, batch 512, head [512, 8631]) for
+    20 steps with validation and a checkpoint at step 10; two steps at batch
+    16 on the card and the CPU from one init; IResNet-100
+    (ms1m_iresnet100_sphereface.yml) for 3 steps at batch 256 with an MS1M
+    head [512, 85742]; all 11 heads (SphereFace2 in C, A and M) at x [512,
+    512], w [512, 8631] on the card and the CPU; `eval_facerec` with the
+    trained weights on 256 pairs and a 512-image synthetic IJB set, and at a
+    small size on the card and the CPU. The keyword arguments cut the sizes
+    for a rehearsal; the defaults are the run's."""
+    import io
+
+    import numpy as np
+    import yaml
+
+    from fairdiff_torch.device import resolve_device
+    from fairdiff_torch.facerec.builder import build_backbone
+    from fairdiff_torch.facerec.datasets import ClassDataset, PairDataset, image_pipeline
+    from fairdiff_torch.facerec.trainer import FaceRecTrainer
+    from fairdiff_torch.fairness import margin_heads
+    from fairdiff_torch.guidance.face_feats import face_embeddings
+    from fairdiff_torch.io.adapters_io import load_adapters
+    from fairdiff_torch.io.from_jax import load_jax_params
+    from fairdiff_torch.tools import eval_facerec, train_facerec
+
+    failed = []
+    card = resolve_device("")
+    scratch = Path(__file__).resolve().parent / "build"
+    scratch.mkdir(exist_ok=True)
+    out: dict = {}
+    half = steps // 2
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        data = write_facerec_data(root / "data", classes=classes, pairs=pairs, ijb_subjects=ijb_subjects)
+        log(f"[facerec] data: {classes} class folders of one 112x112 face (unfiltered PNG), "
+            f"{data['n_pair_images']} pair images, {data['n_ijb_images']} IJB loose crops, written in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        # 1. train_facerec at full width
+        cfg_path = root / "sfnet20.yml"
+        cfg_path.write_text(yaml.safe_dump(facerec_recipe(
+            "vggface2_sfnet20_sphereface.yml", data, trainer={"max_iters": steps, "val_interval": half},
+            data={"train": {"batch_size": batch}})))
+        cli = train_facerec.FaceRecCLIConfig(config=str(cfg_path), output_dir=str(root / "run"), log_every=1,
+                                             save_every=half)
+        trainer, train_ds, _, batch_read, _ = train_facerec.build_all(cli)
+        tcfg = trainer.cfg
+        _reset_peak(card)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            state = train_facerec.main(cli)
+        wall = time.perf_counter() - t0
+        peak = _peak_gib(card)
+        recs = [json.loads(line) for line in (root / "run" / "metrics.jsonl").read_text().splitlines()]
+        recs_steps = [r for r in recs if "loss" in r]
+        val = [r for r in recs if "EER" in r]
+        loss = np.asarray([r["loss"] for r in recs_steps])
+        timed = [r for r in recs_steps if r["step"] >= 3]
+        step_s = float(np.median([r["step_s"] for r in timed]))
+        dev_s = float(np.median([r["step_s"] - r["data_s"] for r in timed]))
+        data_s = float(np.median([r["data_s"] for r in timed]))
+        t0 = time.perf_counter()
+        stream = ClassDataset(data["train"], data["train_ann"]).batches(batch, seed=1, image_size=112)
+        for _ in range(4):
+            next(stream)
+        loader = 4 * batch / (time.perf_counter() - t0)
+        head_shape = tuple(state["params"]["head_w"].shape)
+        log(f"[facerec] train_facerec vggface2_sfnet20_sphereface.yml: {trainer.backbone.__class__.__name__} "
+            f"sfnet20_deprecated 512-d 112 px, {tcfg.head} {dict(tcfg.head_kwargs)}, batch {batch}, head "
+            f"{list(head_shape)}, lr {tcfg.lr} (x{tcfg.lr_decay_rate} at {list(tcfg.lr_decay_steps)}: base.yml's "
+            f"lr_decay_gamma), fp32 without TF32, {state['step']} steps in {wall:.1f} s incl. setup, validation and "
+            f"checkpoints, on {power}")
+        flop = train_flop_per_image(trainer.backbone, 112) * batch_read
+        log(f"[facerec]   s/step (median of steps 3-{steps}, host clock, synchronised): {step_s:.4f} with the loader "
+            f"inside, {dev_s:.4f} without it (loader {data_s:.4f} s a batch in the step, "
+            f"{data_s / step_s:.1%} of the step); loader alone {loader:.1f} img/s ({batch_read / loader:.4f} s a batch "
+            f"of {batch_read}); backbone {flop / 1e12:.2f} TFLOP a step (3x the forward's convolutions and linears), "
+            f"{flop / dev_s / 1e12:.1f} TFLOP/s without the loader, {flop / dev_s / PEAK_FP32_FLOPS:.1%} of the fp32 "
+            f"peak; peak {peak:.2f} GiB")
+        log(f"[facerec]   loss: first 5 steps {loss[:5].mean():.4f}, last 5 {loss[-5:].mean():.4f}")
+        for v in val:
+            log(f"[facerec]   validation ({pairs} pairs) at step {v['step']}: "
+                + "  ".join(f"{k}={x:.4f}" for k, x in v.items() if k not in ("step", "time")))
+        saved = {n: (root / "run" / n).exists() for n in (f"backbone_{half}.npz", f"backbone_{steps}.npz",
+                                                           "backbone_final.npz")}
+        tree = load_adapters(root / "run" / "backbone_final.npz")
+        if not (state["step"] == steps and len(recs_steps) == steps and np.isfinite(loss).all()
+                and head_shape == (512, classes) and [v["step"] for v in val] == [half, steps] and all(saved.values())
+                and tcfg.lr_decay_rate == 0.1 and batch_read == batch and set(tree) >= {"layer1_0", "fc"}):
+            failed.append(f"train_facerec: steps {state['step']}, finite {np.isfinite(loss).all()}, head "
+                          f"{head_shape}, val {val}, saved {saved}")
+        out.update(step_s=step_s, device_step_s=dev_s, loader_img_s=loader, peak_gib=peak,
+                   loss_first=float(loss[:5].mean()), loss_last=float(loss[-5:].mean()), val=val)
+
+        # 2. card vs CPU: two steps at batch 16 from the trained weights, on the same batches; and the
+        # first step's gradients at the seeded init, each device's fp32 against fp64 on the CPU
+        stream = train_ds.batches(16, seed=2, image_size=112)
+        batches = [next(stream) for _ in range(2)]
+        backbone_block = facerec_recipe("vggface2_sfnet20_sphereface.yml", data)["model"]["backbone"]
+        on_card = FaceRecTrainer(build_backbone(backbone_block), tcfg, device=card)
+        on_cpu = FaceRecTrainer(build_backbone(backbone_block), tcfg, device="cpu")
+        trained = _params_tree(trainer, state)
+        runs = {}
+        for dev, tr in (("card", on_card), ("cpu", on_cpu)):
+            st, losses = tr.init_state(params=trained), []
+            for images, labels in batches:
+                st, l_ = tr.train_step(st, images, labels)
+                losses.append(l_)
+            runs[dev] = (losses, _params_tree(tr, st))
+        (lc, pc), (lh, ph) = runs["card"], runs["cpu"]
+        errs = {"/".join(k): float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+                for (k, a), (_, b) in zip(sorted(_npz_leaves(pc)), sorted(_npz_leaves(ph)))}
+        worst_loss = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+        worst = sorted(errs, key=errs.get, reverse=True)[:3]
+        log(f"[facerec] card vs CPU, 2 steps at batch 16 from the {steps}-step weights: losses "
+            f"{[round(v, 6) for v in lc]} / {[round(v, 6) for v in lh]} (worst rel {worst_loss:.3e}); every trained "
+            f"leaf rel L2 <= {errs[worst[0]]:.3e} over {len(errs)} leaves (tol {FACEREC_TRAIN_TOL}; worst "
+            + ", ".join(f"{k} {errs[k]:.2e}" for k in worst) + ")")
+        if not (worst_loss <= FACEREC_TRAIN_TOL and errs[worst[0]] <= FACEREC_TRAIN_TOL):
+            failed.append(f"card vs CPU train steps: loss {worst_loss}, leaves {[(k, errs[k]) for k in worst]}")
+        seeded = _params_tree(on_card, on_card.init_state(torch.Generator().manual_seed(5)))
+        images, labels = batches[0]
+        g_card = _facerec_grads(on_card, seeded, images, labels, torch.float32)
+        g_cpu = _facerec_grads(on_cpu, seeded, images, labels, torch.float32)
+        g_f64 = _facerec_grads(on_cpu, seeded, images, labels, torch.float64)
+        acc = {k: (rel_l2(g_card[k], g_f64[k]), rel_l2(g_cpu[k], g_f64[k])) for k in g_f64}
+        card_worst, cpu_worst = max(a for a, _ in acc.values()), max(b for _, b in acc.values())
+        log(f"[facerec] first-step gradients at the seeded init vs fp64 on the CPU, worst of {len(acc)} leaves: "
+            f"card fp32 {card_worst:.2e} ({max(acc, key=lambda k: acc[k][0])}), CPU fp32 {cpu_worst:.2e} "
+            f"({max(acc, key=lambda k: acc[k][1])}; fp32's own limit here), ratio {card_worst / cpu_worst:.3f} "
+            f"(tol {FACEREC_GRAD_RATIO})")
+        if not card_worst <= FACEREC_GRAD_RATIO * cpu_worst:
+            failed.append(f"card gradient accuracy: {card_worst} vs the CPU's {cpu_worst}")
+        del on_card, on_cpu, runs
+
+        # 3. IResNet-100 at batch 256 with an MS1M-sized head
+        ann100 = root / "ms1m_ann.txt"
+        lines = Path(data["train_ann"]).read_text().splitlines()
+        ann100.write_text("".join(f"{ln.split()[0]} {round(int(ln.split()[1]) * (ms1m_classes - 1) / (len(lines) - 1))}\n"
+                                  for ln in lines))
+        cfg100 = root / "iresnet100.yml"
+        recipe = facerec_recipe("ms1m_iresnet100_sphereface.yml", data, trainer={"max_iters": 3})
+        recipe["data"]["train"] = {"dataset": {"type": "ClassDataset", "data_dir": data["train"],
+                                               "ann_path": str(ann100)}, "batch_size": batch_100}
+        cfg100.write_text(yaml.safe_dump(recipe))
+        tr100, ds100, _, b100, _ = train_facerec.build_all(train_facerec.FaceRecCLIConfig(config=str(cfg100),
+                                                                                         device=str(card)))
+        st = tr100.init_state(torch.Generator().manual_seed(0))
+        n_params = sum(v.numel() for v in st["params"]["backbone"].values())
+        _reset_peak(card)
+        logs100 = []
+        st = tr100.fit(st, ds100.batches(b100, seed=0, image_size=112), log_every=1,
+                       logger=lambda s, l: logs100.append(l))
+        peak100 = _peak_gib(card)
+        s100 = [l["step_s"] for l in logs100]
+        d100 = [l["step_s"] - l["data_s"] for l in logs100]
+        flop100 = train_flop_per_image(tr100.backbone, 112) * b100
+        log(f"[facerec] IResNet-100 (ms1m_iresnet100_sphereface.yml, {n_params / 1e6:.1f} M backbone leaves), batch "
+            f"{b100}, head {list(st['params']['head_w'].shape)}: s/step {[round(v, 4) for v in s100]} "
+            f"(without the loader {[round(v, 4) for v in d100]}), loss {[round(l['loss'], 4) for l in logs100]}; "
+            f"{flop100 / 1e12:.2f} TFLOP a step, {flop100 / min(d100) / 1e12:.1f} TFLOP/s at the fastest step without "
+            f"the loader; peak {peak100:.2f} GiB (estimate ~{IRESNET100_EST_GB:.0f} GB of activations) on {power}")
+        if not (st["step"] == 3 and b100 == batch_100 and all(np.isfinite(l["loss"]) for l in logs100)
+                and tuple(st["params"]["head_w"].shape) == (512, ms1m_classes)):
+            failed.append(f"IResNet-100: steps {st['step']}, losses {[l['loss'] for l in logs100]}")
+        out.update(iresnet100_step_s=s100, iresnet100_peak_gib=peak100)
+        del tr100, st
+
+        # 4. every head on the card against the CPU
+        g = torch.Generator().manual_seed(11)
+        x = torch.randn(512, 512, generator=g) * 3
+        w = torch.randn(512, classes, generator=g)
+        y = torch.randint(0, classes, (512,), generator=g)
+        y[256:] = y[:256]  # repeated classes in the batch (SphereFace+'s pair mask)
+        cases = [(n, {}) for n in margin_heads.HEADS if n != "sphereface2"]
+        cases += [("sphereface2", {"magn_type": m}) for m in ("C", "A", "M")]
+        worst_head = 0.0
+        t0 = time.perf_counter()
+        for name, kw in cases:
+            res = {}
+            for dev in (card, "cpu"):
+                xs, ws = x.to(dev).requires_grad_(), w.to(dev).requires_grad_()
+                args = [ws, xs, y.to(dev)]
+                if name == "sphereface2":
+                    bs = torch.tensor(margin_heads.sphereface2_bias_init(classes, **kw), device=dev,
+                                      requires_grad=True)
+                    args = [ws, bs, xs, y.to(dev)]
+                loss_ = margin_heads.HEADS[name](*args, **kw)
+                grads = torch.autograd.grad(loss_, [a for a in args if a.requires_grad])
+                res[dev] = (loss_.item(), [gr.cpu() for gr in grads])
+            (lc_, gc_), (lh_, gh_) = res[card], res["cpu"]
+            errs = [abs(lc_ - lh_) / max(abs(lh_), 1e-30)] + [rel_l2(a, b) for a, b in zip(gc_, gh_)]
+            worst_head = max(worst_head, *errs)
+            log(f"[facerec]   head {name}{'-' + kw['magn_type'] if kw else ''}: loss {lc_:.6f} (CPU {lh_:.6f}); "
+                f"loss rel {errs[0]:.2e}, grads rel L2 {' '.join(f'{e:.2e}' for e in errs[1:])}")
+            if not (np.isfinite(lc_) and max(errs) <= FACEREC_HEAD_TOL):
+                failed.append(f"head {name} {kw}: {errs}")
+        log(f"[facerec] {len(cases)} heads at x [512, 512], w [512, {classes}] on the card vs the CPU: worst "
+            f"{worst_head:.2e} (tol {FACEREC_HEAD_TOL}), {time.perf_counter() - t0:.1f} s")
+
+        # 5. eval_facerec with the trained weights
+        weights = str(root / "run" / "backbone_final.npz")
+        ecfg = root / "eval.yml"
+        ecfg.write_text(yaml.safe_dump({"data": {"val": [{"dataset": data["pair"]}, {"dataset": data["ijb"]}]},
+                                        "model": {"backbone": backbone_block}}))
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            results = eval_facerec.main(eval_facerec.EvalFaceRecCLIConfig(device=str(card), config=str(ecfg),
+                                                                          weights=weights))
+        t_eval = time.perf_counter() - t0
+        n_eval = data["n_pair_images"] + data["n_ijb_images"]
+        for line in buf.getvalue().splitlines():
+            log(f"[facerec]   {line}")
+        log(f"[facerec] eval_facerec: {n_eval} images ({data['n_pair_images']} pair images, "
+            f"{data['n_ijb_images']} IJB crops aligned on the host) in {t_eval:.1f} s, {n_eval / t_eval:.1f} img/s "
+            f"incl. decode, alignment and flip-sum features, on {power}")
+        ok_eval = list(results) == ["pairs", "IJB-synthetic"] and all(
+            np.isfinite(v) for m in results.values() for _, v in m)
+        scfg = root / "eval_small.yml"
+        scfg.write_text(yaml.safe_dump({"data": {"val": [{"dataset": data["pair_small"]},
+                                                         {"dataset": data["ijb_small"]}]},
+                                        "model": {"backbone": backbone_block}}))
+        # The metrics are step functions of the scores' order, and the 20-step weights crowd the scores (a
+        # TPR@FPR over 4 non-mated pairs moved 25 points between card and CPU in one run): the metrics are
+        # compared on the seeded backbone (eval_facerec without --weights), whose scores spread, and the
+        # trained weights by their features on the same images.
+        small = {}
+        for dev in (str(card), "cpu"):
+            with contextlib.redirect_stdout(io.StringIO()):
+                small[dev] = eval_facerec.main(eval_facerec.EvalFaceRecCLIConfig(device=dev, config=str(scfg), seed=3))
+        on, off = small[str(card)], small["cpu"]
+        worst_eval = max(abs(a - b) for name in on for (_, a), (_, b) in zip(on[name], off[name]))
+        same_keys = all([k for k, _ in on[n]] == [k for k, _ in off[n]] for n in on)
+        small_pairs = PairDataset(**{k: v for k, v in data["pair_small"].items() if k not in ("type", "name")})
+        imgs = np.stack([image_pipeline({"path": q}, True)
+                         for q in sorted({q for pair in small_pairs.pairs for q in pair[:2]})])
+        feats = {}
+        for dev in (card, torch.device("cpu")):
+            net = load_jax_params(build_backbone(backbone_block), load_adapters(weights)).to(dev).eval()
+            with torch.no_grad():
+                feats[dev.type] = face_embeddings(net, torch.as_tensor(imgs, device=dev)).cpu()
+        feat_err = rel_l2(feats[card.type], feats["cpu"])
+        log(f"[facerec] eval_facerec small (16 pairs, 32 IJB crops, seeded backbone) card vs CPU: worst metric "
+            f"difference {worst_eval:.2e} (tol {FACEREC_EVAL_TOL}); the trained weights' flip-sum features of its "
+            f"{len(imgs)} pair images card vs CPU rel L2 {feat_err:.2e} (tol {FACEREC_FEAT_TOL}); card "
+            + "; ".join(f"{n}: " + " ".join(f"{k}={v:.4f}" for k, v in m) for n, m in on.items()))
+        if not (ok_eval and same_keys and worst_eval <= FACEREC_EVAL_TOL and feat_err <= FACEREC_FEAT_TOL):
+            failed.append(f"eval_facerec: ok {ok_eval}, keys {same_keys}, card vs CPU {worst_eval}, features {feat_err}")
+        out.update(eval_img_s=n_eval / t_eval, results=results)
+    if failed:
+        raise AssertionError(f"[facerec] failed: {failed}")
+    return out
+
+
 # the shipped detector's recall on 256 scenes a shift and its fp rates
 # (docs/DETECTOR.md, r5, measured with the JAX package on a TPU)
 DETECTOR_MD_R5 = {"train_dist": 1.000, "blur": 0.992, "offcenter": 0.996, "scale_large": 1.000,
@@ -2858,6 +3365,9 @@ def main() -> int:
     t = time.perf_counter()
     phase_train_profile(power)
     log(f"[time] train-profile {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    phase_facerec(power)
+    log(f"[time] facerec {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     phase_detector(power)
     log(f"[time] detector {time.perf_counter() - t:.1f} s; total {time.perf_counter() - t_start:.1f} s")

@@ -13,7 +13,8 @@ leaf maps by name:
     any other leaf              -> the same name: CLIP's position_embedding
                                    and class_embedding, DINOv2's cls_token,
                                    position_embeddings and layer_scale1/2,
-                                   FrozenBatchNorm's mean and var (buffers)
+                                   FrozenBatchNorm's mean and var (buffers),
+                                   IResNet's PReLU alpha
 
 `jax_tree_from_module` goes the other way, to write weight files in the
 JAX package's layout (a guidance directory made from seeded weights).

@@ -133,16 +133,22 @@ def load_png(path: str | Path) -> np.ndarray:
     return decode_png(Path(path).read_bytes(), str(path)).astype(np.float32) / 127.5 - 1.0
 
 
-def load_image(path: str | Path) -> np.ndarray:
-    """-> float32 [-1, 1] HWC RGB (the reference's read convention): PNG
-    with `load_png`, anything else (JPEG) through PIL, which must import."""
-    with open(path, "rb") as f:
-        is_png = f.read(len(_SIGNATURE)) == _SIGNATURE
-    if is_png:
-        return load_png(path)
+def read_rgb8(path: str | Path) -> np.ndarray:
+    """-> [H, W, 3] uint8 RGB as PIL's `.convert("RGB")` gives it: PNG with
+    the port's own decoder, anything else (JPEG) through PIL, which must
+    import; without it the error names the file."""
+    data = Path(path).read_bytes()
+    if data.startswith(_SIGNATURE):
+        return decode_png(data, str(path))
     try:
         from PIL import Image
     except ImportError as err:
         raise RuntimeError(f"{path}: not a PNG, and there is no JPEG decoder on this machine (no PIL)") from err
     with Image.open(path) as img:
-        return np.asarray(img.convert("RGB"), np.float32) / 127.5 - 1.0
+        return np.asarray(img.convert("RGB"))
+
+
+def load_image(path: str | Path) -> np.ndarray:
+    """-> float32 [-1, 1] HWC RGB (the reference's read convention), read
+    by `read_rgb8`."""
+    return read_rgb8(path).astype(np.float32) / 127.5 - 1.0

@@ -31,7 +31,7 @@ from fairdiff_torch.guidance.detector_train import (
     synthetic_batches,
 )
 from fairdiff_torch.io.adapters_io import save_adapters
-from fairdiff_torch.io.from_jax import jax_tree_from_module, load_jax_params
+from fairdiff_torch.io.from_jax import load_jax_params, jax_tree_from_module
 from fairdiff_torch.models.face_detector import DetectorConfig, FaceDetectorNet, decode_detections, make_detect_fn
 from fairdiff_torch.models.layers import init_weights
 from fairdiff_torch.utils import config as cfglib

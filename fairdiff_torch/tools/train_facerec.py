@@ -1,0 +1,153 @@
+"""Face-recognition training CLI (counterpart of
+fairdiff/tools/train_facerec.py; opensphere's `python train.py --config
+config/train/...yml`). YAML with `base`-block inheritance, registry
+backbones (sfnet*/iresnet*), all 11 margin heads, ClassDataset training,
+optional PairDataset verification.
+
+Schema (keys mirror the reference's data/model blocks):
+
+  data:
+    train:
+      dataset: {type: ClassDataset, data_dir: ..., ann_path: ...,
+                noise_ratio: 0.0}
+      batch_size: 512
+    val:                                 # optional
+      dataset: {type: PairDataset, data_dir: ..., ann_path: ...}
+  model:
+    backbone: {type: sfnet20, out_channel: 512}   # or a `base:` yml
+    head: {type: sphereface, s: 30.0, m: 1.5}
+  trainer:                               # FaceRecConfig fields
+    lr: 0.1
+    max_iters: 80000
+    lr_decay_steps: [40000, 60000, 70000]
+    lr_decay_gamma: 0.1                  # opensphere's key: lr_decay_rate
+
+The shipped recipes' `base.yml` sets `lr_decay_gamma` (opensphere's name
+for the MultiStepLR factor); `build_all` maps it onto `lr_decay_rate`.
+The weights go to `<output_dir>/backbone_<step>.npz` and
+`backbone_final.npz` in the JAX package's `|`-joined tree layout, the
+records to `<output_dir>/metrics.jsonl`.
+
+Usage:
+  python -m fairdiff_torch.tools.train_facerec --config cfg.yml \
+      --output_dir outputs/facerec [--max_iters N] [--device cpu]
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from pathlib import Path
+from typing import Any, Mapping, Optional
+
+import numpy as np
+import torch
+
+from fairdiff_torch.facerec.builder import build_backbone, build_head, load_config
+from fairdiff_torch.facerec.datasets import ClassDataset, PairDataset, image_pipeline
+from fairdiff_torch.facerec.trainer import FaceRecConfig, FaceRecTrainer
+from fairdiff_torch.io.adapters_io import save_adapters
+from fairdiff_torch.training.logging import MetricsLogger
+from fairdiff_torch.utils import config as cfglib
+
+
+@dataclasses.dataclass(frozen=True)
+class FaceRecCLIConfig:
+    device: str = ""  # "" = cuda; "cpu" only when asked for
+    config: str = ""
+    output_dir: str = "outputs/facerec"
+    max_iters: int = 0  # 0 => config value
+    data_mesh: int = 0  # > 1 is not ported (one card)
+    log_every: int = 100
+    save_every: int = 10000
+    seed: int = 0
+
+
+def trainer_config(cfg: dict, num_classes: int, seed: int = 0, max_iters: int = 0) -> FaceRecConfig:
+    """The recipe's `trainer` block -> FaceRecConfig, opensphere's
+    `lr_decay_gamma` taken as `lr_decay_rate`."""
+    tcfg = dict(cfg.get("trainer", {}))
+    if "lr_decay_gamma" in tcfg:
+        tcfg["lr_decay_rate"] = tcfg.pop("lr_decay_gamma")
+    if max_iters:
+        tcfg["max_iters"] = max_iters
+    if "lr_decay_steps" in tcfg:
+        tcfg["lr_decay_steps"] = tuple(tcfg["lr_decay_steps"])
+    _, head_kwargs = build_head(cfg["model"]["head"])
+    return FaceRecConfig(
+        head=cfg["model"]["head"]["type"].lower(),
+        head_kwargs=tuple(head_kwargs.items()),
+        feat_dim=int(cfg["model"]["backbone"].get("out_channel", 512)),
+        num_classes=num_classes,
+        seed=seed,
+        **tcfg,
+    )
+
+
+def build_all(cli: FaceRecCLIConfig):
+    if cli.data_mesh > 1:
+        raise NotImplementedError(
+            f"--data_mesh {cli.data_mesh}: the data mesh is not ported (ROADMAP.md queue 1, the mesh: "
+            "parallel/{mesh,tp}.py on torch.distributed); the port trains on one device")
+    cfg = load_config(cli.config)
+
+    train_ds_cfg = dict(cfg["data"]["train"]["dataset"])
+    if train_ds_cfg.pop("type") != "ClassDataset":
+        raise ValueError("data.train.dataset.type must be ClassDataset")
+    train_ds = ClassDataset(**train_ds_cfg)
+    batch_size = int(cfg["data"]["train"].get("batch_size", 512))
+
+    val_ds = None
+    if "val" in cfg.get("data", {}):
+        val_cfg = dict(cfg["data"]["val"]["dataset"])
+        if val_cfg.pop("type") == "PairDataset":
+            val_ds = PairDataset(**val_cfg)
+
+    backbone_cfg = dict(cfg["model"]["backbone"])
+    tcfg = trainer_config(cfg, train_ds.num_classes, cli.seed, cli.max_iters)
+    trainer = FaceRecTrainer(build_backbone(backbone_cfg), tcfg, device=cli.device)
+    return trainer, train_ds, val_ds, batch_size, int(backbone_cfg.get("in_size", 112))
+
+
+def main(cli: FaceRecCLIConfig, init_params: Optional[Mapping[str, Any]] = None) -> dict:
+    """Train and save; -> the final state. `init_params` (the JAX trainer's
+    `state["params"]`) replaces the seeded init."""
+    trainer, train_ds, val_ds, batch_size, in_size = build_all(cli)
+    out = Path(cli.output_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    logger = MetricsLogger(out, run_name="facerec")
+    if init_params is None:
+        state = trainer.init_state(torch.Generator().manual_seed(cli.seed))
+    else:
+        state = trainer.init_state(params=init_params)
+
+    def val_fn(state):
+        paths = sorted({p for pair in val_ds.pairs for p in pair[:2]})
+        feats = {}
+        for i in range(0, len(paths), 64):
+            chunk = paths[i: i + 64]
+            imgs = np.stack([image_pipeline({"path": p}, True) for p in chunk])
+            for p, v in zip(chunk, trainer.extract_features(state, imgs).cpu().numpy()):
+                feats[p] = v
+        return dict(val_ds.evaluate(feats))
+
+    def checkpoint_cb(st):
+        save_adapters(out / f"backbone_{st['step']}.npz", trainer.backbone_tree(st))
+
+    state = trainer.fit(
+        state,
+        train_ds.batches(batch_size, seed=cli.seed, image_size=in_size),
+        log_every=cli.log_every,
+        logger=logger,
+        val_fn=val_fn if val_ds is not None else None,
+        checkpoint_cb=checkpoint_cb,
+        save_interval=cli.save_every,
+    )
+    save_adapters(out / "backbone_final.npz", trainer.backbone_tree(state))
+    print(json.dumps({"final_step": state["step"]}))
+    logger.close()
+    return state
+
+
+if __name__ == "__main__":
+    main(cfglib.cli_parse(FaceRecCLIConfig))
