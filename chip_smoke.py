@@ -54,15 +54,16 @@ Phases (any failure raises and exits non-zero):
  13. zoo: each real-architecture guidance model (detector, MobileNetV3,
      CLIP-ViT-H/14, DINOv2 ViT-B/14, SFNet-20) at full width, bf16 against
      fp32 on the card; the detector on assets/detector.npz, card vs CPU;
- 14. train-zoo: phase 10 with bench.py's filled real-architecture zoo;
+ 14. train-zoo: phase 10 with bench.py's filled real-architecture zoo, at
+     8 lanes;
  15. train-cli-zoo: phase 9 with --guidance_dir (a directory the phase
      writes) and --flash_bwd merged: K6 launch counts, moved adapters;
  16. train-exp3: phase 10 for exp-3 (gender x race, sampled OT with 200
-     draws; 32 lanes, micro-batch 4, 19 denoising steps, synthetic stack):
+     draws; 16 lanes, micro-batch 4, 19 denoising steps, synthetic stack):
      s/step, the phase split with phase 2 on its own line, peak memory,
      exact launch counts, finite non-zero grads, a lane with a target for
      each attribute, race_gap and gender_race_gap logged;
- 17. train-exps: phase 9 for exp-2 to exp-6 (exp-2: the exported prefix
+ 17. train-exps: phase 9 for exp-2 to exp-6 at 2 denoising steps (exp-2: the exported prefix
      table moved and `gen_images` reads it back; exp-5: two prompt files
      the phase writes, repeats 1 and 6);
  18. unet-vjp-lora: phase 8 with a rank-4 UNet LoRA through the merged
@@ -71,12 +72,12 @@ Phases (any failure raises and exits non-zero):
      counts (K1 with lse, K2 and K3 at all 10 flash sites), kernel time,
      idle share, peak memory with remat on and off;
  19. train-lifecycle: `train_debias.main` on a config file the phase
-     writes (UNet and text-encoder LoRA), 4 steps unbroken against 2 steps
+     writes (UNet and text-encoder LoRA; 2 denoising steps), 4 steps unbroken against 2 steps
      resumed to 4 from a checkpoint (adapters, EMA, AdamW moments, step,
      update count and prompt order), evaluation of the adapters and their
      EMA every 2 steps (metrics.jsonl, grids), `export_checkpoint` (.npz,
      .pth) and `gen_images` reading unet_lora.pth, exact launch counts;
- 20. train-unet-lora: phase 10 with the UNet LoRA trained too;
+ 20. train-unet-lora: phase 10 with the UNet LoRA trained too, at 8 lanes;
  21. weights: real-weight loading at full width through the reference's
      file layouts: SD-1.5 (the seed `[slice]` uses) written as diffusers
      files, `convert_sd`, the loaded weights bit-equal to the init,
@@ -94,7 +95,7 @@ Phases (any failure raises and exits non-zero):
      `gen_images --tokenizer_dir` ([slice]'s settings) at full width,
      `transformers` never imported ([weights] trains with the directory);
  23. eval: the reference's bias-evaluation protocol: `gen_images` at its
-     defaults (2 prompts x 60 images, 512x512, batch 10, 30 steps) and 64
+     defaults but 30 images a prompt (2 prompts, 512x512, batch 10, 30 steps) and 64
      `render_face_scene_dr` scenes at 128 px, each folder scored by
      `eval_images` at batch 32 (SCRFD composed over assets/detector.npz,
      three seeded MobileNetV3-Large heads): pickles' shapes and dtypes, faces
@@ -113,7 +114,7 @@ Phases (any failure raises and exits non-zero):
      `create_facerec_list`, 256 verification pairs, 512 IJB loose crops with
      5-point landmarks): `train_facerec` on vggface2_sfnet20_sphereface.yml
      through base.yml (sfnet20_deprecated, SphereFace, batch 512, head
-     [512, 8631]) for 20 steps with validation and checkpoints at 10 and 20:
+     [512, 8631]) for 10 steps with validation and checkpoints at 5 and 10:
      s/step with and without the loader, the loader's img/s alone, peak
      memory; two steps at batch 16 from the trained weights on the card and
      the CPU (loss and every leaf within 1e-3) and the first step's gradients
@@ -126,7 +127,25 @@ Phases (any failure raises and exits non-zero):
      (mining from step 40): s/step without and with mining, a falling finite
      loss; `eval_detector` on assets/detector.npz at 256 scenes a shift on the
      card beside docs/DETECTOR.md's table, and at 32 on the card and the CPU
-     (rates within 1/32).
+     (rates within 1/32);
+ 28. mesh (after facerec): at SD-1.5 width, exp-1 (4 lanes, micro-batch 2,
+     4 denoising steps): a 1x1 mesh on NCCL at world size 1 bit-equal to the
+     same step without a mesh; `train_debias --distributed 1
+     --num_processes 1 --mesh_data 1` over a tcp rendezvous; two ranks on
+     the one card over gloo (data=2, 2 lanes each), their all-reduced
+     gradients at most 1.5x as far from the one-process step as the same
+     step re-chunked; inside facerec, `train_facerec
+     --data_mesh 2` at batch 512 as two gloo ranks against one process
+     (every leaf within 1e-3);
+ 29. tp: model=2 as two gloo ranks on the card against the replicated model
+     and its fp32 twin: the CFG UNet forward at 2 rows and the text encoder
+     as the bf16 UNet parity holds them, K1 at 4 local heads per launch, one
+     pair VJP's LoRA gradients (1.25x the replicated error against fp32);
+ 30. tools: bench_gen (batches 10, 16, 20), bench_attention (and --grad),
+     bench_geglu, roofline (flash, programs, report), tp_scaling
+     (trainer_pair at lanes 4-24, unet_vjp), setup_data (synthesize, check),
+     convergence_demo (20 steps on the card) and plot_curves, each with its
+     kernel launches and a JSON row with the card's name and power limit.
 
 The line before the last is the card's name and power limit from
 nvidia-smi; the one before that is the per-kernel JSON summary; the last
@@ -152,13 +171,12 @@ from pathlib import Path
 
 import torch
 
-PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak (datasheet)
-PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bandwidth (datasheet)
+from fairdiff_torch.bench import EVERY_LANE_DETECTS, every_lane_detects_bias, filled_zoo_stack
+from fairdiff_torch.tools.roofline import bound, flash_bound, time_ms
+
+# peak rates and bounds: the roofline tool's, so its flash rows and this
+# script's `bound_ms` are one computation
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores (datasheet); facerec runs fp32 without TF32
-# exponentials a second on the H100 SXM's special-function units (16 per SM
-# per clock, 132 SMs, 1.83 GHz): at head dim 40 they bound flash attention
-# harder than the tensor cores
-PEAK_EXP = 3.9e12
 N_IMAGES = 2  # CFG batch 2N = 4 in phase 3
 # phase-4 shapes: a pair VJP's CFG batch, 2p = 8 rows (exp-1 micro-batch 4)
 PAIR_ROWS = 8
@@ -193,6 +211,17 @@ UNET_REL_L2_TOL = 1e-3
 # must break.
 UNET_BF16_REL_L2_TOL = 3e-2
 UNET_BF16_ACCURACY_RATIO = 1.1
+# the timed steps of [train-zoo] and [train-unet-lora] at 8 lanes and of
+# [train-exp3] at 16 (their presets: 24 and 32), cut to keep the script
+# inside its time limit with [mesh], [tp] and [tools]; [train-step] keeps
+# exp-1's 24
+CUT_LANES = 8
+CUT_LANES_EXP3 = 16
+# and likewise [train-exps] and [train-lifecycle] at 2 denoising steps (were
+# 4), [eval] at 30 images a prompt (the protocol's 60) and [facerec]'s
+# training run at 10 steps (was 20)
+CUT_DENOISING_STEPS = 2
+CUT_FACEREC_STEPS = 10
 # one no-grad CFG UNet call at 512 px (phases 1 and 3, generation)
 UNET_CALL_LAUNCHES = {"flash_attention": 10, "geglu": 16}
 
@@ -213,29 +242,6 @@ def smi_name_power() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True,
     ).stdout.strip().splitlines()[0]
-
-
-def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def bound(flops: float, nbytes: float, exps: float = 0.0) -> tuple[float, str]:
-    """The least time for the work: the largest of tensor-core operations,
-    device-memory bytes and exponentials over their peak rates (ms, and which
-    bound it; the exp unit counts as operations)."""
-    t_ops = max(flops / PEAK_BF16_FLOPS, exps / PEAK_EXP)
-    t_bytes = nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def rel_l2(got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -349,9 +355,7 @@ def phase_kernels() -> dict[str, dict]:
             checks["failed"].append("rerun not bit-equal")
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         b, s, h, d = qs
-        bound_ms, bound_by = bound(
-            4.0 * b * h * s * t * d, 2.0 * (2 * b * s * h * d + 2 * b * t * h * d), b * h * s * t
-        )
+        bound_ms, bound_by = flash_bound(b, s, t, h, d, "fwd")
         rows[f"flash_attention/{label}"] = dict(
             shape=f"q{list(qs)} kv{list(kvs)} bf16", **checks,
             ms=time_ms(lambda: fa.flash_attention(q, k, v)),
@@ -935,8 +939,6 @@ def phase_kernels_bwd() -> dict[str, dict]:
 
         b, s, h, d = qs
         t = kvs[1]
-        qkv_bytes = 2.0 * (b * s * h * d + 2 * b * t * h * d)
-        flops, exps = 2.0 * b * h * s * t * d, float(b * h * s * t)
         qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
         sdpa_out = F.scaled_dot_product_attention(qt, kt, vt)
         dot = do.transpose(1, 2).contiguous()
@@ -946,23 +948,21 @@ def phase_kernels_bwd() -> dict[str, dict]:
             ms=time_ms(lambda: fa.flash_attention_lse(q, k, v)),
             plain_ms=time_ms(lambda: fa.flash_attention_lse_plain(q, k, v)),
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(qt.detach(), kt.detach(), vt.detach())),
-            **dict(zip(("bound_ms", "bound_by"), bound(2 * flops, qkv_bytes + 2.0 * b * s * h * d + 4.0 * b * h * s, exps))),
+            **dict(zip(("bound_ms", "bound_by"), flash_bound(b, s, t, h, d, "fwd_lse"))),
         )
         rows[f"flash_attention_dq/{label}"] = dict(
             shape=f"q{list(qs)} kv{list(kvs)} bf16",
             ms=time_ms(lambda: fa.flash_attention_dq(q, k, v, do, lse, delta)),
             plain_ms=time_ms(lambda: fa.flash_attention_dq_plain(q, k, v, do, lse, delta), iters=3),
             library_ms=sdpa_bwd,  # SDPA's whole backward (dq, dk and dv)
-            **dict(zip(("bound_ms", "bound_by"), bound(
-                3 * flops, qkv_bytes + 2.0 * 2 * b * s * h * d + 8.0 * b * h * s, exps))),
+            **dict(zip(("bound_ms", "bound_by"), flash_bound(b, s, t, h, d, "dq"))),
         )
         rows[f"flash_attention_dkv/{label}"] = dict(
             shape=f"q{list(qs)} kv{list(kvs)} bf16",
             ms=time_ms(lambda: fa.flash_attention_dkv(q, k, v, do, lse, delta)),
             plain_ms=time_ms(lambda: fa.flash_attention_dkv_plain(q, k, v, do, lse, delta), iters=3),
             library_ms=sdpa_bwd,
-            **dict(zip(("bound_ms", "bound_by"), bound(
-                4 * flops, qkv_bytes + 2.0 * b * s * h * d + 2.0 * 2 * b * t * h * d + 8.0 * b * h * s, exps))),
+            **dict(zip(("bound_ms", "bound_by"), flash_bound(b, s, t, h, d, "dkv"))),
         )
         # K6's function reads q, k, v, dO, lse and delta once and writes dq,
         # dk and dv once. Its fp32 dq reduce-adds (one [64-row, D] tile a
@@ -978,9 +978,7 @@ def phase_kernels_bwd() -> dict[str, dict]:
             library_ms=sdpa_bwd,
             reduce_gb=4.0 * -(-t // MERGED_BLOCK_KEYS) * b * h * -(-s // fa.DQ_ROWS) * fa.DQ_ROWS * d / 1e9 * k6,
             route="K6" if k6 else "K3 then K2",
-            **dict(zip(("bound_ms", "bound_by"), bound(
-                5 * flops, qkv_bytes + 2.0 * b * s * h * d + 8.0 * b * h * s
-                + 2.0 * (b * s * h * d + 2 * b * t * h * d), exps))),
+            **dict(zip(("bound_ms", "bound_by"), flash_bound(b, s, t, h, d, "merged"))),
         )
         del qt, kt, vt, sdpa_out
         torch.cuda.empty_cache()
@@ -1447,16 +1445,7 @@ def profile_pair_vjp(run, wall_s: float, tag: str = "[unet-vjp]") -> float | Non
 # the heads output their biases, so every anchor scores sigmoid(4) > 0.6, its
 # box spans 2 stride units each side and its landmarks form a face pattern
 # (in stride units) that keeps the alignment well posed
-EVERY_LANE_DETECTS = {"cls": 4.0, "box": 2.0, "kps": (-0.6, -0.4, 0.6, -0.4, 0.0, 0.2, -0.4, 0.8, 0.4, 0.8)}
 DETECTOR_NPZ = Path(__file__).resolve().parent / "assets" / "detector.npz"
-
-
-def every_lane_detects_bias(head: str, n: int):
-    """The [n] fp32 bias of detector output head `head` ("cls", "box" or
-    "kps") that `EVERY_LANE_DETECTS` gives, repeated over the anchors."""
-    import numpy as np
-
-    return np.resize(np.asarray(EVERY_LANE_DETECTS[head], np.float32), n)
 
 
 def seed_guidance_dir(directory: str | Path, *, seed: int = 0, detector_npz: str | Path = DETECTOR_NPZ) -> Path:
@@ -1487,6 +1476,31 @@ def seed_guidance_dir(directory: str | Path, *, seed: int = 0, detector_npz: str
     save_adapters(d / "face_embedder.npz", from_jax.jax_tree_from_module(init_weights(SFNet(SFNetConfig.sfnet20()), g)))
     (d / "face_embedder_variant.txt").write_text("sfnet20\n")
     return d
+
+
+_SD15: dict = {}  # (flash_bwd, seed) -> the SD-1.5 that `random_trainer` shares
+
+
+def random_trainer(cfg):
+    """`train_debias.build_trainer(cfg)` for a run on seeded random SD
+    weights and the synthetic guidance, on one SD-1.5 for each backward
+    route and seed: the first call builds it through `build_trainer`, later
+    ones put a new trainer on it, so the seeded init of about a billion
+    weights runs once. A trainer changes no weight of its model."""
+    from fairdiff_torch.tools import train_debias
+    from fairdiff_torch.training.debias import DebiasTrainer
+    from fairdiff_torch.training.synthetic import synthetic_stack
+
+    if cfg.model_dir or cfg.guidance_dir or cfg.distributed:
+        raise ValueError("random_trainer builds runs on random weights and the synthetic guidance only")
+    key = (cfg.flash_bwd, cfg.seed)
+    if key not in _SD15:
+        trainer = train_debias.build_trainer(cfg)
+        _SD15[key] = trainer.sd
+        return trainer
+    dcfg = train_debias.debias_config(cfg)
+    sd = _SD15[key]
+    return DebiasTrainer(sd, synthetic_stack(dcfg.attributes, device=sd.device), dcfg)
 
 
 def phase_train(flash_bwd: str = "split", zoo: bool = False, experiment: str = "exp1",
@@ -1533,7 +1547,7 @@ def phase_train(flash_bwd: str = "split", zoo: bool = False, experiment: str = "
             flash_bwd=flash_bwd, tokenizer_dir=tokenizer_dir,
             multi_prompts_json=multi, multi_prompts_repeats="1,6",
         )
-        trainer = train_debias.build_trainer(cfg)
+        trainer = (train_debias.build_trainer(cfg) if model_dir or guidance_dir else random_trainer(cfg))
         prefix = trainer.cfg.train_prefix
         if prefix:  # the rows main's init_state draws (the same seed)
             init_rows = trainer.init_state(cfg.seed).adapters["prefix"].detach().cpu().numpy()
@@ -1677,57 +1691,12 @@ def phase_zoo() -> dict[str, dict]:
     return rows
 
 
-def filled_zoo_stack(device: str = "cuda"):
-    """bench.py's real-architecture zoo at filled weights, in bf16: every
-    matrix-like leaf (ndim >= 2) 0 and every other leaf 0.02, so each layer
-    outputs its bias and activations stay finite at full cost; the detector
-    heads set so that every lane detects a face (`EVERY_LANE_DETECTS`), the
-    costliest path (OT targets, realism search and masked losses all on);
-    a seeded 1024-row face database."""
-    from fairdiff_torch.guidance.attributes import celeba_slices
-    from fairdiff_torch.guidance.face_feats import FaceFeatsDB
-    from fairdiff_torch.models.clip_vision import CLIPVisionConfig, CLIPVisionModel
-    from fairdiff_torch.models.dinov2 import DINOv2Config, DINOv2Model
-    from fairdiff_torch.models.face_detector import DetectorConfig, FaceDetectorNet, make_detect_fn
-    from fairdiff_torch.models.mobilenet_v3 import MobileNetV3Large
-    from fairdiff_torch.models.sfnet import SFNet, SFNetConfig
-    from fairdiff_torch.training.model_zoo import clip_feature_fn, dino_feature_fn, frozen
-    from fairdiff_torch.training.stack import GuidanceStack
-
-    def filled(module):
-        with torch.no_grad():
-            for t in [*module.parameters(), *module.buffers()]:
-                t.fill_(0.0 if t.dim() >= 2 else 0.02)
-        return frozen(module, torch.bfloat16, device)
-
-    with torch.device(device):  # build on the card: CLIP-ViT-H alone is 632M weights
-        det, mnv3, clip, dino, sfnet = (filled(ctor()) for ctor in (
-            lambda: FaceDetectorNet(DetectorConfig()), lambda: MobileNetV3Large(80),
-            lambda: CLIPVisionModel(CLIPVisionConfig.vit_h14()), lambda: DINOv2Model(DINOv2Config.vitb14()),
-            lambda: SFNet(SFNetConfig.sfnet20())))
-    with torch.no_grad():
-        for head in EVERY_LANE_DETECTS:
-            bias = getattr(det, head).bias
-            bias.copy_(torch.from_numpy(every_lane_detects_bias(head, bias.numel())))
-    g = torch.Generator().manual_seed(8)
-    db = torch.randn(1024, 512, generator=g)
-    db = (db / db.norm(dim=-1, keepdim=True)).to(device)
-    return GuidanceStack(
-        detect_fn=make_detect_fn(det, DetectorConfig()),
-        classify_fn=mnv3,
-        slices=celeba_slices(),
-        clip_feat_fn=clip_feature_fn(clip),
-        dino_feat_fn=dino_feature_fn(dino),
-        face_embed_fn=sfnet,
-        face_db=FaceFeatsDB(db, torch.zeros(1024, dtype=torch.int32, device=device), {}),
-        img_size_small=256,
-    )
-
-
-def phase_train_step(power: str, zoo: bool = False, experiment: str = "exp1", unet: bool = False) -> dict:
+def phase_train_step(power: str, zoo: bool = False, experiment: str = "exp1", unet: bool = False,
+                     lanes: int = 0) -> dict:
     """One timed step of `experiment` at its preset's shape (exp-1: 24
     lanes, exp-3: 32 and 200 OT draws; micro-batch 4; 19 denoising steps)
-    after a warm-up step, on the synthetic guidance stack or, with `zoo`,
+    after a warm-up step of 2 denoising steps (every shape the step runs),
+    on the synthetic guidance stack or, with `zoo`,
     bench.py's filled real-architecture zoo (`filled_zoo_stack`); with
     `unet`, the UNet LoRA trains too (its gradient finite and non-zero).
     exp-3 stays on the synthetic stack: the filled zoo gives every lane the
@@ -1740,15 +1709,15 @@ def phase_train_step(power: str, zoo: bool = False, experiment: str = "exp1", un
 
     tag = ("[train-zoo]" if zoo else "[train-unet-lora]" if unet else "[train-step]" if experiment == "exp1"
            else f"[train-{experiment}]")
-    cfg = train_debias.TrainCLIConfig(experiment=experiment, steps=19)
-    trainer = train_debias.build_trainer(cfg)
+    cfg = train_debias.TrainCLIConfig(experiment=experiment, steps=19, train_images_per_prompt=lanes)
+    trainer = random_trainer(cfg)
     if unet:
         trainer.cfg = dataclasses.replace(trainer.cfg, train_unet=True)
     if zoo:
         trainer.guidance = filled_zoo_stack()
     ids = train_debias.tokenize_prompts(trainer.sd, HashTokenizer(), list(train_debias.DEFAULT_PROMPTS))
     state = trainer.init_state(cfg.seed)
-    state, _ = trainer.train_step(state, ids[0])  # warm-up
+    state, _ = trainer.train_step(state, ids[0], n_steps=2)  # warm-up: every shape of the step, 2 denoising steps
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -1927,7 +1896,7 @@ def phase_train_lifecycle(steps: int = 4) -> dict[str, int]:
             max_train_steps=4, train_images_per_prompt=4, train_micro_batch=2, steps=steps, eval_interval=2,
             checkpoint_tmp_every=2, debias_config=str(config),
         )
-        trainer = train_debias.build_trainer(base)
+        trainer = random_trainer(base)
         seen: list[int] = []
         real_step = trainer.train_step
 
@@ -2535,6 +2504,7 @@ def _eval_heads(directory: Path) -> dict[str, str]:
 
 
 EVAL_PROMPTS = ["a photo of the face of a doctor, a person", "a photo of the face of a firefighter, a person"]
+EVAL_IMAGES = 30  # a prompt: the protocol's 60 halved, cut with the timed steps
 EVAL_FACE_SCENES = 64  # render_face_scene_dr at 128 px, the detector's training size
 EVAL_BOX_TOL_PX = 1e-3
 EVAL_LOGIT_REL_L2_TOL = 1e-4
@@ -2542,7 +2512,7 @@ EVAL_LOGIT_REL_L2_TOL = 1e-4
 
 def phase_eval(power: str) -> dict:
     """The reference's bias-evaluation protocol at full width: `gen_images`
-    with its defaults (2 prompts x 60 images, 512x512, batch 10, 30 steps)
+    with its defaults but `EVAL_IMAGES` a prompt (2 prompts, 512x512, batch 10, 30 steps)
     into one folder, and a folder of `render_face_scene_dr` scenes; both
     scored by `eval_images` at batch 32 with SCRFD (`scrfd_onnx`) composed
     over assets/detector.npz and three seeded heads. Checks the pickles'
@@ -2564,7 +2534,8 @@ def phase_eval(power: str) -> dict:
         tmp = Path(tmp)
         prompts = tmp / "prompts.json"
         prompts.write_text(json.dumps({"test_prompts": EVAL_PROMPTS}))
-        gcfg = gen_images.GenImagesConfig(prompts_json=str(prompts), save_dir=str(tmp / "gen"))
+        gcfg = gen_images.GenImagesConfig(prompts_json=str(prompts), save_dir=str(tmp / "gen"),
+                                          num_imgs_per_prompt=EVAL_IMAGES)
         reset_counts()
         t0 = time.perf_counter()
         written = gen_images.main(gcfg)
@@ -2573,10 +2544,10 @@ def phase_eval(power: str) -> dict:
         ran = launch_counts()
         calls = len(EVAL_PROMPTS) * -(-gcfg.num_imgs_per_prompt // gcfg.batch_size) * gcfg.num_denoising_steps
         want = {k: calls * UNET_CALL_LAUNCHES.get(k, 0) for k in ran}
-        log(f"[eval] gen_images (reference defaults): {len(written)} PNGs at 512x512, batch {gcfg.batch_size}, "
+        log(f"[eval] gen_images (reference defaults, {EVAL_IMAGES} images a prompt): {len(written)} PNGs at 512x512, batch {gcfg.batch_size}, "
             f"{gcfg.num_denoising_steps} steps in {t_gen:.1f} s incl. setup ({len(written) / t_gen:.3f} img/s) on "
             f"{power}; launches {ran} (want {want})")
-        if len(written) != 120 or ran != want:
+        if len(written) != len(EVAL_PROMPTS) * EVAL_IMAGES or ran != want:
             failed.append(f"gen_images wrote {len(written)} PNGs, launches {ran}")
 
         rng = np.random.default_rng(21)
@@ -2588,7 +2559,7 @@ def phase_eval(power: str) -> dict:
         heads = _eval_heads(zoo)
         common = dict(scrfd_onnx=str(zoo / "det_10g.onnx"), detector_params=str(DETECTOR_NPZ), batch_size=32, **heads)
 
-        for folder, n_imgs in (("gen", 120), ("faces", EVAL_FACE_SCENES)):
+        for folder, n_imgs in (("gen", len(EVAL_PROMPTS) * EVAL_IMAGES), ("faces", EVAL_FACE_SCENES)):
             files = [f for d in sorted((tmp / folder).iterdir()) for f in eval_images.list_images(d)]
             t0 = time.perf_counter()
             imgs = np.stack([load_image(f) for f in files])
@@ -2661,7 +2632,7 @@ def phase_train_profile(power: str) -> dict:
     with tempfile.TemporaryDirectory(dir=scratch) as tmp:
         cfg = train_debias.TrainCLIConfig(max_train_steps=2, train_images_per_prompt=4, train_micro_batch=2,
                                           steps=4, output_dir=str(Path(tmp) / "out"), profile_steps=1)
-        trainer = train_debias.build_trainer(cfg)
+        trainer = random_trainer(cfg)
         fit, counts = trainer.fit, []
 
         def counted_fit(*args, **kw):  # the launch counters of each fit call
@@ -2953,7 +2924,7 @@ def phase_facerec(power: str, classes: int = FACEREC_CLASSES, steps: int = 20, b
     """The face-recognition path of the port at full width: `train_facerec`
     on vggface2_sfnet20_sphereface.yml (through base.yml; sfnet20_deprecated,
     512-d, 112 px, SphereFace s=30 m=1.5, batch 512, head [512, 8631]) for
-    20 steps with validation and a checkpoint at step 10; two steps at batch
+    `steps` steps (10 in the script) with validation and a checkpoint halfway; two steps at batch
     16 on the card and the CPU from one init; IResNet-100
     (ms1m_iresnet100_sphereface.yml) for 3 steps at batch 256 with an MS1M
     head [512, 85742]; all 11 heads (SphereFace2 in C, A and M) at x [512,
@@ -3086,6 +3057,7 @@ def phase_facerec(power: str, classes: int = FACEREC_CLASSES, steps: int = 20, b
         if not card_worst <= FACEREC_GRAD_RATIO * cpu_worst:
             failed.append(f"card gradient accuracy: {card_worst} vs the CPU's {cpu_worst}")
         del on_card, on_cpu, runs
+        mesh_facerec(power, root, cfg_path, trained)
 
         # 3. IResNet-100 at batch 256 with an MS1M-sized head
         ann100 = root / "ms1m_ann.txt"
@@ -3282,6 +3254,489 @@ def _npz_leaves_list(tree) -> list:
     return [a for _, a in sorted(_npz_leaves(tree))]
 
 
+# -- the mesh, tensor parallelism and the last tools -------------------------
+
+# two ranks on the one card over gloo against one process (NCCL refuses two
+# ranks on one device), rel L2 over the gradients or outputs together. In
+# bf16 the step's adapter gradients move by 1.75e-2 when one process merely
+# re-chunks its lanes (micro-batch 4 for 2; NVIDIA H100 80GB HBM3, 700 W;
+# the split step reads 1.803e-2), so a data-split step's distance from the
+# one-process step is held to MESH_REBATCH_RATIO times the re-chunked
+# step's; three faults of the split must break that limit (each rank left
+# with its own gradients, the sum halved, the sum doubled), and the
+# all-reduced gradients must be the sum of the ranks' own (MESH_SUM_TOL). The
+# model-split pair VJP's error against fp32 is held to
+# MESH_ACCURACY_RATIO times the replicated one's. Forwards as the bf16 UNet
+# parity phase: within UNET_BF16_REL_L2_TOL of the replicated model and at
+# most UNET_BF16_ACCURACY_RATIO times its error against fp32.
+MESH_ACCURACY_RATIO = 1.25
+MESH_REBATCH_RATIO = 1.5
+MESH_SUM_TOL = 1e-6  # all-reduced vs the sum of the ranks' own gradients, rel L2 (fp32 rounding)
+MESH_FACEREC_TOL = 1e-3  # train_facerec --data_mesh 2 vs one process at batch 512, every leaf (fp32)
+MESH_TIMEOUT = 600  # seconds a two-rank launch may take before its ranks are killed
+# the [mesh] step: exp-1, 4 lanes in chunks of 2, 4 denoising steps
+MESH_STEP = dict(max_train_steps=1, train_images_per_prompt=4, train_micro_batch=2, steps=4)
+
+
+def _rank_setup() -> None:
+    """What `phase_device` sets, in a spawned rank: no TF32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _save_sd(sd, path: Path) -> None:
+    torch.save({name: m.state_dict() for name, m in sd.models().items()}, path)
+
+
+def _load_sd(weights: str, dtype: str = "bfloat16"):
+    """SD-1.5 (remat, as the trainer runs it) on the card from `_save_sd`'s
+    file, in `dtype`."""
+    from fairdiff_torch.sampling.pipeline import SDConfig, StableDiffusion
+
+    sd = StableDiffusion(dataclasses.replace(SDConfig.sd15(), dtype=dtype), remat=True)
+    state = torch.load(weights, mmap=True, weights_only=True)
+    for name, m in sd.models().items():
+        m.load_state_dict(state[name])
+    return sd
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _step_launches(steps: int, lanes: int, p: int, per_pair: dict) -> dict[str, int]:
+    """Launches of one train step: two no-grad CFG UNet calls a denoising
+    step (phases 1 and 3) and a pair VJP a step and lane chunk."""
+    return {k: 2 * steps * UNET_CALL_LAUNCHES.get(k, 0) + steps * (lanes // p) * v for k, v in per_pair.items()}
+
+
+def mesh_debias_rank(weights: str, fields: dict, noises, n_steps: int, ids) -> dict:
+    """[mesh] rank: the exp-1 step of `fields` on a data mesh of the whole
+    world, on this rank's lanes of the global noise bank."""
+    import torch.distributed as dist
+
+    from fairdiff_torch.parallel.mesh import MeshConfig, create_mesh
+    from fairdiff_torch.training.debias import DebiasConfig, DebiasTrainer
+    from fairdiff_torch.training.synthetic import synthetic_stack
+    from fairdiff_torch.utils.tree import tree_leaves
+
+    _rank_setup()
+    sd = _load_sd(weights)
+    dcfg = DebiasConfig(**fields)
+    mesh = create_mesh(MeshConfig(data=dist.get_world_size()), device=sd.device, backend="gloo")
+    trainer = DebiasTrainer(sd, synthetic_stack(dcfg.attributes, device=sd.device), dcfg, mesh=mesh)
+    state = trainer.init_state(dcfg.seed)
+    local, reduce = {}, trainer._reduce_grads
+
+    def keep_local(grads):  # this rank's gradients before the all-reduce
+        local["grads"] = [g.detach().float().clone() for g in tree_leaves(grads)]
+        return reduce(grads)
+
+    trainer._reduce_grads = keep_local
+    reset_counts()
+    t0 = time.perf_counter()
+    state, logs = trainer.train_step(state, ids, noises=noises, n_steps=n_steps)
+    torch.cuda.synchronize()
+    return {"grads": [g.float() for g in tree_leaves(trainer._last_grads)], "local": local["grads"], "logs": logs,
+            "launches": launch_counts(), "seconds": time.perf_counter() - t0}
+
+
+def phase_mesh(power: str, work: Path):
+    """[mesh]: the data mesh at full SD-1.5 width (exp-1, 4 lanes, 4
+    denoising steps): a 1x1 mesh on NCCL at world size 1 against the same
+    step without a mesh (bit-equal), `train_debias --distributed 1` at world
+    size 1 over a tcp rendezvous, and two ranks on the card over gloo (data=2,
+    2 lanes each) against the one-process step and the same step re-chunked
+    (`MESH_REBATCH_RATIO`), with three faults of the split as controls that
+    must fail that check. -> (the one-process trainer, its fp32 twin,
+    their weights file, the prompt ids) for `[tp]`."""
+    import io
+
+    import torch.distributed as dist
+
+    from fairdiff_torch.io.tokenizer import HashTokenizer
+    from fairdiff_torch.parallel.launch import spawn
+    from fairdiff_torch.parallel.mesh import MeshConfig, create_mesh
+    from fairdiff_torch.tools import train_debias
+    from fairdiff_torch.training.debias import DebiasTrainer
+    from fairdiff_torch.utils import rng as rng_lib
+    from fairdiff_torch.utils.tree import tree_leaves
+
+    failed = []
+    plain = train_debias.build_trainer(train_debias.TrainCLIConfig(**MESH_STEP))
+    sd, dcfg = plain.sd, plain.cfg
+    ids = train_debias.tokenize_prompts(sd, HashTokenizer(), list(train_debias.DEFAULT_PROMPTS))[0]
+    noises = rng_lib.train_noises(dcfg.seed, 0, sd.latent_shape(4))
+    steps = MESH_STEP["steps"]
+    want = _step_launches(steps, 4, 2, PAIR_VJP_LAUNCHES)
+
+    def one_step(tr):
+        reset_counts()
+        t0 = time.perf_counter()
+        st, logs = tr.train_step(tr.init_state(dcfg.seed), ids, noises=noises, n_steps=steps)
+        torch.cuda.synchronize()
+        return dict(adapters=tree_leaves(st.adapters), grads=tree_leaves(tr._last_grads), logs=logs,
+                    launches=launch_counts(), seconds=time.perf_counter() - t0,
+                    targets={a: t.cpu() for a, t in tr._last_targets.items()})
+
+    # 1. world size 1 on NCCL: the 1x1 mesh's step, bit for bit the plain step
+    dist.init_process_group("nccl", init_method=f"file://{work / 'store'}", world_size=1, rank=0)
+    try:
+        meshed = DebiasTrainer(sd, plain.guidance, dcfg, mesh=create_mesh(MeshConfig(data=1, model=1), device=sd.device))
+        dist.barrier()
+        runs = {"plain": one_step(plain), "mesh": one_step(meshed)}
+    finally:
+        dist.destroy_process_group()
+    p_, m_ = runs["plain"], runs["mesh"]
+    equal = (all(torch.equal(a, b) for a, b in zip(p_["adapters"], m_["adapters"]))
+             and all(torch.equal(a, b) for a, b in zip(p_["grads"], m_["grads"])) and p_["logs"] == m_["logs"])
+    log(f"[mesh] world 1 on nccl, 1x1 mesh vs no mesh, one exp-1 step (4 lanes, micro-batch 2, {steps} denoising "
+        f"steps, SD-1.5 bf16): adapters, gradients and logs bit-equal {equal}; {m_['seconds']:.3f} s (no mesh "
+        f"{p_['seconds']:.3f} s) on {power}; launches {m_['launches']} (want {want})")
+    if not (equal and m_["launches"] == want and p_["logs"]["grads_finite"] and p_["logs"]["grad_norm"] > 0):
+        failed.append(f"world-1 mesh step: bit-equal {equal}, launches {m_['launches']}, logs {m_['logs']}")
+
+    # 2. the CLI at world size 1 on NCCL over a tcp rendezvous
+    argv = ["--distributed", "1", "--coordinator_address", f"127.0.0.1:{_free_port()}", "--num_processes", "1",
+            "--process_id", "0", "--mesh_data", "1", "--output_dir", str(work / "cli")]
+    for k, v in MESH_STEP.items():
+        argv += [f"--{k}", str(v)]
+    out = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            train_debias.main(train_debias.parse_args(argv))
+        torch.cuda.synchronize()
+        joined = (dist.get_backend(), dist.get_world_size())
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    ran = launch_counts()
+    lines = [json.loads(x) for x in out.getvalue().splitlines() if x.startswith("{")]
+    log(f"[mesh] train_debias --distributed 1 --num_processes 1 --mesh_data 1: joined {joined}, "
+        f"{time.perf_counter() - t0:.2f} s incl. setup; logs {lines}; launches {ran} (want {want})")
+    if not (joined == ("nccl", 1) and [x["step"] for x in lines] == [1] and lines[0]["grads_finite"]
+            and (work / "cli" / "exported" / "te_lora.npz").exists() and ran == want):
+        failed.append(f"CLI at world 1: joined {joined}, logs {lines}, launches {ran}")
+
+    # 3. the split step's reference: the same step re-chunked (micro-batch 4)
+    runs["rebatched"] = one_step(DebiasTrainer(sd, plain.guidance, dataclasses.replace(dcfg, train_micro_batch=4)))
+    flat = {k: torch.cat([g.float().flatten().cpu() for g in r["grads"]]) for k, r in runs.items()}
+    rebatched = rel_l2(flat["rebatched"], flat["plain"])
+    same_targets = torch.equal(runs["rebatched"]["targets"]["gender"], p_["targets"]["gender"])
+    log(f"[mesh] reference: the step re-chunked (micro-batch 4) vs micro-batch 2 rel L2 {rebatched:.3e}; "
+        f"targets equal {same_targets}")
+    if not same_targets:
+        failed.append("the re-chunked step's targets differ")
+    weights = work / "sd15.pt"
+    _save_sd(sd, weights)
+    exact = DebiasTrainer(_load_sd(str(weights), "float32"), plain.guidance, dcfg)
+
+    # 4. two ranks on the card over gloo, 2 lanes each
+    torch.cuda.empty_cache()  # the ranks share the card
+    t0 = time.perf_counter()
+    ranks = spawn("chip_smoke:mesh_debias_rank", 2, backend="gloo", device="cuda", threads=4, workdir=work,
+                  timeout=MESH_TIMEOUT, kwargs=dict(weights=str(weights), fields=dataclasses.asdict(dcfg),
+                                                    noises=noises, n_steps=steps, ids=ids))
+    wall = time.perf_counter() - t0
+    want_rank = _step_launches(steps, 2, 2, PAIR_VJP_LAUNCHES)
+    flat_local = [torch.cat([g.flatten() for g in res["local"]]) for res in ranks]
+    summed = flat_local[0] + flat_local[1]
+    reduced = torch.cat([g.flatten() for g in ranks[0]["grads"]])
+    sum_err = rel_l2(reduced, summed)
+    limit = MESH_REBATCH_RATIO * rebatched
+    # faults the check must catch: no all-reduce (each rank keeps its own
+    # gradients; caught if any rank's check fails), a mean over ranks on top
+    # of the chunk norm, and the chunk norm taken from the local lanes
+    controls = {"each rank its own (worst rank)": max(rel_l2(x, flat["plain"]) for x in flat_local),
+                "sum / 2": rel_l2(summed / 2, flat["plain"]), "sum x 2": rel_l2(summed * 2, flat["plain"])}
+    shares = [round((x.norm() / summed.norm()).item(), 4) for x in flat_local]
+    log(f"[mesh] data=2: all-reduced gradients vs the sum of the ranks' own rel L2 {sum_err:.3e} (tol "
+        f"{MESH_SUM_TOL}; bit-equal {torch.equal(reduced, summed)}); each rank's share of the sum's norm "
+        f"{shares}; controls vs the one-process step " + ", ".join(f"{k} {v:.3e}" for k, v in controls.items())
+        + f" (each must exceed {limit:.3e})")
+    if not sum_err <= MESH_SUM_TOL:
+        failed.append(f"data=2: all-reduced vs summed rel L2 {sum_err}")
+    failed += [f"data=2 control {k} passed the check ({v})" for k, v in controls.items() if not v > limit]
+    for r, res in enumerate(ranks):
+        vs_one = rel_l2(torch.cat([g.flatten() for g in res["grads"]]), flat["plain"])
+        same = all(torch.equal(a, b) for a, b in zip(res["grads"], ranks[0]["grads"]))
+        log(f"[mesh] data=2 over gloo on the one card, rank {r}: step {res['seconds']:.3f} s; all-reduced gradients "
+            f"vs the one-process step rel L2 {vs_one:.3e} (<= {MESH_REBATCH_RATIO} x the re-chunked step's "
+            f"{rebatched:.3e}), equal to rank 0's {same}; train_loss {res['logs'].get('train_loss')} vs "
+            f"{p_['logs'].get('train_loss')}; launches {res['launches']} (want {want_rank})")
+        if not (vs_one <= MESH_REBATCH_RATIO * rebatched and same and res["launches"] == want_rank
+                and res["logs"]["grads_finite"]):
+            failed.append(f"data=2 rank {r}: rel L2 {vs_one}, same {same}, launches {res['launches']}")
+    log(f"[mesh] two ranks' launch {wall:.1f} s (process start, weights, step)")
+    if failed:
+        raise AssertionError(f"[mesh] failed: {failed}")
+    return plain, exact, weights, ids
+
+
+def _tp_inputs(sd, dcfg, ids):
+    """[tp]'s inputs: a CFG batch of 2 rows for the UNet, both prompts for
+    the text encoder, a rank-4 UNet LoRA and the text-encoder LoRA (`up`
+    seeded non-zero) and one pair VJP's trajectory and cotangent (2 lanes)."""
+    from fairdiff_torch.training.debias import init_adapters
+
+    g = torch.Generator().manual_seed(13)
+    cfg = dataclasses.replace(dcfg, train_unet=True, lora_rank=4)
+    adapters = init_adapters(cfg, sd.text_encoder, sd.unet, 5)
+
+    def seed_ups(node):  # `up` is 0 at init, and then no gradient reaches `down`
+        if "up" in node:
+            node["up"] = torch.randn(node["up"].shape, generator=g) * 0.01
+        for v in node.values():
+            if isinstance(v, dict):
+                seed_ups(v)
+
+    seed_ups(adapters)
+    return dict(
+        fields=dataclasses.asdict(cfg), adapters=adapters,
+        lat=torch.randn(2, 64, 64, 4, generator=g), t=torch.tensor([999, 500]),
+        ctx=torch.randn(2, 77, 768, generator=g), mask=(torch.arange(77)[None] < torch.tensor([[9], [77]])).int(),
+        te_ids=torch.cat([ids[0], ids[1]]).cpu(),
+        traj=torch.randn(1, 2, 64, 64, 4, generator=g), cot=torch.randn(1, 2, 64, 64, 4, generator=g) * 1e-2,
+        ids=tuple(x.cpu() for x in ids),
+    )
+
+
+def _tp_run(trainer, inputs: dict, checked_attention=None) -> dict:
+    """The UNet forward, the text encoder and one pair VJP of `_tp_inputs`
+    on `trainer`'s (possibly split) SD; the LoRA gradients summed over the
+    model axis."""
+    from fairdiff_torch.ops import geglu as gg
+    from fairdiff_torch.ops.flash_attention import flash_attention
+    from fairdiff_torch.training.debias import new_state
+    from fairdiff_torch.utils.tree import tree_leaves
+
+    sd, dev = trainer.sd, trainer.device
+    cuda = lambda x: x.to(dev)  # noqa: E731
+    reset_counts()
+    with torch.no_grad(), routes(checked_attention or flash_attention, gg.geglu):
+        eps = sd.unet(*(cuda(inputs[k]) for k in ("lat", "t", "ctx", "mask"))).float()
+        hidden = sd.text_encoder(cuda(inputs["te_ids"]))["last_hidden_state"].float()
+    fwd = launch_counts()
+    adapters = new_state(trainer.cfg, inputs["adapters"], dev).adapters
+    reset_counts()
+    t0 = time.perf_counter()
+    grads = trainer._reduce_grads(trainer._pair_grads(
+        adapters, cuda(inputs["traj"]), cuda(inputs["cot"]), torch.tensor([500]), *(cuda(x) for x in inputs["ids"]), 2))
+    torch.cuda.synchronize()
+    return {"eps": eps.cpu(), "hidden": hidden.cpu(), "forward_launches": fwd, "vjp_launches": launch_counts(),
+            "vjp_s": time.perf_counter() - t0,
+            "lora_grads": [g.float().cpu() for k in ("te_lora", "unet_lora") for g in tree_leaves(grads[k])]}
+
+
+def tp_rank(weights: str, inputs: dict) -> dict:
+    """[tp] rank: the SD split over a model axis of the whole world; every K1
+    launch of the UNet forward held against its plain version."""
+    import torch.distributed as dist
+
+    from fairdiff_torch.ops import flash_attention as fa
+    from fairdiff_torch.parallel.mesh import MeshConfig, create_mesh
+    from fairdiff_torch.training.debias import DebiasConfig, DebiasTrainer
+    from fairdiff_torch.training.synthetic import synthetic_stack
+
+    _rank_setup()
+    sd = _load_sd(weights)
+    dcfg = DebiasConfig(**inputs["fields"])
+    mesh = create_mesh(MeshConfig(data=1, model=dist.get_world_size()), device=sd.device, backend="gloo")
+    trainer = DebiasTrainer(sd, synthetic_stack(dcfg.attributes, device=sd.device), dcfg, mesh=mesh)
+    checks, heads = [], []
+
+    def checked(q, k, v, *_):
+        got = fa.flash_attention(q, k, v)
+        last = (k.shape[1] - 1) // 64 * 64
+        heads.append(q.shape[2])
+        checks.append(compare(got, fa.flash_attention_plain(q, k, v),
+                              fa.flash_attention_plain(q.float(), k.float(), v.float()),
+                              fa.flash_attention_plain(q, k[:, :last].contiguous(), v[:, :last].contiguous())))
+        return got
+
+    out = _tp_run(trainer, inputs, checked)
+    return dict(out, checks=checks, heads=heads)
+
+
+def phase_tp(power: str, trainer, exact, weights: Path, ids, work: Path) -> None:
+    """[tp]: the text encoder's and the UNet's attention (and the TE MLP)
+    split over model=2, as two processes on the card over gloo, against the
+    replicated model on the same weights and its fp32 twin `exact`: the
+    UNet's CFG forward at batch 2 and the text encoder as the bf16 UNet
+    parity phase holds them, every K1 launch (at 4 local heads) against its
+    plain version, and one pair VJP's LoRA gradients (UNet and text encoder)
+    to `MESH_ACCURACY_RATIO` of the replicated model's error against fp32."""
+    from fairdiff_torch.parallel.launch import spawn
+    from fairdiff_torch.training.debias import DebiasConfig, DebiasTrainer
+
+    failed = []
+    inputs = _tp_inputs(trainer.sd, trainer.cfg, ids)
+    cfg = DebiasConfig(**inputs["fields"])
+    ref = _tp_run(DebiasTrainer(trainer.sd, trainer.guidance, cfg), inputs)
+    f32 = _tp_run(DebiasTrainer(exact.sd, exact.guidance, cfg), inputs)
+    torch.cuda.empty_cache()  # the ranks share the card
+    t0 = time.perf_counter()
+    ranks = spawn("chip_smoke:tp_rank", 2, backend="gloo", device="cuda", threads=4, workdir=work,
+                  timeout=MESH_TIMEOUT, kwargs=dict(weights=str(weights), inputs=inputs))
+    wall = time.perf_counter() - t0
+    flat = lambda r: torch.cat([g.flatten() for g in r["lora_grads"]])  # noqa: E731
+    want_vjp = PAIR_VJP_LAUNCHES_LORA
+    for r, res in enumerate(ranks):
+        e = {k: (rel_l2(res[k], ref[k]), rel_l2(res[k], f32[k]), rel_l2(ref[k], f32[k])) for k in ("eps", "hidden")}
+        lora = (rel_l2(flat(res), flat(ref)), rel_l2(flat(res), flat(f32)), rel_l2(flat(ref), flat(f32)))
+        bad = [i for i, c in enumerate(res["checks"]) if c["failed"]]
+        log(f"[tp] model=2 over gloo, rank {r}: rel L2 vs replicated / vs fp32 (replicated vs fp32): UNet CFG forward "
+            f"(2 rows, bf16) {e['eps'][0]:.3e} / {e['eps'][1]:.3e} ({e['eps'][2]:.3e}), text encoder "
+            f"{e['hidden'][0]:.3e} / {e['hidden'][1]:.3e} ({e['hidden'][2]:.3e}) (tol {UNET_BF16_REL_L2_TOL:.0e}, "
+            f"{UNET_BF16_ACCURACY_RATIO} x); K1 {len(res['checks'])} launches at {sorted(set(res['heads']))} local "
+            f"heads, each against its plain version: worst elem_use {max(c['elem_use'] for c in res['checks']):.3f}, "
+            f"worst rel_l2 {max(c['rel_l2'] for c in res['checks']):.3e}, weakest control "
+            f"{min(c['control_rel_l2'] for c in res['checks']):.3e}, failed {bad}; pair VJP (rank-4 UNet LoRA and the "
+            f"TE LoRA, 2 lanes) {res['vjp_s']:.3f} s (replicated {ref['vjp_s']:.3f} s), LoRA gradients "
+            f"{lora[0]:.3e} / {lora[1]:.3e} ({lora[2]:.3e}; {MESH_ACCURACY_RATIO} x); launches forward "
+            f"{res['forward_launches']}, VJP {res['vjp_launches']} (want {want_vjp})")
+        if not (all(a <= UNET_BF16_REL_L2_TOL and b <= UNET_BF16_ACCURACY_RATIO * c for a, b, c in e.values())
+                and lora[1] <= MESH_ACCURACY_RATIO * lora[2]
+                and not bad and len(res["checks"]) == UNET_CALL_LAUNCHES["flash_attention"]
+                and set(res["heads"]) == {4} and res["vjp_launches"] == want_vjp
+                and res["forward_launches"]["flash_attention"] == UNET_CALL_LAUNCHES["flash_attention"]):
+            failed.append(f"model=2 rank {r}: {e}, lora {lora}, bad launches {bad}, heads {set(res['heads'])}, "
+                          f"launches {res['vjp_launches']}")
+    log(f"[tp] two ranks' launch {wall:.1f} s (process start, weights, checks); replicated launches "
+        f"forward {ref['forward_launches']}, VJP {ref['vjp_launches']}")
+    if ref["vjp_launches"] != want_vjp:
+        failed.append(f"replicated pair VJP launches {ref['vjp_launches']}")
+    if failed:
+        raise AssertionError(f"[tp] failed: {failed}")
+
+
+def facerec_rank(cli_fields: dict, init_params) -> int:
+    """[mesh] rank of `train_facerec --data_mesh`: the CLI's main from the
+    given weights."""
+    from fairdiff_torch.tools import train_facerec
+
+    _rank_setup()
+    return train_facerec.main(train_facerec.FaceRecCLIConfig(**cli_fields), init_params=init_params)["step"]
+
+
+def mesh_facerec(power: str, root: Path, cfg_path: Path, trained: dict, steps: int = 2) -> None:
+    """[mesh] `train_facerec --data_mesh 2` (two processes on the card over
+    gloo, 256 rows each) against one process at the recipe's batch 512,
+    `steps` steps from `[facerec]`'s trained weights: every backbone leaf
+    within `MESH_FACEREC_TOL`."""
+    import io
+
+    import numpy as np
+
+    from fairdiff_torch.io.adapters_io import load_adapters
+    from fairdiff_torch.parallel.launch import spawn
+    from fairdiff_torch.tools import train_facerec
+
+    fields = dict(config=str(cfg_path), max_iters=steps, log_every=1, save_every=steps)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        train_facerec.main(train_facerec.FaceRecCLIConfig(output_dir=str(root / "one"), **fields), init_params=trained)
+    one_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()  # the ranks share the card
+    t0 = time.perf_counter()
+    ranks = spawn("chip_smoke:facerec_rank", 2, backend="gloo", device="cuda", threads=4, workdir=root,
+                  timeout=MESH_TIMEOUT, kwargs=dict(cli_fields=dict(fields, output_dir=str(root / "two"), data_mesh=2),
+                                                    init_params=trained))
+    two_s = time.perf_counter() - t0
+    one, two = (dict(_npz_leaves(load_adapters(root / d / "backbone_final.npz"))) for d in ("one", "two"))
+    errs = {"/".join(k): float(np.linalg.norm(two[k] - a) / max(np.linalg.norm(a), 1e-30)) for k, a in one.items()}
+    worst = max(errs, key=errs.get)
+    losses = [[json.loads(x)["loss"] for x in (root / d / "metrics.jsonl").read_text().splitlines() if '"loss"' in x]
+              for d in ("one", "two")]
+    log(f"[mesh] train_facerec --data_mesh 2 (two ranks over gloo on the card, 256 rows each) vs one process, "
+        f"batch 512, {steps} steps from [facerec]'s weights: every backbone leaf rel L2 <= {errs[worst]:.3e} "
+        f"({worst}; tol {MESH_FACEREC_TOL}) over {len(errs)} leaves; losses {losses[1]} vs {losses[0]}; wall "
+        f"{two_s:.1f} s incl. process start (one process {one_s:.1f} s) on {power}")
+    if not (ranks == [steps, steps] and set(one) == set(two) and errs[worst] <= MESH_FACEREC_TOL
+            and np.allclose(losses[1], losses[0], rtol=MESH_FACEREC_TOL)):
+        raise AssertionError(f"[mesh] train_facerec --data_mesh 2 failed: {worst} {errs[worst]}, steps {ranks}")
+
+
+def phase_tools(power: str, work: Path) -> None:
+    """[tools]: every tool of this slice once at the shapes it defaults to,
+    each with its kernel launches counted around it (every kernel its path
+    runs must launch) and one JSON row: its seconds and launches beside the
+    card's name and power limit (each tool's own rows carry the card too)."""
+    import io
+
+    import numpy as np
+
+    from fairdiff_torch.tools import (bench_attention, bench_gen, bench_geglu, convergence_demo, plot_curves,
+                                      roofline, setup_data, tp_scaling)
+
+    failed = []
+
+    def run(name: str, fn, kernels: tuple[str, ...] = ()):
+        out = io.StringIO()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            result = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        ran = {k: v for k, v in launch_counts().items() if v}
+        for line in out.getvalue().splitlines():
+            log(f"[tools] {name} | {line}")
+        log(json.dumps({"tool": name, "seconds": round(seconds, 3), "launches": ran, "card": power}))
+        missing = [k for k in kernels if not ran.get(k)]
+        if missing:
+            failed.append(f"{name}: no launch of {missing}")
+        return result
+
+    lse = ("flash_attention_lse", "flash_attention_dq", "flash_attention_dkv")
+    rows = run("bench_gen --batches 10,16,20 --timed 1", lambda: bench_gen.main(["--batches", "10,16,20", "--timed", "1"]),
+               ("flash_attention", "geglu"))
+    if [r["batch"] for r in rows] != [10, 16, 20] or not all(r["img_per_s"] > 0 for r in rows):
+        failed.append(f"bench_gen rows {rows}")
+    fwd = run("bench_attention", lambda: bench_attention.main([]), ("flash_attention",))
+    grad = run("bench_attention --grad", lambda: bench_attention.main(["--grad"]),
+               lse + ("flash_attention_bwd_merged",))
+    if len(fwd) != 4 or len(grad) != 4 or max(r["max_abs_err"] for r in fwd) > 0.1:
+        failed.append(f"bench_attention rows {fwd} {grad}")
+    run("bench_geglu", lambda: bench_geglu.main([]), ("geglu", "geglu_dx"))
+    rdir = str(work / "roofline")
+    run("roofline --mode flash", lambda: roofline.main(roofline.RooflineConfig(mode="flash", out_dir=rdir)), lse)
+    run("roofline --mode programs --prog_iters 3", lambda: roofline.main(
+        roofline.RooflineConfig(mode="programs", out_dir=rdir, prog_iters=3)),
+        ("flash_attention",) + lse + ("geglu", "geglu_dx"))
+    run("roofline --mode report", lambda: roofline.main(roofline.RooflineConfig(mode="report", out_dir=rdir)))
+    run("tp_scaling --mode trainer_pair --lanes 4,8,12,24", lambda: tp_scaling.main(
+        tp_scaling.TPScalingConfig(mode="trainer_pair", lanes=(4, 8, 12, 24))), lse + ("geglu_dx",))
+    # its ranks count their own launches
+    torch.cuda.empty_cache()
+    run("tp_scaling --mode unet_vjp --lanes 4", lambda: tp_scaling.main(
+        tp_scaling.TPScalingConfig(mode="unet_vjp", lanes=(4,))))
+    bundle = work / "data-dev"
+    run("setup_data --synthetic_out", lambda: setup_data.main(setup_data.SetupDataConfig(synthetic_out=str(bundle))))
+    missing = run("setup_data --data_dir", lambda: setup_data.main(setup_data.SetupDataConfig(data_dir=str(bundle))))
+    if set(missing) != {"exp1", "exp2", "exp3", "exp4", "exp5", "exp6", "eval"}:
+        failed.append(f"setup_data check: {missing}")
+    conv = work / "convergence"
+    run("convergence_demo --steps 20", lambda: convergence_demo.main(
+        convergence_demo.DemoConfig(steps=20, output_dir=str(conv), plot=False)), ("geglu", "geglu_dx"))
+    written = run("plot_curves", lambda: plot_curves.main(plot_curves.PlotConfig(
+        metrics_jsonl=str(conv / "metrics.jsonl"), save_dir=str(conv / "curves"))))
+    recs = [json.loads(x) for x in (conv / "metrics.jsonl").read_text().splitlines()]
+    gaps = [r["gender_gap_abs"] for r in recs]
+    log(f"[tools] convergence_demo on {power}: gender_gap_abs first 5 {np.mean(gaps[:5]):.3f}, last 10 "
+        f"{np.mean(gaps[-10:]):.3f}; {len(written)} panels")
+    if len(recs) != 20 or not written or not all(r["grads_finite"] for r in recs):
+        failed.append(f"convergence_demo: {len(recs)} records, {len(written)} panels")
+    if failed:
+        raise AssertionError(f"[tools] failed: {failed}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -3330,25 +3785,25 @@ def main() -> int:
     phase_zoo()
     log(f"[time] zoo {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    phase_train_step(power, zoo=True)
+    phase_train_step(power, zoo=True, lanes=CUT_LANES)
     log(f"[time] train-zoo {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     cli_zoo_counts = phase_train(flash_bwd="merged", zoo=True)
     log(f"[time] train-cli-zoo {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    phase_train_step(power, experiment="exp3")
+    phase_train_step(power, experiment="exp3", lanes=CUT_LANES_EXP3)
     log(f"[time] train-exp3 {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    phase_train_exps()
+    phase_train_exps(steps=CUT_DENOISING_STEPS)
     log(f"[time] train-exps {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     phase_unet_vjp_lora(power)
     log(f"[time] unet-vjp-lora {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    phase_train_lifecycle()
+    phase_train_lifecycle(steps=CUT_DENOISING_STEPS)
     log(f"[time] train-lifecycle {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    phase_train_step(power, unet=True)
+    phase_train_step(power, unet=True, lanes=CUT_LANES)
     log(f"[time] train-unet-lora {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     tokenizer_dir, tokenizer_pngs = phase_tokenizer(power)
@@ -3364,10 +3819,23 @@ def main() -> int:
     log(f"[time] unet-vjp-recompute {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     phase_train_profile(power)
+    _SD15.clear()  # the last run on the shared SD-1.5
+    torch.cuda.empty_cache()
     log(f"[time] train-profile {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    phase_facerec(power)
+    phase_facerec(power, steps=CUT_FACEREC_STEPS)
     log(f"[time] facerec {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent / "build") as work:
+        trainer, exact, weights, ids = phase_mesh(power, Path(work))
+        log(f"[time] mesh {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        phase_tp(power, trainer, exact, weights, ids, Path(work))
+        del trainer, exact
+        log(f"[time] tp {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        phase_tools(power, Path(work))
+        log(f"[time] tools {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     phase_detector(power)
     log(f"[time] detector {time.perf_counter() - t:.1f} s; total {time.perf_counter() - t_start:.1f} s")

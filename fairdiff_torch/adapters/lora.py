@@ -56,7 +56,7 @@ def init_lora(
     for path, lin in _linears(module):
         if not target(path):
             continue
-        d_out, d_in = lin.weight.shape
+        d_out, d_in = lin.out_features, lin.in_features  # full sizes under tensor parallelism
         node = lora
         for name in path:
             node = node.setdefault(name, {})
@@ -67,7 +67,8 @@ def init_lora(
 
 def lora_deltas(module: nn.Module, lora: Mapping) -> dict[str, torch.Tensor]:
     """{state-dict name: (down @ up)ᵀ} in fp32, in torch's [out, in]
-    orientation, for every Linear that `lora` covers."""
+    orientation, for every Linear that `lora` covers (its slice of the
+    delta for a tensor-parallel Linear)."""
     deltas: dict[str, torch.Tensor] = {}
     for path, lin in _linears(module):
         node: Any = lora
@@ -79,6 +80,8 @@ def lora_deltas(module: nn.Module, lora: Mapping) -> dict[str, torch.Tensor]:
             if "down" not in node:
                 continue
             down, up = (_tensor(node[k], lin.weight.device) for k in ("down", "up"))
+            if hasattr(lin, "shard_lora"):  # a tensor-parallel slice (parallel/tp.py)
+                down, up = lin.shard_lora(down, up)
             deltas[".".join(path) + ".weight"] = (down @ up).T  # JAX [in, out] -> torch [out, in]
     return deltas
 

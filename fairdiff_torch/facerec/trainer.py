@@ -23,6 +23,13 @@ backbone's state dict, so FrozenBatchNorm's `mean` and `var` (buffers of the
 module, parameters of the JAX package's) are trained and decayed too. The
 backbone runs through `torch.func.functional_call` on them; the module's
 own tensors are left alone.
+
+Under a data mesh (`parallel.mesh`, one process a device) each rank runs
+the backbone on its rows of the batch; the features and labels are
+gathered so every rank computes the whole batch's head loss (SphereFace+'s
+energy term spans the batch), each rank's loss is divided by the data
+size and the gradients are summed over the data axis before the clip:
+every rank makes the single-device update.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from fairdiff_torch.guidance.face_feats import face_embeddings
 from fairdiff_torch.io.from_jax import state_dict_from_jax, jax_tree_from_module
 from fairdiff_torch.models.iresnet import PReLU
 from fairdiff_torch.models.layers import init_weights
+from fairdiff_torch.parallel.mesh import all_sum_tree, axis_size, gather_rows, gather_rows_grad, shard_batch
 from fairdiff_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -75,8 +83,10 @@ def seed_backbone(backbone: nn.Module, generator: torch.Generator) -> nn.Module:
 
 
 class FaceRecTrainer:
-    def __init__(self, backbone: nn.Module, config: FaceRecConfig, *, device: str | torch.device | None = None):
+    def __init__(self, backbone: nn.Module, config: FaceRecConfig, *, device: str | torch.device | None = None,
+                 mesh=None):
         self.device = resolve_device(device)
+        self.mesh = mesh  # a parallel.mesh DeviceMesh, or None for one device
         self.backbone = backbone.to(self.device)
         self.cfg = config
         self.head_fn = margin_heads.HEADS[config.head]
@@ -128,23 +138,33 @@ class FaceRecTrainer:
     def _forward(self, backbone: Mapping[str, torch.Tensor], images: torch.Tensor) -> torch.Tensor:
         return functional_call(self.backbone, dict(backbone), (images,))
 
-    def loss(self, params: Mapping[str, Any], images: torch.Tensor, labels: torch.Tensor):
-        """-> (loss with weight decay, the head's loss)."""
+    def loss(self, params: Mapping[str, Any], images: torch.Tensor, labels: torch.Tensor, n: int = 0):
+        """-> (loss with weight decay, the head's loss). Under a data mesh
+        `images` and `labels` are this rank's rows of a batch of `n`: the
+        head's loss is the batch's, and the first value is divided by the
+        data size, so its gradients summed over the ranks are the batch's."""
         feats = self._forward(params["backbone"], images)
+        if self.mesh is not None:
+            feats, labels = gather_rows_grad(feats, self.mesh, n), gather_rows(labels, self.mesh, n)
         wd = self.cfg.weight_decay * 0.5 * sum((w**2).sum() for w in params["backbone"].values())
         if self.cfg.head == "sphereface2":
             loss = self.head_fn(params["head_w"], params["head_b"], feats, labels, **self.head_kwargs)
         else:
             loss = self.head_fn(params["head_w"], feats, labels, **self.head_kwargs)
-        return loss + wd, loss
+        return (loss + wd) / axis_size(self.mesh, "data"), loss
 
     def train_step(self, state: dict, images, labels) -> tuple[dict, float]:
+        """One update on the batch (under a data mesh every rank passes the
+        whole batch and keeps its rows)."""
+        n = len(labels)
+        images, labels = shard_batch(self.mesh, (images, labels))
         images = torch.as_tensor(images, device=self.device)
         labels = torch.as_tensor(labels, device=self.device).long()
         params = state["params"]
         leaves = tree_leaves(params)
-        total, raw = self.loss(params, images, labels)
+        total, raw = self.loss(params, images, labels, n)
         grads = torch.autograd.grad(total, leaves)
+        grads = tree_leaves(all_sum_tree(tree_unflatten(params, list(grads)), self.mesh, "data"))
         count = state["opt"]["count"]
         lr = self.lr_at(count)
         with torch.no_grad():

@@ -148,7 +148,7 @@ class CrossAttention(nn.Module):
         # masking pad keys makes the static-77 context equal to the
         # reference's compact-length cross-attention
         bias = None if context_mask is None else expand_padding_mask(context_mask)
-        out = dot_product_attention(q, k, v, bias, self.flash_bwd, use_flash=True).reshape(B, S, C)
+        out = dot_product_attention(q, k, v, bias, self.flash_bwd, use_flash=True).reshape(B, S, -1)
         return self.to_out(out)
 
 

@@ -29,8 +29,17 @@ prompt order. At the end it saves the adapters and their EMA as `.npz`
 under `<output_dir>/exported/` (exp-2's prefix table as `prefix.npz` with
 key `prefix`, which `gen_images --load_prefix_embedding_from` reads).
 
+Several processes, one a device, train one run over a ("data", "model")
+mesh (`parallel.mesh`; `DebiasTrainer` says what each axis does):
+`--mesh_data` x `--mesh_model` (default 1 x 1, no mesh; `--mesh_data 0`
+takes the whole world divided by `--mesh_model`). The processes join with
+`--distributed 1`: torchrun's environment, or `--coordinator_address
+host:port --num_processes N --process_id i` for each. NCCL on cards, gloo
+with `--device cpu`. Only rank 0 writes files.
+
 Usage:
   python -m fairdiff_torch.tools.train_debias --experiment exp3 --max_train_steps 2
+  torchrun --nproc_per_node 2 -m fairdiff_torch.tools.train_debias --distributed 1 --mesh_data 2
   python -m fairdiff_torch.tools.train_debias --model_dir converted-sd15 --guidance_dir converted-guidance
   python -m fairdiff_torch.tools.train_debias --device cpu --tiny_smoke 1 \
       --experiment exp2 --max_train_steps 2 --output_dir outputs/debias [--guidance_dir DIR]
@@ -40,6 +49,7 @@ Usage:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import time
@@ -47,11 +57,13 @@ import typing
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 from fairdiff_torch.io.adapters_io import save_adapters
 from fairdiff_torch.io.prompts import load_multi_domain_prompts, load_occupation_prompts
 from fairdiff_torch.io.reference_adapters import REFERENCE_FILES
 from fairdiff_torch.io.tokenizer import load_tokenizer
+from fairdiff_torch.parallel.mesh import MeshConfig, barrier, create_mesh, init_distributed, is_main
 from fairdiff_torch.sampling.pipeline import SDConfig, StableDiffusion
 from fairdiff_torch.training.checkpoints import DualCadenceCheckpointer
 from fairdiff_torch.training.debias import DebiasConfig, DebiasState, DebiasTrainer
@@ -72,6 +84,17 @@ DEFAULT_PROMPTS = (
 @dataclasses.dataclass(frozen=True)
 class TrainCLIConfig:
     device: str = ""  # "" = cuda; "cpu" only when asked for
+    # the mesh: 1 x 1 = one process, no mesh; mesh_data 0 = the world
+    # divided by mesh_model; mesh_model > 1 splits the attention heads and
+    # the TE MLP (parallel/tp.py; SD-1.5: mesh_model in {1, 2, 4})
+    mesh_data: int = 1
+    mesh_model: int = 1
+    # join a process group first: torchrun's env://, or a tcp://
+    # rendezvous at coordinator_address (host:port) of num_processes
+    distributed: bool = False
+    coordinator_address: str = ""
+    num_processes: int = 0
+    process_id: int = -1
     experiment: str = "exp1"
     sd_config: str = "sd15"  # "sd15" or "tiny": the architecture --model_dir holds
     model_dir: str = ""  # converted SD weights (tools/convert_sd); "" = seeded random weights
@@ -130,7 +153,9 @@ def sd_config(cfg: TrainCLIConfig) -> SDConfig:
 def build_trainer(cfg: TrainCLIConfig) -> DebiasTrainer:
     """The trainer on the SD weights of `model_dir` (else seeded random
     ones) and the guidance stack of `guidance_dir` (else the synthetic one);
-    remat at SD-1.5 width."""
+    remat at SD-1.5 width; over the mesh of `mesh_data` x `mesh_model`."""
+    if cfg.distributed:
+        init_distributed(cfg.device, cfg.coordinator_address, cfg.num_processes, cfg.process_id)
     dcfg = debias_config(cfg)
     remat = not cfg.tiny_smoke and cfg.sd_config != "tiny"
     sd = StableDiffusion(sd_config(cfg), device=cfg.device or None, remat=remat, flash_bwd=cfg.flash_bwd)
@@ -148,7 +173,15 @@ def build_trainer(cfg: TrainCLIConfig) -> DebiasTrainer:
         if not cfg.tiny_smoke:
             print("[train] WARNING: no --guidance_dir; synthetic guidance", flush=True)
         guidance = synthetic_stack(dcfg.attributes, device=sd.device)
-    return DebiasTrainer(sd, guidance, dcfg)
+    model_axis = max(cfg.mesh_model, 1)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    data_axis = cfg.mesh_data or world // model_axis
+    mesh = None
+    if data_axis > 1 or model_axis > 1:
+        # the mesh runs on whatever backend the process group was joined with
+        mesh = create_mesh(MeshConfig(data=data_axis, model=model_axis), device=sd.device,
+                           backend=dist.get_backend() if dist.is_initialized() else None)
+    return DebiasTrainer(sd, guidance, dcfg, mesh=mesh)
 
 
 def tokenize_prompts(sd: StableDiffusion, tokenizer, prompts: list[str]) -> list[tuple]:
@@ -205,32 +238,45 @@ def main(cfg: TrainCLIConfig, trainer: DebiasTrainer | None = None) -> DebiasSta
     else:
         val_prompts, val_ids = prompts[:n_val], train_ids[:n_val]
 
+    # every rank computes the same logs, state and checkpoints; rank 0 writes them
+    main_rank = is_main()
     metrics = MetricsLogger(cfg.output_dir, use_wandb=cfg.use_wandb, run_name=cfg.experiment,
-                            config=cfglib.to_dict(dcfg))
+                            config=cfglib.to_dict(dcfg)) if main_rank else None
 
     def log(step: int, logs: dict) -> None:
-        metrics(step, logs)
-        print(json.dumps({"step": step, **logs}), flush=True)
+        if main_rank:
+            metrics(step, logs)
+            print(json.dumps({"step": step, **logs}), flush=True)
 
     trainer.logger = log
     ckpt = DualCadenceCheckpointer(Path(cfg.output_dir) / "checkpoints", tmp_every=cfg.checkpoint_tmp_every,
                                    perm_every=cfg.checkpoint_perm_every)
+
+    def save(state: DebiasState) -> None:
+        if main_rank:
+            ckpt.maybe_save(state)
+        barrier()  # no rank resumes from a checkpoint before it is whole
+
     state = trainer.init_state(cfg.seed)
     if cfg.resume_from_checkpoint and ckpt.latest_step() is not None:
         state = ckpt.restore(state)
         print(f"[train] resumed from step {state.step}", flush=True)
     if cfg.profile_steps > 0:
-        with trace_to(Path(cfg.output_dir) / "trace", device=sd.device):
+        trace_dir = Path(cfg.output_dir) / "trace"
+        with trace_to(trace_dir, device=sd.device) if main_rank else contextlib.nullcontext():
             state = trainer.fit(state, train_ids, max_steps=state.step + cfg.profile_steps)
-        print(f"[train] trace written to {Path(cfg.output_dir) / 'trace'}", flush=True)
-    state = trainer.fit(state, train_ids, val_prompt_ids=val_ids, checkpoint_cb=ckpt.maybe_save,
+        if main_rank:
+            print(f"[train] trace written to {trace_dir}", flush=True)
+    state = trainer.fit(state, train_ids, val_prompt_ids=val_ids, checkpoint_cb=save,
                         val_prompt_texts=val_prompts)
     ckpt.close()
 
-    export_dir = Path(cfg.output_dir) / "exported"
-    export_adapters(state, export_dir)
-    print(f"[train] done at step {state.step}; adapters -> {export_dir}", flush=True)
-    metrics.close()
+    if main_rank:
+        export_dir = Path(cfg.output_dir) / "exported"
+        export_adapters(state, export_dir)
+        print(f"[train] done at step {state.step}; adapters -> {export_dir}", flush=True)
+        metrics.close()
+    barrier()
     return state
 
 

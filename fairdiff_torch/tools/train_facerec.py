@@ -28,9 +28,15 @@ The weights go to `<output_dir>/backbone_<step>.npz` and
 `backbone_final.npz` in the JAX package's `|`-joined tree layout, the
 records to `<output_dir>/metrics.jsonl`.
 
+`--data_mesh N` trains data-parallel over N processes, one a device
+(each takes its rows of every batch; `FaceRecTrainer` sums the gradients):
+start them with torchrun, or join them to a process group before `main`
+(`parallel.launch`). Only rank 0 writes files.
+
 Usage:
   python -m fairdiff_torch.tools.train_facerec --config cfg.yml \
       --output_dir outputs/facerec [--max_iters N] [--device cpu]
+  torchrun --nproc_per_node 2 -m fairdiff_torch.tools.train_facerec --config cfg.yml --data_mesh 2
 """
 
 from __future__ import annotations
@@ -42,11 +48,13 @@ from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from fairdiff_torch.facerec.builder import build_backbone, build_head, load_config
 from fairdiff_torch.facerec.datasets import ClassDataset, PairDataset, image_pipeline
 from fairdiff_torch.facerec.trainer import FaceRecConfig, FaceRecTrainer
 from fairdiff_torch.io.adapters_io import save_adapters
+from fairdiff_torch.parallel.mesh import MeshConfig, barrier, create_mesh, init_distributed, is_main
 from fairdiff_torch.training.logging import MetricsLogger
 from fairdiff_torch.utils import config as cfglib
 
@@ -57,7 +65,7 @@ class FaceRecCLIConfig:
     config: str = ""
     output_dir: str = "outputs/facerec"
     max_iters: int = 0  # 0 => config value
-    data_mesh: int = 0  # > 1 is not ported (one card)
+    data_mesh: int = 0  # 0 => no mesh (single device); N > 1: N processes, data-parallel
     log_every: int = 100
     save_every: int = 10000
     seed: int = 0
@@ -85,10 +93,6 @@ def trainer_config(cfg: dict, num_classes: int, seed: int = 0, max_iters: int = 
 
 
 def build_all(cli: FaceRecCLIConfig):
-    if cli.data_mesh > 1:
-        raise NotImplementedError(
-            f"--data_mesh {cli.data_mesh}: the data mesh is not ported (ROADMAP.md queue 1, the mesh: "
-            "parallel/{mesh,tp}.py on torch.distributed); the port trains on one device")
     cfg = load_config(cli.config)
 
     train_ds_cfg = dict(cfg["data"]["train"]["dataset"])
@@ -105,7 +109,12 @@ def build_all(cli: FaceRecCLIConfig):
 
     backbone_cfg = dict(cfg["model"]["backbone"])
     tcfg = trainer_config(cfg, train_ds.num_classes, cli.seed, cli.max_iters)
-    trainer = FaceRecTrainer(build_backbone(backbone_cfg), tcfg, device=cli.device)
+    mesh = None
+    if cli.data_mesh > 1:
+        init_distributed(cli.device)
+        mesh = create_mesh(MeshConfig(data=cli.data_mesh, model=1), device=cli.device or "cuda",
+                           backend=dist.get_backend())
+    trainer = FaceRecTrainer(build_backbone(backbone_cfg), tcfg, device=cli.device, mesh=mesh)
     return trainer, train_ds, val_ds, batch_size, int(backbone_cfg.get("in_size", 112))
 
 
@@ -114,8 +123,8 @@ def main(cli: FaceRecCLIConfig, init_params: Optional[Mapping[str, Any]] = None)
     `state["params"]`) replaces the seeded init."""
     trainer, train_ds, val_ds, batch_size, in_size = build_all(cli)
     out = Path(cli.output_dir)
-    out.mkdir(parents=True, exist_ok=True)
-    logger = MetricsLogger(out, run_name="facerec")
+    main_rank = is_main()
+    logger = MetricsLogger(out, run_name="facerec") if main_rank else (lambda step, logs: None)
     if init_params is None:
         state = trainer.init_state(torch.Generator().manual_seed(cli.seed))
     else:
@@ -132,20 +141,24 @@ def main(cli: FaceRecCLIConfig, init_params: Optional[Mapping[str, Any]] = None)
         return dict(val_ds.evaluate(feats))
 
     def checkpoint_cb(st):
-        save_adapters(out / f"backbone_{st['step']}.npz", trainer.backbone_tree(st))
+        if main_rank:
+            save_adapters(out / f"backbone_{st['step']}.npz", trainer.backbone_tree(st))
+        barrier()  # no rank reads a checkpoint before it is whole
 
     state = trainer.fit(
         state,
         train_ds.batches(batch_size, seed=cli.seed, image_size=in_size),
         log_every=cli.log_every,
         logger=logger,
-        val_fn=val_fn if val_ds is not None else None,
+        val_fn=val_fn if val_ds is not None and main_rank else None,
         checkpoint_cb=checkpoint_cb,
         save_interval=cli.save_every,
     )
-    save_adapters(out / "backbone_final.npz", trainer.backbone_tree(state))
-    print(json.dumps({"final_step": state["step"]}))
-    logger.close()
+    if main_rank:
+        save_adapters(out / "backbone_final.npz", trainer.backbone_tree(state))
+        print(json.dumps({"final_step": state["step"]}))
+        logger.close()
+    barrier()
     return state
 
 

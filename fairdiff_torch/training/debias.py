@@ -29,7 +29,20 @@ same noises and logs their bias metrics and annotated grids; `fit` runs the
 steps in the JAX trainer's prompt order (replayed on resume), logs each
 step, evaluates the adapters and their EMA every `eval_interval` steps and
 hands each state to a checkpoint callback. There is no counterpart of the
-JAX trainer's jit programs, AOT warm-up or mesh sharding.
+JAX trainer's jit programs or AOT warm-up.
+
+Under a ("data", "model") mesh (`parallel.mesh`, one process a device) the
+step is the single-device step: each data rank draws the global noise bank
+and keeps its `local_slice` of the lanes; the frozen text encoder and UNet
+are split over the model axis (`parallel.tp`); the phase-1 probabilities
+are gathered so every rank solves the same targets on the host and keeps
+its rows (the reference's `customized_all_gather`); phase 4 runs on the
+local lanes in micro-batches of at most `train_micro_batch`, each loss
+scaled so the summed gradients equal the single-device step's; the LoRA
+gradients are summed over the model axis, every gradient over the data
+axis, and each rank makes the same AdamW update. Losses and logged
+metrics are global means. Evaluation runs the whole validation batch on
+every rank.
 
 Deliberate departures: the context cotangent is summed in fp32 (the JAX
 program sums it in the text encoder's dtype, bf16 at SD-1.5 width); the
@@ -55,6 +68,8 @@ from fairdiff_torch.adapters.ema import init_ema, update_ema
 from fairdiff_torch.fairness import losses as loss_lib
 from fairdiff_torch.fairness import targets as targets_lib
 from fairdiff_torch.fairness import weights as weights_lib
+from fairdiff_torch.parallel import tp as tp_lib
+from fairdiff_torch.parallel.mesh import all_sum_tree, axis_size, data_slice, gather_rows, is_main
 from fairdiff_torch.sampling import dpm_solver as dpm
 from fairdiff_torch.sampling.pipeline import StableDiffusion
 from fairdiff_torch.training import metrics as metrics_lib
@@ -173,10 +188,14 @@ class DebiasTrainer:
         sd: StableDiffusion,
         guidance: GuidanceStack,
         config: DebiasConfig,
+        *,
+        mesh=None,
     ):
         self.sd = sd
         self.guidance = guidance
         self.cfg = config
+        self.mesh = mesh  # a parallel.mesh DeviceMesh, or None for one device
+        tp_lib.shard_sd_modules(sd, mesh)
         self.device = sd.device
         self.timers = PhaseTimers(sd.device)
         # `fit` hands it (step, logs) for each step and evaluation
@@ -198,9 +217,14 @@ class DebiasTrainer:
 
     # ------------------------------------------------------------------
     @property
+    def n_data_shards(self) -> int:
+        return axis_size(self.mesh, "data")
+
+    @property
     def ot_draws(self) -> int:
-        """OT draws a step (the port has one data shard)."""
-        return self.cfg.ot_num_samples or self.cfg.ot_samples_per_shard
+        """Total OT draws a step: 100 a device all-reduced in the reference
+        (exp-3:1528-1535) -> per shard times the data shards, unless set."""
+        return self.cfg.ot_num_samples or self.cfg.ot_samples_per_shard * self.n_data_shards
 
     def make_targets(self, probs: dict[str, np.ndarray], step_rng: np.random.Generator) -> dict[str, np.ndarray]:
         """Gated targets per attribute from the phase-1 probabilities."""
@@ -370,9 +394,10 @@ class DebiasTrainer:
                 grads.update(tree_unflatten(ctx_adapters, list(g_ctx)))
         return grads
 
-    def _chain_grads(self, adapters, noises, cond_ids, uncond_ids, n_steps, targets, ori, n_chunks):
+    def _chain_grads(self, adapters, noises, cond_ids, uncond_ids, n_steps, targets, ori, n_chunks, norm):
         """The golden: per lane chunk, autograd through the grad-mode chain
-        (generate with grad_mode=True) and the loss; mean of chunk grads."""
+        (generate with grad_mode=True) and the loss; the chunk grads summed
+        over `norm` (the mean of chunk grads on one device)."""
         leaves = tree_leaves(adapters)
         acc = [torch.zeros_like(x) for x in leaves]
         m = noises.shape[0] // n_chunks
@@ -392,8 +417,16 @@ class DebiasTrainer:
                 if gi is not None:
                     a += gi
             logs.append(lg)
-        grads = tree_unflatten(adapters, [a / n_chunks for a in acc])
+        grads = tree_unflatten(adapters, [a / norm for a in acc])
         return grads, {k: torch.cat([lg[k] for lg in logs]) for k in logs[0]}
+
+    def _reduce_grads(self, grads: dict) -> dict:
+        """The LoRA gradients summed over the model axis (each model rank
+        saw its slice of the split weights; the prefix's is already whole),
+        then every gradient over the data axis."""
+        grads = {k: all_sum_tree(v, self.mesh, "model") if k in ("unet_lora", "te_lora") else v
+                 for k, v in grads.items()}
+        return all_sum_tree(grads, self.mesh, "data")
 
     def learning_rate(self, count: int) -> float:
         """The learning rate of the `count`-th finite update (0-based):
@@ -422,18 +455,29 @@ class DebiasTrainer:
         n, m = cfg.train_images_per_prompt, cfg.train_micro_batch
         if n % m:
             raise ValueError(f"train_images_per_prompt {n} must be a multiple of train_micro_batch {m}")
+        if n % self.n_data_shards:
+            raise ValueError(f"train_images_per_prompt {n} does not split over {self.n_data_shards} data shards")
+        # this rank's lanes, in chunks of m_loc; each chunk's mean loss is
+        # divided by `norm`, so the gradients summed over the data axis are
+        # the single-device step's mean of chunk means
+        lanes = data_slice(self.mesh, n)
+        n_loc = n // self.n_data_shards
+        m_loc = min(m, n_loc)
+        if n_loc % m_loc:
+            raise ValueError(f"{n_loc} lanes a data shard must be a multiple of train_micro_batch {m}")
+        n_chunks, norm = n_loc // m_loc, n // m_loc
         if n_steps is None:
             n_steps = rng_lib.sample_num_denoising_steps(cfg.seed, step, cfg.steps_low, cfg.steps_high)
         if noises is None:
             noises = rng_lib.train_noises(cfg.seed, step, sd.latent_shape(n))
         noises = torch.as_tensor(np.array(noises, np.float32) if not torch.is_tensor(noises) else noises).float().to(dev)
+        noises = noises[lanes]
         cond_raw, uncond_raw = (torch.as_tensor(x).to(dev).long() for x in prompt_ids)
         # phases 1 and 4 condition on the prefixed prompt, phase 3 on the plain one
         cond_ids = self._prefix_ids(cond_raw)
         uncond_ids = match_len(uncond_raw, cond_ids)
         adapters = state.adapters
         gs = cfg.guidance_scale
-        n_chunks = n // m
 
         # ---- phase 1: current adapters, analyse; keep the trajectory ----
         with self.timers("phase1_sample_analyze"), torch.no_grad():
@@ -448,13 +492,14 @@ class DebiasTrainer:
             images3 = sd.generate(noises, cond_raw, uncond_raw, n_steps, guidance_scale=gs)
             res3 = self.guidance.analyze(images3)
             del images3
-        # ---- phase 2: dynamic targets (host) ----
+        # ---- phase 2: dynamic targets (host) from every lane's probabilities ----
         with self.timers("phase2_targets"):
-            probs_host = {a: res1.attrs[a].probs.cpu().numpy() for a in cfg.attributes}
+            probs_host = {a: gather_rows(res1.attrs[a].probs, self.mesh, n).cpu().numpy() for a in cfg.attributes}
             step_rng = np.random.default_rng(cfg.seed * 1_000_003 + step)
             targets_np = self.make_targets(probs_host, step_rng)
-            targets = {a: torch.as_tensor(v, device=dev) for a, v in targets_np.items()}
-        self._last_targets = targets
+            targets_all = {a: torch.as_tensor(v, device=dev) for a, v in targets_np.items()}
+            targets = {a: v[lanes] for a, v in targets_all.items()}
+        self._last_targets = targets_all
         ori = {
             "face_bboxes": res3.faces.bboxes,
             "clip_feats": res3.clip_feats,
@@ -472,14 +517,15 @@ class DebiasTrainer:
                 with self.timers("phase4_pair_vjp"):
                     bundle = dpm.make_step_bundle(sd.config.solver, sd.schedule, n_steps)
                     gamma = dpm.chain_eps_cotangents(bundle).to(dev)
-                    cot = gamma[:, None, None, None, None] * (g_final / n_chunks)[None]
-                    grads = self._pair_grads(adapters, traj, cot, bundle.t, cond_ids, uncond_ids, m)
+                    cot = gamma[:, None, None, None, None] * (g_final / norm)[None]
+                    grads = self._pair_grads(adapters, traj, cot, bundle.t, cond_ids, uncond_ids, m_loc)
             elif phase4 == "chain":
                 grads, logs_st = self._chain_grads(
-                    adapters, noises, cond_ids, uncond_ids, n_steps, targets, ori, n_chunks
+                    adapters, noises, cond_ids, uncond_ids, n_steps, targets, ori, n_chunks, norm
                 )
             else:
                 raise ValueError(f"phase4 must be 'linear' or 'chain', not {phase4!r}")
+            grads = self._reduce_grads(grads)
         self._last_grads = grads
 
         # ---- update: finite gate -> AdamW -> EMA ----
@@ -499,19 +545,18 @@ class DebiasTrainer:
             update_ema(state.ema, adapters, decay)
         new_state = DebiasState(adapters, state.opt, state.ema, step + 1, updates)
 
+        preds_host = {a: gather_rows(res1.attrs[a].preds, self.mesh, n).cpu().numpy() for a in cfg.attributes}
         logs: dict[str, Any] = {
             "num_denoising_steps": int(n_steps),
             "adapter_norm": _global_norm(params),
             "ema_norm": _global_norm(tree_leaves(state.ema)),
             "grad_norm": _global_norm(grad_leaves),
             "grads_finite": finite,
-            "face_rate": float(res1.faces.indicators.float().mean()),
-            **metrics_lib.multi_attr_metrics(
-                probs_host, {a: res1.attrs[a].preds.cpu().numpy() for a in cfg.attributes}
-            ),
+            "face_rate": float(gather_rows(res1.faces.indicators, self.mesh, n).float().mean()),
+            **metrics_lib.multi_attr_metrics(probs_host, preds_host),
         }
         for k, v in logs_st.items():
-            v = v.cpu().numpy().reshape(-1)
+            v = gather_rows(v, self.mesh, n).cpu().numpy().reshape(-1)
             v = v[v != -1] if k in ("loss_fair", "loss_face") else v
             if len(v):
                 logs[f"train_{k}"] = float(v.mean())
@@ -642,7 +687,9 @@ class DebiasTrainer:
             logs.update({f"time_{k}_s": v for k, v in self.timers.last.items()})
             self.logger(state.step, logs)
             if val_prompt_ids and cfg.eval_interval > 0 and state.step % cfg.eval_interval == 0:
-                grids_dir = Path(cfg.output_dir) / "imgs" if eval_grids else None
+                # under a mesh every rank evaluates (the split model needs
+                # them all) and rank 0 writes the grids
+                grids_dir = Path(cfg.output_dir) / "imgs" if eval_grids and is_main() else None
                 kw = dict(step=state.step, prompt_texts=val_prompt_texts, grids_dir=grids_dir)
                 ev = self.evaluate(state.adapters, val_prompt_ids, name="main", **kw)
                 self.logger(state.step, {f"eval_{k}": v for k, v in ev.items()})

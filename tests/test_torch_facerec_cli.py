@@ -133,7 +133,8 @@ def test_train_facerec_runs_a_shipped_recipe(tmp_path):
 
     with pytest.raises(TypeError, match="lr_decay_gamma"):
         jax_train.build_all(jax_train.FaceRecCLIConfig(config=str(cfg), output_dir=str(tmp_path / "jax")))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # --data_mesh 2 wants a process group of two (torchrun, parallel.launch)
+    with pytest.raises(RuntimeError, match="torchrun"):
         train_facerec.build_all(train_facerec.FaceRecCLIConfig(device="cpu", config=str(cfg), data_mesh=2))
 
 
