@@ -5,7 +5,14 @@
 
 Phases (any failure raises and exits non-zero):
   1. device: name, power limit, TF32 off for matmuls and convolutions;
-  2. build: the three CUDA sources of fairdiff_torch/csrc with nvcc (sm_90a);
+  2. build: the three CUDA sources of fairdiff_torch/csrc with nvcc (sm_90a)
+     and the host codec (csrc/imageio.cpp) with c++, all started together;
+     then imageio: the codec without PIL on the committed fixtures
+     (PIL-written JPEGs decoded to PIL's pixels exactly, the encoder's
+     quality-95 bytes against PIL's, an entropy byte flipped and the restart
+     markers stripped as controls that must fail), and the batch loader's
+     img/s at 512 x 112x112 on JPEG and filtered PNG beside the numpy loader
+     it replaced, with the host's core count;
   3. each kernel against its plain PyTorch version on the card, in bf16, at
      the shapes the SD-1.5 path gives it (CFG batch of N=2 images; K1 also
      at [8,576,8,160], the 1280-channel blocks at 768 px), both against an
@@ -21,7 +28,7 @@ Phases (any failure raises and exits non-zero):
   5. the slice: `fairdiff_torch.tools.gen_images.main` at full width on
      random weights, 2 prompts x 2 images, batch 2, 30 steps, with the
      kernel launch counts checked against 10 (flash) and 16 (GEGLU) per
-     UNet call;
+     UNet call; its `img_j.jpg` files read back by the port's decoder;
   6. throughput: one 50-step CFG generate at batch 4, in img/s;
   7. kernels-bwd: the training kernels K1 with lse, K2 (dq), K3 (dk/dv) and
      K5 (GEGLU dx), bf16 and fp32, each against its plain version at the
@@ -81,14 +88,14 @@ Phases (any failure raises and exits non-zero):
  21. weights: real-weight loading at full width through the reference's
      file layouts: SD-1.5 (the seed `[slice]` uses) written as diffusers
      files, `convert_sd`, the loaded weights bit-equal to the init,
-     `gen_images --model_dir` PNGs byte-equal to `[slice]`'s with its launch
+     `gen_images --model_dir` JPEGs byte-equal to `[slice]`'s with its launch
      counts; CLIP-ViT-H/14 and DINOv2 in the HF layouts and a det_10g-shaped
      SCRFD `.onnx` through `convert_guidance`, SCRFD on the card against the
      CPU (fp32, rel L2 1e-4, equal faces), `load_guidance_stack` with CLIP,
      DINO and SCRFD composed over FaceDetectorNet, and `train_debias
      --model_dir --guidance_dir` as phase 9 with the CLIP and DINO terms;
      the write, convert and load seconds; with `[tokenizer]`'s directory,
-     `gen_images --model_dir --tokenizer_dir` byte-equal to its PNGs and the
+     `gen_images --model_dir --tokenizer_dir` byte-equal to its JPEGs and the
      train run tokenizing with it;
  22. tokenizer (before weights): a CLIP tokenizer directory in the published
      layout (49408 entries, merges learned from the phases' prompts), then
@@ -110,7 +117,8 @@ Phases (any failure raises and exits non-zero):
      flash-fwd, flash-dq, flash-dkv and GEGLU kernels as the launch counters
      counted; the device total against the step's wall;
  26. facerec: the face-recognition path at full width on data the phase
-     draws (8631 one-face class folders of 112x112 PNGs listed by
+     draws (8631 one-face class folders of 112x112 JPEGs at quality 95, the
+     port's encoder, listed by
      `create_facerec_list`, 256 verification pairs, 512 IJB loose crops with
      5-point landmarks): `train_facerec` on vggface2_sfnet20_sphereface.yml
      through base.yml (sfnet20_deprecated, SphereFace, batch 512, head
@@ -134,7 +142,9 @@ Phases (any failure raises and exits non-zero):
      --num_processes 1 --mesh_data 1` over a tcp rendezvous; two ranks on
      the one card over gloo (data=2, 2 lanes each), their all-reduced
      gradients at most 1.5x as far from the one-process step as the same
-     step re-chunked; inside facerec, `train_facerec
+     step re-chunked, and each rank's own gradients at most 1.5x as far from
+     the fp32 one-process step over its lanes as the bf16 one-process step's
+     share of those lanes (the ranks' lanes swapped must fail); inside facerec, `train_facerec
      --data_mesh 2` at batch 512 as two gloo ranks against one process
      (every leaf within 1e-3);
  29. tp: model=2 as two gloo ranks on the card against the replicated model
@@ -295,14 +305,181 @@ def phase_device() -> str:
 def phase_build() -> None:
     from fairdiff_torch.kernels import build
 
-    seconds = build.build()
-    log(f"[build] {', '.join(build.KERNELS)} for sm_90a in {seconds:.2f} s")
+    seconds = build.build(build.KERNELS + build.HOST_LIBRARIES)
+    log(f"[build] {', '.join(build.KERNELS)} for sm_90a (nvcc) and {', '.join(build.HOST_LIBRARIES)} for the host "
+        f"(c++), all started together: " + ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items()))
     for name in build.KERNELS:
         lib = build.library_path(name)
         log_file = lib.with_name(lib.name + ".log")
         for line in log_file.read_text().splitlines() if log_file.exists() else []:
             if "registers" in line or "spill" in line or "wgmma" in line:  # ptxas serialising wgmma warns
                 log(f"[build] {name}: {line.strip()}")
+
+
+IMAGEIO_FIXTURES = Path(__file__).resolve().parent / "fairdiff_torch" / "testdata" / "imageio_fixtures.npz"
+IMAGEIO_BATCH = 512  # sfnet20's batch of 112x112 faces
+IMAGEIO_THREADS = 8  # the loader's default
+IMAGEIO_JPEG_ERR = 6.0  # mean |decoded - drawn| of a quality-95 face, of 255 (noise and 4:2:0 chroma: ~3)
+
+
+def write_filtered_png(pixels, path: Path) -> None:
+    """[H, W, 3] uint8 as an RGB PNG whose every row takes the filter with
+    the least sum of |signed residual| (libpng's heuristic, which PIL's PNGs
+    carry), zlib level 6: what the loader meets in a PNG dataset."""
+    import numpy as np
+
+    h, w, _ = pixels.shape
+    rows = pixels.reshape(h, w * 3).astype(np.int16)
+    up = np.concatenate([np.zeros((1, w * 3), np.int16), rows[:-1]])
+    left = np.concatenate([np.zeros((h, 3), np.int16), rows[:, :-3]], axis=1)
+    upleft = np.concatenate([np.zeros((h, 3), np.int16), up[:, :-3]], axis=1)
+    p_ = left + up - upleft
+    pa, pb, pc = np.abs(p_ - left), np.abs(p_ - up), np.abs(p_ - upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+    cands = np.stack([rows, rows - left, rows - up, rows - (left + up) // 2, rows - paeth]).astype(np.uint8)
+    cost = np.abs(cands.astype(np.int8).astype(np.int32)).sum(-1)  # [5, h]
+    kind = cost.argmin(0)
+    raw = np.concatenate([kind[:, None].astype(np.uint8), cands[kind, np.arange(h)]], axis=1)
+
+    def chunk(tag: bytes, body: bytes) -> bytes:
+        return struct.pack(">I", len(body)) + tag + body + struct.pack(">I", zlib.crc32(tag + body))
+
+    path.write_bytes(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                     + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def _plain_png_batch(paths, threads: int):
+    """The numpy loader the port had before its codec: the Python PNG
+    decoder, (u8 - 127.5) / 127.5, on a thread pool (size-matched files)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from fairdiff_torch.io.images import decode_png
+
+    def one(path):
+        return (decode_png(Path(path).read_bytes(), str(path)).astype(np.float32) - np.float32(127.5)) / np.float32(127.5)
+
+    with ThreadPoolExecutor(threads) as pool:
+        return np.stack(list(pool.map(one, paths)))
+
+
+def _loader_rate(fn, n: int) -> float:
+    """img/s of `fn()` (which loads n images): the median of 3 timed calls
+    after one warm call."""
+    import numpy as np
+
+    fn()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return n / float(np.median(times))
+
+
+def phase_imageio(power: str) -> dict:
+    """[imageio]: the host codec (csrc/imageio.cpp) on the card's host, no
+    PIL. Every committed fixture (PIL-written JPEGs: 4:4:4, 4:2:2, 4:2:0,
+    grey, progressive, restart markers, optimised tables, Adobe RGB, odd
+    sizes) decodes to PIL's stored pixels exactly; the encoder's quality-95
+    file against PIL's bytes (equal, else the pixel error of the two decoded,
+    at most 1); two corrupted fixtures, one entropy-coded byte flipped and
+    the restart markers stripped, each of which must fail that check; then
+    the batch loader at 512 x 112x112 (sfnet20's batch) on JPEG (quality 95)
+    and on libpng-filtered PNG, against the numpy loader it replaced (PNG
+    only: that loader read JPEG through PIL), with the host's core count."""
+    import numpy as np
+
+    from fairdiff_torch.facerec.datasets import load_batch
+    from fairdiff_torch.io import imageio
+
+    t_start = time.perf_counter()
+    failed = []
+    fx = dict(np.load(IMAGEIO_FIXTURES))
+    names = sorted(k[:-4] for k in fx if k.endswith(".jpg"))
+
+    def decodes_exactly(data: bytes, want) -> tuple[bool, str]:
+        try:
+            got = imageio.decode(data)
+        except OSError as err:
+            return False, f"raises ({err})"
+        if got.shape != want.shape:
+            return False, f"shape {got.shape}"
+        diff = int(np.abs(got.astype(np.int16) - want).max())
+        return diff == 0, f"max |diff| {diff}"
+
+    results = {n: decodes_exactly(fx[f"{n}.jpg"].tobytes(), fx[f"{n}.pixels"]) for n in names}
+    log(f"[imageio] {len(names)} fixtures decoded against PIL's pixels (exact): "
+        + ", ".join(f"{n} {ok}" for n, (ok, _) in results.items()))
+    failed += [f"fixture {n}: {why}" for n, (ok, why) in results.items() if not ok]
+
+    source, want_bytes = fx["encode.source"], fx["encode.q95"].tobytes()
+    got_bytes = imageio.encode_jpeg(source, 95)
+    pixel_err = int(np.abs(imageio.decode(got_bytes).astype(np.int16) - imageio.decode(want_bytes)).max())
+    log(f"[imageio] encoder, {source.shape[0]}x{source.shape[1]} at quality 95: "
+        + ("bytes equal to PIL's" if got_bytes == want_bytes else f"bytes differ from PIL's, decoded max |diff| {pixel_err}"))
+    if got_bytes != want_bytes and pixel_err > 1:
+        failed.append(f"encoder: decoded max |diff| {pixel_err}")
+
+    # controls: a corrupted file must fail the decode check
+    data = bytearray(fx["420_q95.jpg"].tobytes())
+    sos = data.index(b"\xff\xda")
+    start = sos + 2 + int.from_bytes(data[sos + 2:sos + 4], "big")
+    at = next(i for i in range((start + len(data)) // 2, len(data) - 2)
+              if data[i - 1] != 0xFF and data[i] != 0xFF and data[i] ^ 0x5A != 0xFF)
+    data[at] ^= 0x5A
+    flipped = decodes_exactly(bytes(data), fx["420_q95.pixels"])
+    raw = fx["restart_q80.jpg"].tobytes()
+    sos = raw.index(b"\xff\xda")
+    n_restarts = len(re.findall(rb"\xff[\xd0-\xd7]", raw[sos:]))
+    stripped_bytes = raw[:sos] + re.sub(rb"\xff[\xd0-\xd7]", b"", raw[sos:])
+    stripped = decodes_exactly(stripped_bytes, fx["restart_q80.pixels"])
+    log(f"[imageio] controls: 420_q95 with entropy byte {at} flipped: {flipped[1]}; restart_q80 with its "
+        f"{n_restarts} restart markers stripped: {stripped[1]} (each must fail)")
+    failed += [f"control {n} passed the decode check" for n, r in (("flipped", flipped), ("stripped", stripped))
+               if r[0]]
+
+    # the loader on the card's host
+    scratch = Path(__file__).resolve().parent / "build"
+    scratch.mkdir(exist_ok=True)
+    cores = os.cpu_count()
+    rates: dict = {}
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        rng = np.random.default_rng(7)
+        ident = np.arange(IMAGEIO_BATCH)
+        faces = draw_faces(rng, ident, face_identities(IMAGEIO_BATCH, 8), jittered_landmarks(rng, IMAGEIO_BATCH), 112)
+        jpgs = [str(Path(tmp) / f"{i}.jpg") for i in ident]
+        pngs = [str(Path(tmp) / f"{i}.png") for i in ident]
+        t0 = time.perf_counter()
+        write_images(list(zip(map(Path, jpgs), faces)), threads=IMAGEIO_THREADS)
+        t_jpg = time.perf_counter() - t0
+        for path, img in zip(pngs, faces):
+            write_filtered_png(img, Path(path))
+        size_jpg = sum(Path(p).stat().st_size for p in jpgs) / IMAGEIO_BATCH
+        size_png = sum(Path(p).stat().st_size for p in pngs) / IMAGEIO_BATCH
+        got_j = load_batch(jpgs, (112, 112), n_threads=IMAGEIO_THREADS)
+        got_p = load_batch(pngs, (112, 112), n_threads=IMAGEIO_THREADS)
+        jpeg_err = float(np.abs(got_j - (faces.astype(np.float32) - 127.5) / 127.5).mean() * 127.5)
+        rates = {
+            "jpeg": _loader_rate(lambda: load_batch(jpgs, (112, 112), n_threads=IMAGEIO_THREADS), IMAGEIO_BATCH),
+            "png": _loader_rate(lambda: load_batch(pngs, (112, 112), n_threads=IMAGEIO_THREADS), IMAGEIO_BATCH),
+        }
+        t0 = time.perf_counter()  # the numpy loader: one call (no warm-up to amortise)
+        plain_p = _plain_png_batch(pngs, IMAGEIO_THREADS)
+        rates["png_plain"] = IMAGEIO_BATCH / (time.perf_counter() - t0)
+        png_equal = bool(np.array_equal(got_p, plain_p))
+    log(f"[imageio] loader, {IMAGEIO_BATCH} x 112x112 faces, {IMAGEIO_THREADS} threads on a host of {cores} cores "
+        f"(card {power}): JPEG q95 ({size_jpg / 1024:.1f} KiB, {IMAGEIO_BATCH} written by the port's encoder in "
+        f"{t_jpg:.2f} s) {rates['jpeg']:.1f} img/s; filtered PNG ({size_png / 1024:.1f} KiB) {rates['png']:.1f} "
+        f"img/s, the numpy loader {rates['png_plain']:.1f} img/s ({rates['png'] / rates['png_plain']:.1f}x), "
+        f"equal outputs {png_equal}; JPEG q95 vs the drawn pixels mean |err| {jpeg_err:.3f} of 255")
+    if not png_equal or jpeg_err > IMAGEIO_JPEG_ERR:
+        failed.append(f"loader: PNG equal to the numpy loader {png_equal}, JPEG mean |err| {jpeg_err}")
+    log(f"[imageio] {time.perf_counter() - t_start:.1f} s")
+    if failed:
+        raise AssertionError(f"[imageio] failed: {failed}")
+    return dict(rates, cores=cores)
 
 
 # K4's shapes on the path: x [M, d] of the feed-forwards at 4096, 1024, 256
@@ -590,32 +767,23 @@ def phase_unet_768() -> list[int]:
     return head_dims
 
 
-def read_png(path: Path) -> bytes:
-    """Pixel bytes of an 8-bit RGB PNG with unfiltered scanlines (what
-    fairdiff_torch.io.images.save_png writes)."""
-    data = path.read_bytes()
-    pos, idat, width, height = 8, b"", 0, 0
-    while pos < len(data):
-        n = int.from_bytes(data[pos:pos + 4], "big")
-        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
-        if kind == b"IHDR":
-            width, height = int.from_bytes(body[:4], "big"), int.from_bytes(body[4:8], "big")
-        elif kind == b"IDAT":
-            idat += body
-        pos += 12 + n
-    raw = zlib.decompress(idat)
-    stride = 1 + 3 * width
-    if len(raw) != stride * height or width != 512 or height != 512:
-        raise AssertionError(f"{path}: {width}x{height}, {len(raw)} bytes")
-    return b"".join(raw[r * stride + 1:(r + 1) * stride] for r in range(height))
+def read_jpg(path: Path):
+    """A 512x512 JPEG that gen_images wrote, decoded by the port's codec ->
+    [512, 512, 3] uint8."""
+    from fairdiff_torch.io.imageio import decode
+
+    pixels = decode(path)
+    if pixels.shape != (512, 512, 3):
+        raise AssertionError(f"{path}: {pixels.shape}")
+    return pixels
 
 
 SLICE_PROMPTS = ["a photo of the face of a firefighter, a person", "a photo of the face of a nurse, a person"]
 
 
 def phase_slice() -> tuple[dict[str, int], dict[str, str]]:
-    """-> the launch counts and each PNG's sha256 by its path under the
-    output directory (`[weights]` holds its own PNGs to them)."""
+    """-> the launch counts and each JPEG's sha256 by its path under the
+    output directory (`[weights]` holds its own JPEGs to them)."""
     from fairdiff_torch.ops import flash_attention as fa
     from fairdiff_torch.ops import geglu as gg
     from fairdiff_torch.tools import gen_images
@@ -636,22 +804,23 @@ def phase_slice() -> tuple[dict[str, int], dict[str, str]]:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = {"flash_attention": fa.launches, "geglu": gg.launches}
-        expect_paths = [Path(cfg.save_dir) / f"prompt_{p}" / f"img_{j}.png" for p in (0, 1) for j in (0, 1)]
+        expect_paths = [Path(cfg.save_dir) / f"prompt_{p}" / f"img_{j}.jpg" for p in (0, 1) for j in (0, 1)]
         if sorted(written) != sorted(expect_paths):
             raise AssertionError(f"wrote {written}")
         for p in expect_paths:
-            pixels = read_png(p)
-            if len(set(pixels)) < 2:
+            pixels = read_jpg(p)
+            if pixels.min() == pixels.max():
                 raise AssertionError(f"{p} is constant")
         # one UNet call per step serves both CFG halves
         calls = 2 * cfg.num_denoising_steps  # 2 generate calls (2 prompts, batch 2)
         want = {"flash_attention": 10 * calls, "geglu": 16 * calls}
-        log(f"[slice] gen_images.main: 4 PNGs at 512x512, {cfg.num_denoising_steps} steps, "
+        log(f"[slice] gen_images.main: 4 JPEGs (quality 95) at 512x512, read back by the port's decoder, "
+            f"{cfg.num_denoising_steps} steps, "
             f"{seconds:.2f} s incl. setup; launches {counts} (want {want})")
         if counts != want:
             raise AssertionError(f"launch counts {counts} != {want}")
-        pngs = {str(p.relative_to(cfg.save_dir)): hashlib.sha256(p.read_bytes()).hexdigest() for p in expect_paths}
-    return counts, pngs
+        jpgs = {str(p.relative_to(cfg.save_dir)): hashlib.sha256(p.read_bytes()).hexdigest() for p in expect_paths}
+    return counts, jpgs
 
 
 def phase_throughput(power: str) -> float:
@@ -1934,7 +2103,7 @@ def phase_train_lifecycle(steps: int = 4) -> dict[str, int]:
         records = [json.loads(x) for x in (Path(dir_b) / "metrics.jsonl").read_text().splitlines()]
         evals = {(r["step"], "eval_ema_" if k.startswith("eval_ema_") else "eval_")
                  for r in records for k in r if k.startswith("eval_")}
-        grids = sorted(p.name for p in (Path(dir_b) / "imgs").glob("*.png"))
+        grids = sorted(p.name for p in (Path(dir_b) / "imgs").glob("*.jpg"))
         log(f"{tag} run B metrics.jsonl: {len(records)} records, evaluations {sorted(evals)}; "
             f"{len(grids)} grids: {grids}")
         exported = export_checkpoint.main(export_checkpoint.ExportConfig(
@@ -1961,7 +2130,7 @@ def phase_train_lifecycle(steps: int = 4) -> dict[str, int]:
     want = {k: calls * UNET_CALL_LAUNCHES.get(k, 0) + pairs * v for k, v in PAIR_VJP_LAUNCHES_LORA.items()}
     log(f"{tag} {seconds:.2f} s for the three runs; launches {ran} (want {want}); gen_images {gen_calls}")
     evals_want = {(s, pre) for s in (2, 4) for pre in ("eval_", "eval_ema_")}
-    grids_want = {f"eval_{n}_{s}_a_photo_of_the_face_of_a_doctor,_a_person_{kind}.png"
+    grids_want = {f"eval_{n}_{s}_a_photo_of_the_face_of_a_doctor,_a_person_{kind}.jpg"
                   for s in (2, 4) for n, kind in (("main", "generated"), ("main", "ori"), ("ema", "generated"))}
     failed = [name for name, ok in (
         ("state", all(e <= REMAT_REL_L2_TOL for e, _ in compared.values())),
@@ -2236,14 +2405,14 @@ def scrfd_onnx(width: int = 16, seed: int = 0, head_scale: float = 0.01) -> byte
 SCRFD_CPU_REL_L2_TOL = 1e-4
 
 
-def phase_weights(slice_pngs: dict[str, str], tokenizer_dir: str = "",
-                  tokenizer_pngs: dict[str, str] | None = None) -> dict[str, int]:
+def phase_weights(slice_jpgs: dict[str, str], tokenizer_dir: str = "",
+                  tokenizer_jpgs: dict[str, str] | None = None) -> dict[str, int]:
     """Real-weight loading at full width, through the files a user has:
     SD-1.5 from `StableDiffusion(SDConfig.sd15()).init_random(42)` (the
     weights `[slice]` generates with) written in the diffusers layout
     (UNet `.safetensors` in bf16, VAE and text encoder `.bin` in fp32),
     converted by `convert_sd`, loaded bit-equal to the init, and `gen_images
-    --model_dir` with `[slice]`'s settings writing byte-equal PNGs with 10 K1
+    --model_dir` with `[slice]`'s settings writing byte-equal JPEGs with 10 K1
     and 16 K4 launches a UNet call. Then the guidance zoo: CLIP-ViT-H/14 and
     DINOv2 ViT-B/14 from seeded port modules in the HF layouts, a
     det_10g-shaped SCRFD `.onnx` at 640x640 (`scrfd_onnx`) and
@@ -2252,7 +2421,7 @@ def phase_weights(slice_pngs: dict[str, str], tokenizer_dir: str = "",
     CPU; `load_guidance_stack` with SCRFD composed over FaceDetectorNet; and
     `train_debias --model_dir --guidance_dir` for 2 steps as `[train]`. With
     `tokenizer_dir` (`[tokenizer]`'s CLIP tokenizer), `gen_images --model_dir
-    --tokenizer_dir` writes PNGs byte-equal to `tokenizer_pngs` (`[tokenizer]`'s
+    --tokenizer_dir` writes JPEGs byte-equal to `tokenizer_jpgs` (`[tokenizer]`'s
     run on the same seeded weights), and `train_debias` takes the directory too."""
     from fairdiff_torch.io.onnx_bridge import build_onnx_fn, load_scrfd, parse_onnx
     from fairdiff_torch.models.clip_vision import CLIPVisionConfig, CLIPVisionModel
@@ -2303,21 +2472,22 @@ def phase_weights(slice_pngs: dict[str, str], tokenizer_dir: str = "",
         ran = launch_counts()
         calls = 2 * cfg.num_denoising_steps
         want = {k: calls * UNET_CALL_LAUNCHES.get(k, 0) for k in ran}
-        pngs = {str(p.relative_to(cfg.save_dir)): hashlib.sha256(p.read_bytes()).hexdigest() for p in written}
-        log(f"[weights] gen_images --model_dir: {len(written)} PNGs in {t_gen:.2f} s incl. load, byte-equal to "
-            f"[slice]'s: {pngs == slice_pngs}; launches {ran} (want {want})")
-        if pngs != slice_pngs or len(pngs) != 4:
-            failed.append("gen_images --model_dir PNGs differ from [slice]'s")
+        jpgs = {str(p.relative_to(cfg.save_dir)): hashlib.sha256(p.read_bytes()).hexdigest() for p in written}
+        decoded = [read_jpg(p) for p in written]  # each 512x512 through the port's decoder
+        log(f"[weights] gen_images --model_dir: {len(written)} JPEGs ({len(decoded)} decoded) in {t_gen:.2f} s incl. load, byte-equal to "
+            f"[slice]'s: {jpgs == slice_jpgs}; launches {ran} (want {want})")
+        if jpgs != slice_jpgs or len(jpgs) != 4:
+            failed.append("gen_images --model_dir JPEGs differ from [slice]'s")
         if ran != want:
             failed.append(f"gen launches {ran} != {want}")
         if tokenizer_dir:
             tok_cfg = dataclasses.replace(cfg, tokenizer_dir=tokenizer_dir, save_dir=str(tmp / "gen-tok"))
             written = gen_images.main(tok_cfg)
-            pngs = {str(p.relative_to(tok_cfg.save_dir)): hashlib.sha256(p.read_bytes()).hexdigest() for p in written}
-            log(f"[weights] gen_images --model_dir --tokenizer_dir: {len(written)} PNGs byte-equal to "
-                f"[tokenizer]'s: {pngs == tokenizer_pngs}")
-            if pngs != tokenizer_pngs or len(pngs) != 4:
-                failed.append("gen_images --model_dir --tokenizer_dir PNGs differ from [tokenizer]'s")
+            jpgs = {str(p.relative_to(tok_cfg.save_dir)): hashlib.sha256(p.read_bytes()).hexdigest() for p in written}
+            log(f"[weights] gen_images --model_dir --tokenizer_dir: {len(written)} JPEGs byte-equal to "
+                f"[tokenizer]'s: {jpgs == tokenizer_jpgs}")
+            if jpgs != tokenizer_jpgs or len(jpgs) != 4:
+                failed.append("gen_images --model_dir --tokenizer_dir JPEGs differ from [tokenizer]'s")
 
         g = torch.Generator().manual_seed(11)
         towers = {"clip_vision": CLIPVisionModel(CLIPVisionConfig.vit_h14()), "dinov2": DINOv2Model(DINOv2Config.vitb14())}
@@ -2443,7 +2613,7 @@ def phase_tokenizer(power: str) -> tuple[str, dict[str, str]]:
     """A CLIP tokenizer directory in the published layout (49408 entries,
     merges learned from the prompts the phases use), then `gen_images
     --tokenizer_dir` with `[slice]`'s settings at full SD-1.5 width on the
-    card, without `transformers` -> (the directory, the PNGs' sha256 by
+    card, without `transformers` -> (the directory, the JPEGs' sha256 by
     path). `[weights]` runs `train_debias --tokenizer_dir` for `[train]`'s 2
     steps (on the converted weights) and checks again that `transformers`
     was never imported."""
@@ -2474,16 +2644,16 @@ def phase_tokenizer(power: str) -> tuple[str, dict[str, str]]:
         ran = launch_counts()
         calls = 2 * cfg.num_denoising_steps
         want = {k: calls * UNET_CALL_LAUNCHES.get(k, 0) for k in ran}
-        pngs = {str(p.relative_to(cfg.save_dir)): hashlib.sha256(p.read_bytes()).hexdigest() for p in written}
-        varied = all(len(set(read_png(p))) > 1 for p in written)
-        log(f"[tokenizer] gen_images --tokenizer_dir: {len(written)} PNGs at 512x512, {cfg.num_denoising_steps} "
+        jpgs = {str(p.relative_to(cfg.save_dir)): hashlib.sha256(p.read_bytes()).hexdigest() for p in written}
+        varied = all(read_jpg(p).min() < read_jpg(p).max() for p in written)
+        log(f"[tokenizer] gen_images --tokenizer_dir: {len(written)} JPEGs at 512x512, {cfg.num_denoising_steps} "
             f"steps, {seconds:.2f} s incl. setup on {power}; launches {ran} (want {want})")
     imported = "transformers" in sys.modules
     log(f"[tokenizer] transformers imported: {imported}")
-    if imported or not (framed and tok.vocab_size == CLIP_VOCAB_SIZE and len(pngs) == 4 and varied and ran == want):
-        raise AssertionError(f"[tokenizer] failed: ids framed {framed}, {len(pngs)} PNGs, varied {varied}, "
+    if imported or not (framed and tok.vocab_size == CLIP_VOCAB_SIZE and len(jpgs) == 4 and varied and ran == want):
+        raise AssertionError(f"[tokenizer] failed: ids framed {framed}, {len(jpgs)} JPEGs, varied {varied}, "
                              f"launches {ran}, transformers imported {imported}")
-    return str(d), pngs
+    return str(d), jpgs
 
 
 def _eval_heads(directory: Path) -> dict[str, str]:
@@ -2544,11 +2714,11 @@ def phase_eval(power: str) -> dict:
         ran = launch_counts()
         calls = len(EVAL_PROMPTS) * -(-gcfg.num_imgs_per_prompt // gcfg.batch_size) * gcfg.num_denoising_steps
         want = {k: calls * UNET_CALL_LAUNCHES.get(k, 0) for k in ran}
-        log(f"[eval] gen_images (reference defaults, {EVAL_IMAGES} images a prompt): {len(written)} PNGs at 512x512, batch {gcfg.batch_size}, "
+        log(f"[eval] gen_images (reference defaults, {EVAL_IMAGES} images a prompt): {len(written)} JPEGs at 512x512, batch {gcfg.batch_size}, "
             f"{gcfg.num_denoising_steps} steps in {t_gen:.1f} s incl. setup ({len(written) / t_gen:.3f} img/s) on "
             f"{power}; launches {ran} (want {want})")
         if len(written) != len(EVAL_PROMPTS) * EVAL_IMAGES or ran != want:
-            failed.append(f"gen_images wrote {len(written)} PNGs, launches {ran}")
+            failed.append(f"gen_images wrote {len(written)} JPEGs, launches {ran}")
 
         rng = np.random.default_rng(21)
         for i in range(EVAL_FACE_SCENES):
@@ -2761,15 +2931,16 @@ def jittered_landmarks(rng, n: int, scale=(1.0, 1.0), angle: float = 0.0, shift:
     return (lm + rng.normal(0.0, 1.0, lm.shape)).astype(np.float32)
 
 
-def write_pngs(items, threads: int = 8) -> None:
-    """(path, uint8 image) pairs written as unfiltered (filter 0) PNGs on a
-    thread pool (zlib releases the GIL)."""
+def write_images(items, threads: int = 8) -> None:
+    """(path, uint8 image) pairs written in the format each suffix names (a
+    `.jpg` at quality 95 by the port's encoder, as VGGFace2, MS1M, LFW and
+    IJB ship their faces) on a thread pool (the codec releases the GIL)."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from fairdiff_torch.io.images import write_png
+    from fairdiff_torch.io.images import write_image
 
     with ThreadPoolExecutor(threads) as pool:
-        list(pool.map(lambda it: write_png(it[1], it[0]), items))
+        list(pool.map(lambda it: write_image(it[1], it[0]), items))
 
 
 def write_facerec_data(root: Path, seed: int = 0, classes: int = FACEREC_CLASSES, pairs: int = 256,
@@ -2793,7 +2964,7 @@ def write_facerec_data(root: Path, seed: int = 0, classes: int = FACEREC_CLASSES
     for s in range(0, classes, chunk):
         ident = np.arange(s, min(s + chunk, classes))
         imgs = draw_faces(rng, ident, ids, jittered_landmarks(rng, len(ident)), 112)
-        write_pngs([(train / f"id{k:05d}" / "0.png", img) for k, img in zip(ident, imgs)])
+        write_images([(train / f"id{k:05d}" / "0.jpg", img) for k, img in zip(ident, imgs)])
     with contextlib.redirect_stdout(io.StringIO()):
         train_ann = create_list(CreateListConfig(dataset_dir=str(train), list_path=str(root / "train_ann.txt")))
 
@@ -2804,8 +2975,8 @@ def write_facerec_data(root: Path, seed: int = 0, classes: int = FACEREC_CLASSES
     ident[3 * half:] = np.where(ident[3 * half:] == ident[2 * half:3 * half], (ident[3 * half:] + 1) % classes,
                                 ident[3 * half:])
     imgs = draw_faces(rng, ident, ids, jittered_landmarks(rng, len(ident)), 112)
-    names = [f"p{i:04d}.png" for i in range(len(ident))]
-    write_pngs([(root / "val" / n, img) for n, img in zip(names, imgs)])
+    names = [f"p{i:04d}.jpg" for i in range(len(ident))]
+    write_images([(root / "val" / n, img) for n, img in zip(names, imgs)])
     lines = [f"{names[i]} {names[i + half]} 1" for i in range(half)]
     lines += [f"{names[2 * half + i]} {names[3 * half + i]} 0" for i in range(half)]
     (root / "pairs.txt").write_text("\n".join(lines) + "\n")
@@ -2817,11 +2988,11 @@ def write_facerec_data(root: Path, seed: int = 0, classes: int = FACEREC_CLASSES
     subj = np.repeat(np.arange(ijb_subjects), 8)
     lms = jittered_landmarks(rng, n_img, scale=(0.85, 1.2), angle=0.25, shift=8.0, center=72.0)
     imgs = draw_faces(rng, rng.choice(classes, ijb_subjects, replace=False)[subj], ids, lms, 144)
-    write_pngs([(root / "ijb" / f"{i:05d}.png", img) for i, img in enumerate(imgs)])
-    data = [f"{i:05d}.png " + " ".join(f"{v:.3f}" for v in lms[i].reshape(-1)) + f" {rng.uniform(0.5, 1.0):.3f}"
+    write_images([(root / "ijb" / f"{i:05d}.jpg", img) for i, img in enumerate(imgs)])
+    data = [f"{i:05d}.jpg " + " ".join(f"{v:.3f}" for v in lms[i].reshape(-1)) + f" {rng.uniform(0.5, 1.0):.3f}"
             for i in range(n_img)]
     tmpl = [i // 4 for i in range(n_img)]
-    tid = [f"{i:05d}.png {tmpl[i]} {2 * tmpl[i] + (i % 4) // 2}" for i in range(n_img)]
+    tid = [f"{i:05d}.jpg {tmpl[i]} {2 * tmpl[i] + (i % 4) // 2}" for i in range(n_img)]
 
     def write_meta(tag: str, n_subj: int) -> dict:
         n = n_subj * 8
@@ -2957,7 +3128,7 @@ def phase_facerec(power: str, classes: int = FACEREC_CLASSES, steps: int = 20, b
         root = Path(tmp)
         t0 = time.perf_counter()
         data = write_facerec_data(root / "data", classes=classes, pairs=pairs, ijb_subjects=ijb_subjects)
-        log(f"[facerec] data: {classes} class folders of one 112x112 face (unfiltered PNG), "
+        log(f"[facerec] data: {classes} class folders of one 112x112 face (JPEG, quality 95, the port's encoder), "
             f"{data['n_pair_images']} pair images, {data['n_ijb_images']} IJB loose crops, written in "
             f"{time.perf_counter() - t0:.1f} s")
 
@@ -3314,6 +3485,45 @@ def _step_launches(steps: int, lanes: int, p: int, per_pair: dict) -> dict[str, 
     return {k: 2 * steps * UNET_CALL_LAUNCHES.get(k, 0) + steps * (lanes // p) * v for k, v in per_pair.items()}
 
 
+@contextlib.contextmanager
+def lane_shares(trainer, spans, chunks=(None,)):
+    """While open, each train_step of `trainer` runs its phase-4 pair VJPs
+    on each span of lanes alone (`spans` cover the lanes, each a whole
+    number of chunks), on the step's own trajectories and cotangents: the
+    share of the step's gradient those lanes carry, the other lanes' chunks
+    left out (what a data rank holding those lanes sums before the
+    all-reduce). The step takes the sum of the shares in its own chunk size
+    (None); each size in `chunks` is run too. Yields {(span index, chunk):
+    flat fp32 gradients on the CPU}."""
+    from fairdiff_torch.utils.tree import tree_leaves, tree_unflatten
+
+    shares, real = {}, trainer._pair_grads
+
+    def split(adapters, traj, cot, ts, cond_ids, uncond_ids, p):
+        total = None
+        for i, span in enumerate(spans):
+            for q in chunks:
+                g = real(adapters, traj[:, span], cot[:, span], ts, cond_ids, uncond_ids, q or p)
+                shares[(i, q)] = torch.cat([x.detach().float().flatten().cpu() for x in tree_leaves(g)])
+                if q is None:
+                    total = g if total is None else tree_unflatten(
+                        total, [a + b for a, b in zip(tree_leaves(total), tree_leaves(g))])
+        return total
+
+    trainer._pair_grads = split
+    try:
+        yield shares
+    finally:
+        del trainer._pair_grads
+
+
+def rel_l2_or_zero(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """rel_l2, with a zero reference read as 0 when `got` is zero too."""
+    if not ref.norm():
+        return 0.0 if not got.norm() else float("inf")
+    return rel_l2(got, ref)
+
+
 def mesh_debias_rank(weights: str, fields: dict, noises, n_steps: int, ids) -> dict:
     """[mesh] rank: the exp-1 step of `fields` on a data mesh of the whole
     world, on this rank's lanes of the global noise bank."""
@@ -3352,8 +3562,13 @@ def phase_mesh(power: str, work: Path):
     size 1 over a tcp rendezvous, and two ranks on the card over gloo (data=2,
     2 lanes each) against the one-process step and the same step re-chunked
     (`MESH_REBATCH_RATIO`), with three faults of the split as controls that
-    must fail that check. -> (the one-process trainer, its fp32 twin,
-    their weights file, the prompt ids) for `[tp]`."""
+    must fail that check; then each rank's own gradients against the fp32
+    one-process step over its lanes (`lane_shares`), at most
+    `MESH_REBATCH_RATIO` x as far as the one-process bf16 share is, the
+    ranks' lanes swapped as a control that must fail (the share re-chunked,
+    which sees phase 4b's rounding only, is logged beside it). -> (the
+    one-process trainer, its fp32 twin, their weights file, the prompt ids)
+    for `[tp]`."""
     import io
 
     import torch.distributed as dist
@@ -3426,6 +3641,12 @@ def phase_mesh(power: str, work: Path):
 
     # 3. the split step's reference: the same step re-chunked (micro-batch 4)
     runs["rebatched"] = one_step(DebiasTrainer(sd, plain.guidance, dataclasses.replace(dcfg, train_micro_batch=4)))
+    # and each data rank's share of the one-process step: its 2 lanes' pair
+    # VJPs alone, in chunks of 2 (as the rank) and of 1 (that share's own
+    # re-chunking error, at its own scale)
+    spans = [slice(0, 2), slice(2, 4)]
+    with lane_shares(plain, spans, chunks=(None, 1)) as lane_grads:
+        one_step(plain)
     flat = {k: torch.cat([g.float().flatten().cpu() for g in r["grads"]]) for k, r in runs.items()}
     rebatched = rel_l2(flat["rebatched"], flat["plain"])
     same_targets = torch.equal(runs["rebatched"]["targets"]["gender"], p_["targets"]["gender"])
@@ -3436,6 +3657,11 @@ def phase_mesh(power: str, work: Path):
     weights = work / "sd15.pt"
     _save_sd(sd, weights)
     exact = DebiasTrainer(_load_sd(str(weights), "float32"), plain.guidance, dcfg)
+    # the same shares of the step in fp32: each rank's yardstick
+    t0 = time.perf_counter()
+    with lane_shares(exact, spans) as lane_fp32:
+        one_step(exact)
+    log(f"[mesh] the fp32 step with its lane shares {time.perf_counter() - t0:.1f} s")
 
     # 4. two ranks on the card over gloo, 2 lanes each
     torch.cuda.empty_cache()  # the ranks share the card
@@ -3473,6 +3699,26 @@ def phase_mesh(power: str, work: Path):
         if not (vs_one <= MESH_REBATCH_RATIO * rebatched and same and res["launches"] == want_rank
                 and res["logs"]["grads_finite"]):
             failed.append(f"data=2 rank {r}: rel L2 {vs_one}, same {same}, launches {res['launches']}")
+    # each rank's own gradients (before the all-reduce) against the
+    # one-process step over that rank's lanes: in fp32, at most 1.5x as far
+    # as the one-process bf16 share is; its lanes swapped as a control
+    for r in range(2):
+        share = (lane_grads[(r, None)].norm() / flat["plain"].norm()).item()
+        own = rel_l2_or_zero(flat_local[r], lane_grads[(r, None)])
+        rechunk = rel_l2_or_zero(lane_grads[(r, 1)], lane_grads[(r, None)])
+        err_rank = rel_l2_or_zero(flat_local[r], lane_fp32[(r, None)])
+        err_one = rel_l2_or_zero(lane_grads[(r, None)], lane_fp32[(r, None)])
+        limit = MESH_REBATCH_RATIO * err_one
+        swapped = rel_l2_or_zero(flat_local[r], lane_fp32[(1 - r, None)])
+        log(f"[mesh] data=2 rank {r} (lanes {spans[r].start}-{spans[r].stop - 1}, {share:.4%} of the step's gradient "
+            f"norm): its own gradients vs the fp32 one-process step over its lanes rel L2 {err_rank:.3e} (<= "
+            f"{MESH_REBATCH_RATIO} x the one-process bf16 share's {err_one:.3e}); vs the bf16 share {own:.3e} "
+            f"({own / max(rechunk, 1e-30):.2f}x that share re-chunked, {rechunk:.3e}); control, against rank "
+            f"{1 - r}'s lanes in fp32: {swapped:.3e} (must exceed {limit:.3e})")
+        if not err_rank <= limit:
+            failed.append(f"data=2 rank {r} vs its lanes in fp32: rel L2 {err_rank}, limit {limit}")
+        if not swapped > limit:
+            failed.append(f"data=2 rank {r} swapped-lanes control passed ({swapped})")
     log(f"[mesh] two ranks' launch {wall:.1f} s (process start, weights, step)")
     if failed:
         raise AssertionError(f"[mesh] failed: {failed}")
@@ -3748,6 +3994,9 @@ def main() -> int:
     phase_build()
     log(f"[time] build {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
+    phase_imageio(power)
+    log(f"[time] imageio {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
     rows = phase_kernels()
     log(f"[time] kernels {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
@@ -3757,7 +4006,7 @@ def main() -> int:
     phase_unet_768()
     log(f"[time] unet-768 {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    counts_gen, slice_pngs = phase_slice()
+    counts_gen, slice_jpgs = phase_slice()
     log(f"[time] slice {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     phase_throughput(power)
@@ -3806,10 +4055,10 @@ def main() -> int:
     phase_train_step(power, unet=True, lanes=CUT_LANES)
     log(f"[time] train-unet-lora {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    tokenizer_dir, tokenizer_pngs = phase_tokenizer(power)
+    tokenizer_dir, tokenizer_jpgs = phase_tokenizer(power)
     log(f"[time] tokenizer {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    phase_weights(slice_pngs, tokenizer_dir, tokenizer_pngs)
+    phase_weights(slice_jpgs, tokenizer_dir, tokenizer_jpgs)
     log(f"[time] weights {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     phase_eval(power)

@@ -5,15 +5,17 @@ ClassDataset (annotation-file classification training with optional label
 noise, opensphere/dataset/class_dataset.py:9-76), PairDataset
 (verification pairs, ACC/EER/AUC/TPR@FPR, pair_dataset.py:69-), ItemDataset,
 IJBDataset (template 1:1 and 1:N protocols) and the image pipeline
-(dataset/utils.py:13-37). Host-side numpy: the input pipeline, not the
+(dataset/utils.py:13-37). Host-side: the input pipeline, not the
 differentiable path. No cv2 and no sklearn:
 
-- images are read by `io.images.read_rgb8` (the port's PNG decoder; JPEG
-  only through PIL) and normalised as `(u8 - 127.5) / 127.5` in fp32;
-- `load_batch` is the JAX package's native batch loader
-  (fairdiff/native/imageloader.cpp) in numpy on a thread pool: the
-  size-matched fast path, else a bilinear warp that maps pixel centres and
-  reads 0 outside the image;
+- images are read by `io.images.read_rgb8` (the port's codec, PIL's
+  convention) and normalised as `(u8 - 127.5) / 127.5` in fp32;
+- `load_batch` is the port's C++ batch loader (`io.imageio.load_batch`,
+  the counterpart of fairdiff/native/imageloader.cpp, libpng's convention
+  for PNG) on a thread pool: the size-matched fast path, else a bilinear
+  warp that maps pixel centres and reads 0 outside the image. `_load_one`
+  and `warp_bilinear` are its plain numpy version, which the item path and
+  the IJB alignment use;
 - the 5-point alignment of the IJB path is that warp with the inverse of
   the forward similarity, as `cv2.warpAffine` does (cv2 snaps coordinates
   to 1/32 pixel; this warp does not);
@@ -23,9 +25,7 @@ differentiable path. No cv2 and no sklearn:
 from __future__ import annotations
 
 import dataclasses
-import os
 import random
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional, Sequence
 
@@ -33,16 +33,10 @@ import numpy as np
 import torch
 
 from fairdiff_torch.guidance.geometry import estimate_similarity
-from fairdiff_torch.io.images import read_rgb8
+from fairdiff_torch.io import imageio
+from fairdiff_torch.io.images import read_rgb8 as _read
 
 _HALF = np.float32(127.5)
-
-
-def _read(path) -> np.ndarray:
-    try:
-        return read_rgb8(path)
-    except FileNotFoundError as err:
-        raise OSError(f"{path} is not found") from err
 
 
 def _normalize(pixels: np.ndarray) -> np.ndarray:
@@ -112,20 +106,9 @@ def load_batch(
 ) -> np.ndarray:
     """-> [N, H, W, 3] fp32 in [-1, 1]: decode, warp or resize, normalise
     and flip each image on `n_threads` threads (fairdiff/native's
-    `load_batch`). Raises OSError naming the first unreadable path, and
-    ValueError for a singular affine."""
-    n = len(paths)
-    out = np.empty((n, out_hw[0], out_hw[1], 3), np.float32)
-    rows = None if mats is None else np.asarray(mats, np.float32).reshape(n, 6)
-
-    def one(i: int) -> None:
-        mat = None if rows is None or not rows[i].any() else rows[i]
-        out[i] = _load_one(str(paths[i]), mat, bool(flips is not None and flips[i]), out_hw)
-
-    workers = max(1, min(n_threads, n, os.cpu_count() or 1))
-    with ThreadPoolExecutor(max_workers=workers) as pool:
-        list(pool.map(one, range(n)))  # re-raises the first failure in index order
-    return out
+    `load_batch`, through the port's C++ loader). Raises OSError naming the
+    first unreadable path, and ValueError for a singular affine."""
+    return imageio.load_batch(paths, out_hw, mats=mats, flips=flips, n_threads=n_threads)
 
 
 def image_pipeline(

@@ -1,8 +1,11 @@
-"""Image files ([-1, 1] float HWC <-> 8-bit PNG), written and read with the
-standard library's zlib and struct and numpy only (the card's machine has no
-PIL). `load_image` reads what the JAX package's does (PIL's
-`.convert("RGB")`): PNG with the port's own decoder, JPEG through PIL where
-PIL imports."""
+"""Image files ([-1, 1] float HWC <-> 8-bit PNG or JPEG), with no PIL (the
+card's machine has none). `load_image` reads what the JAX package's does
+(PIL's `.convert("RGB")`) and `save_image` writes what its `save_image` does
+(a JPEG at quality 95 where the suffix says so), both through the port's
+codec (`io.imageio`, C++). The PNG writer and `decode_png` are plain Python
+(zlib, struct, numpy); the decoder is the codec's plain version, which the
+tests hold it to.
+"""
 
 from __future__ import annotations
 
@@ -11,6 +14,8 @@ import zlib
 from pathlib import Path
 
 import numpy as np
+
+from fairdiff_torch.io import imageio
 
 
 def to_uint8(images: np.ndarray) -> np.ndarray:
@@ -134,21 +139,36 @@ def load_png(path: str | Path) -> np.ndarray:
 
 
 def read_rgb8(path: str | Path) -> np.ndarray:
-    """-> [H, W, 3] uint8 RGB as PIL's `.convert("RGB")` gives it: PNG with
-    the port's own decoder, anything else (JPEG) through PIL, which must
-    import; without it the error names the file."""
-    data = Path(path).read_bytes()
-    if data.startswith(_SIGNATURE):
-        return decode_png(data, str(path))
-    try:
-        from PIL import Image
-    except ImportError as err:
-        raise RuntimeError(f"{path}: not a PNG, and there is no JPEG decoder on this machine (no PIL)") from err
-    with Image.open(path) as img:
-        return np.asarray(img.convert("RGB"))
+    """A PNG or JPEG file -> [H, W, 3] uint8 RGB as PIL's `.convert("RGB")`
+    gives it, decoded by the port's codec. A file it cannot read or decode
+    raises OSError naming it."""
+    return imageio.decode(path, "pil")
 
 
 def load_image(path: str | Path) -> np.ndarray:
     """-> float32 [-1, 1] HWC RGB (the reference's read convention), read
     by `read_rgb8`."""
     return read_rgb8(path).astype(np.float32) / 127.5 - 1.0
+
+
+def write_image(pixels: np.ndarray, path: str | Path, quality: int = 95) -> Path:
+    """Write [H, W, 3] uint8 pixels in the format the suffix names: JPEG
+    (`.jpg`, `.jpeg`; baseline 4:2:0 at `quality`, the bytes PIL writes) or
+    PNG (`.png`)."""
+    path = Path(path)
+    suffix = path.suffix.lower()
+    if suffix == ".png":
+        write_png(pixels, path)
+    elif suffix in (".jpg", ".jpeg"):
+        data = imageio.encode_jpeg(pixels, quality)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_bytes(data)
+    else:
+        raise ValueError(f"{path}: write .jpg, .jpeg or .png")
+    return path
+
+
+def save_image(img: np.ndarray, path: str | Path, quality: int = 95) -> None:
+    """Write one [H, W, 3] image in [-1, 1] (fairdiff/io/images.py
+    `save_image`: JPEG at quality 95 for a `.jpg` path)."""
+    write_image(to_uint8(img), path, quality)

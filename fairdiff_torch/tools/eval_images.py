@@ -2,13 +2,13 @@
 fairdiff/tools/eval_images.py, the reference's eval-generated-images.py).
 
 For each prompt folder under `--generated_imgs_dir` (its `*.jpg`, then its
-`*.png`, each sorted): read the images into [-1, 1] (`io.images.load_image`;
-PNG needs nothing beyond numpy and zlib), detect faces in batches of
+`*.png`, each sorted): read the images into [-1, 1] (`io.images.load_image`,
+the port's codec), detect faces in batches of
 `--batch_size`, crop the chips, and run the three held-out MobileNetV3-Large
 classifiers (gender 2, race 4, age 2 classes; the classifier-level
 train/test split) on them; logits are -1 where no face was found. Writes
-`<prompt>_grid.png` (the annotated grid, PNG where the JAX tool writes
-JPEG), `<prompt>_test_results.pkl` ([indicators, bboxes, gender_logits,
+`<prompt>_grid.jpg` (the annotated grid, a JPEG as the JAX tool writes),
+`<prompt>_test_results.pkl` ([indicators, bboxes, gender_logits,
 race_logits, age_logits] as numpy arrays, None for a classifier not given)
 and `summary.pkl` (the bias metrics by prompt).
 
@@ -146,7 +146,7 @@ def main(cfg: EvalImagesConfig) -> dict:
         # is annotated alone (never fabricated gender labels)
         attrs = {k: (preds[k], np.where(inds, probs[k].max(-1), -1.0)) for k in ("gender", "race", "age")
                  if k in preds}
-        grid = save_root / f"{prompt_dir.name}_grid.png"
+        grid = save_root / f"{prompt_dir.name}_grid.jpg"
         if len(attrs) > 1:
             plot_in_grid_multi(imgs, grid, attrs, face_indicators=inds, face_bboxes=bboxes)
         elif preds:

@@ -3,7 +3,7 @@
 Reproduces the reference gen-images behaviour: a deterministic noise bank
 per (seed, prompt, image index), optional TE-LoRA / UNet-LoRA / soft-prefix
 adapters from `.npz` or from the reference's exported `.pth` (`.pt`, `.bin`)
-files, skip-existing resume, `prompt_i/img_j.png` outputs,
+files, skip-existing resume, `prompt_i/img_j.jpg` outputs (JPEG at quality 95),
 and the reference defaults (30 steps, batch 10, guidance 7.5, 60 images a
 prompt). `--model_dir` reads the weights that `tools/convert_sd` wrote;
 without it SD-1.5 runs at full width on seeded random weights.
@@ -17,21 +17,20 @@ Usage:
 
 from __future__ import annotations
 
-import argparse
 import dataclasses
 import json
 import time
-import typing
 from pathlib import Path
 
 import torch
 
 from fairdiff_torch.adapters.prefix import prepend_prefix_ids
 from fairdiff_torch.io.adapters_io import load_adapters
-from fairdiff_torch.io.images import save_png
+from fairdiff_torch.io.images import save_image
 from fairdiff_torch.io.reference_adapters import load_reference_adapters
 from fairdiff_torch.io.tokenizer import load_tokenizer
 from fairdiff_torch.sampling.pipeline import SDConfig, StableDiffusion
+from fairdiff_torch.utils import config as cfglib
 from fairdiff_torch.utils.rng import prompt_noise_generator
 
 
@@ -106,7 +105,7 @@ def main(cfg: GenImagesConfig) -> list[Path]:
         prompt_dir = Path(cfg.save_dir) / f"prompt_{pi}"
         todo = [
             j for j in range(cfg.num_imgs_per_prompt)
-            if not (prompt_dir / f"img_{j}.png").exists()  # resume
+            if not (prompt_dir / f"img_{j}.jpg").exists()  # resume
         ]
         if not todo:
             continue
@@ -136,8 +135,8 @@ def main(cfg: GenImagesConfig) -> list[Path]:
                 guidance_scale=cfg.guidance_scale,
             )
             for j, img in zip(chunk, imgs.cpu().numpy()):
-                out = prompt_dir / f"img_{j}.png"
-                save_png(img, out)
+                out = prompt_dir / f"img_{j}.jpg"
+                save_image(img, out)
                 written.append(out)
         dt = time.perf_counter() - t0
         print(
@@ -148,14 +147,9 @@ def main(cfg: GenImagesConfig) -> list[Path]:
 
 
 def parse_args(argv: list[str] | None = None) -> GenImagesConfig:
-    """`--field value` for every field of GenImagesConfig."""
-    hints = typing.get_type_hints(GenImagesConfig)
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    for f in dataclasses.fields(GenImagesConfig):
-        kind = hints[f.name]
-        conv = (lambda s: s.lower() in ("1", "true", "yes", "on")) if kind is bool else kind
-        parser.add_argument(f"--{f.name}", type=conv, default=f.default)
-    return GenImagesConfig(**vars(parser.parse_args(argv)))
+    """`--field value` for every field of GenImagesConfig, after `--config
+    FILE` (a YAML file of such fields, e.g. configs/gen_tiny_cpu.yaml)."""
+    return cfglib.cli_parse(GenImagesConfig, argv)
 
 
 if __name__ == "__main__":

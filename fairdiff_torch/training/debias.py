@@ -48,7 +48,7 @@ Deliberate departures: the context cotangent is summed in fp32 (the JAX
 program sums it in the text encoder's dtype, bf16 at SD-1.5 width); the
 step's noises and step count, and the evaluation noises, come from
 `utils.rng` torch generators unless passed in; the prefix rows are drawn
-with a `torch.Generator`; grids are PNG files.
+with a `torch.Generator`.
 """
 
 from __future__ import annotations
@@ -601,9 +601,9 @@ class DebiasTrainer:
         evaluation noises (`utils.rng.eval_noises`, or `noises[i]`), and log
         its bias metrics under `<metric>_<label>` beside the metrics of all
         prompts together. With `grids_dir`, write the annotated grid
-        `eval_<name>_<step>_<label>_generated.png` and, unless `ori_grids`
+        `eval_<name>_<step>_<label>_generated.jpg` and, unless `ori_grids`
         is False, the frozen model's grid on the same noises
-        (`..._ori.png`), copied from the first evaluation that drew it."""
+        (`..._ori.jpg`), copied from the first evaluation that drew it."""
         cfg = self.cfg
         all_probs: dict[str, list] = {a: [] for a in cfg.attributes}
         all_preds: dict[str, list] = {a: [] for a in cfg.attributes}
@@ -633,9 +633,9 @@ class DebiasTrainer:
                 per_prompt[f"{k}_{label}"] = v
             if grids_dir:
                 base = Path(grids_dir)
-                self._eval_grid(base / f"eval_{name}_{step}_{label}_generated.png", images, res)
+                self._eval_grid(base / f"eval_{name}_{step}_{label}_generated.jpg", images, res)
                 if ori_grids:
-                    dst = base / f"eval_{name}_{step}_{label}_ori.png"
+                    dst = base / f"eval_{name}_{step}_{label}_ori.jpg"
                     src = self._ori_grid_cache.get((cfg.seed, label))
                     if src is not None and src.exists():
                         if src != dst:

@@ -1,10 +1,11 @@
-"""Annotated image grids, drawn in numpy and written as PNG (counterpart of
-fairdiff/utils/grids.py, which draws with PIL and writes JPEG).
+"""Annotated image grids, drawn in numpy (counterpart of
+fairdiff/utils/grids.py, which draws with PIL).
 
 The tile order, border and stripe colours, face-box outline, confidence bars
 and canvas size are the JAX package's; the lane index is drawn with a small
-built-in digit bitmap in place of PIL's default font, and the file is a PNG
-(`io.images.write_png`).
+built-in digit bitmap in place of PIL's default font. The file is written in
+the format its suffix names (`io.images.write_image`): a `.jpg` at the JAX
+package's default quality, as it writes them, or a `.png`.
 """
 
 from __future__ import annotations
@@ -14,7 +15,9 @@ from typing import Optional
 
 import numpy as np
 
-from fairdiff_torch.io.images import to_uint8, write_png
+from fairdiff_torch.io.images import to_uint8, write_image
+
+GRID_QUALITY = 70  # fairdiff/utils/grids.py's JPEG quality
 
 CLASS_COLORS = [
     (239, 65, 54),  # red
@@ -121,8 +124,7 @@ def plot_in_grid(
             frac = float(np.clip(probs_max[idx], 0, 1))
             _fill(canvas, x0, bar_y, x0 + int(frac * (tile_w - 1)), bar_y + bar_height - 1, color)
         _text(canvas, x0 + border + 2, y0 + border + 2, str(idx), _WHITE, scale)
-    write_png(canvas, save_to)
-    return Path(save_to)
+    return write_image(canvas, save_to, GRID_QUALITY)
 
 
 def plot_in_grid_multi(
@@ -192,5 +194,4 @@ def plot_in_grid_multi(
             if face_indicators[idx] and preds[a][idx] >= 0:
                 frac = float(np.clip(confs[a][idx], 0, 1))
                 _fill(canvas, x0, bar_y, x0 + int(frac * (tile_w - 1)), bar_y + bar_height - 1, color(a, idx))
-    write_png(canvas, save_to)
-    return Path(save_to)
+    return write_image(canvas, save_to, GRID_QUALITY)

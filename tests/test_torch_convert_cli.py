@@ -63,7 +63,7 @@ def test_convert_sd_then_gen_images_reads_the_store(tmp_path):
     random = gen_images.main(gen_images.parse_args(common + ["--save_dir", str(tmp_path / "random")]))
     stored = gen_images.main(gen_images.parse_args(common + ["--save_dir", str(tmp_path / "stored"),
                                                             "--model_dir", str(tmp_path / "store")]))
-    assert [p.name for p in stored] == ["img_0.png", "img_1.png"]
+    assert [p.name for p in stored] == ["img_0.jpg", "img_1.jpg"]
     assert [p.read_bytes() for p in stored] == [p.read_bytes() for p in random]
     other = StableDiffusion(SDConfig.tiny(), device="cpu").init_random(7)
     chip_smoke.write_sd_checkpoint(other, tmp_path / "sd7")

@@ -23,7 +23,7 @@ from fairdiff.io.adapters_io import save_adapters as jax_save_adapters
 from fairdiff.tools import eval_images as jax_eval
 from fairdiff_torch.guidance.detector_train import render_face_scene, render_negative_scene
 from fairdiff_torch.io.from_jax import jax_tree_from_module
-from fairdiff_torch.io.images import save_png
+from fairdiff_torch.io.images import save_image
 from fairdiff_torch.models.layers import init_weights
 from fairdiff_torch.models.mobilenet_v3 import MobileNetV3Large
 from fairdiff_torch.tools import eval_images
@@ -40,7 +40,7 @@ def folders(tmp_path_factory):
     for name, (n_face, n_free) in FOLDERS.items():
         for i in range(n_face + n_free):
             img = (render_face_scene(rng, 128) if i < n_face else render_negative_scene(rng, 128))[0]
-            save_png(img, root / name / f"img_{i}.png")
+            save_image(img, root / name / f"img_{i}.jpg")  # what gen_images writes
     return root
 
 
@@ -78,7 +78,7 @@ def _run_both(tmp_path, folders, batch_size=4, **kw):
             if wl is not None:
                 assert gl.dtype == np.float32 and gl.shape == np.asarray(wl).shape
                 np.testing.assert_allclose(gl, np.asarray(wl), atol=1e-4, rtol=1e-4)
-        assert (tmp_path / "port" / f"{name}_grid.png").exists()
+        assert (tmp_path / "port" / f"{name}_grid.jpg").exists()
     with open(tmp_path / "port" / "summary.pkl", "rb") as f:
         summary = pickle.load(f)
     assert summary == got

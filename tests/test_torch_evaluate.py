@@ -83,18 +83,18 @@ def test_evaluate_artifacts_and_per_prompt_metrics(tmp_path):
                           grids_dir=tmp_path)
     label = "a_photo_of_a_doctor"
     assert "gender_gap" in ev and f"gender_gap_{label}" in ev
-    assert (tmp_path / f"eval_main_40_{label}_generated.png").exists()
-    assert (tmp_path / f"eval_main_40_{label}_ori.png").exists()
+    assert (tmp_path / f"eval_main_40_{label}_generated.jpg").exists()
+    assert (tmp_path / f"eval_main_40_{label}_ori.jpg").exists()
     trainer.evaluate(state.ema, [ids], name="ema", step=40, grids_dir=tmp_path, ori_grids=False)
-    assert (tmp_path / "eval_ema_40_prompt0_generated.png").exists()
-    assert not (tmp_path / "eval_ema_40_prompt0_ori.png").exists()
+    assert (tmp_path / "eval_ema_40_prompt0_generated.jpg").exists()
+    assert not (tmp_path / "eval_ema_40_prompt0_ori.jpg").exists()
     calls = []
     real = trainer._sample_analyze
     trainer._sample_analyze = lambda *a: (calls.append(a[0]), real(*a))[1]
     trainer.evaluate(state.adapters, [ids], name="main", step=80, prompt_texts=["a photo of a doctor"],
                      grids_dir=tmp_path)
     assert len(calls) == 1 and calls[0] is state.adapters  # the frozen model did not run again
-    ori40, ori80 = (tmp_path / f"eval_main_{s}_{label}_ori.png" for s in (40, 80))
+    ori40, ori80 = (tmp_path / f"eval_main_{s}_{label}_ori.jpg" for s in (40, 80))
     assert ori80.read_bytes() == ori40.read_bytes()
     ev3 = trainer.evaluate(state.adapters, [ids, ids], name="main", step=120, prompt_texts=["a b", "a/b"])
     assert "gender_gap_a_b" in ev3 and "gender_gap_a_b_p1" in ev3
@@ -111,5 +111,5 @@ def test_fit_logs_eval_and_ema_eval(tmp_path):
         keys = set(k for s, logs in records if s == step for k in logs)
         assert {"eval_gender_gap", "eval_ema_gender_gap", "eval_gender_gap_doc", "step_time_s",
                 "time_phase4_pair_vjp_s"} <= keys
-    assert sorted(p.name for p in (tmp_path / "imgs").glob("*_ori.png")) == [
-        "eval_main_1_doc_ori.png", "eval_main_2_doc_ori.png"]
+    assert sorted(p.name for p in (tmp_path / "imgs").glob("*_ori.jpg")) == [
+        "eval_main_1_doc_ori.jpg", "eval_main_2_doc_ori.jpg"]

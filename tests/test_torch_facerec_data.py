@@ -92,11 +92,15 @@ def test_load_batch_warps_like_native_and_raises(tmp_path):
 
 
 def test_jpeg_without_pil_names_the_file(tmp_path, monkeypatch):
+    """The port's codec needs no PIL: a broken JPEG raises OSError naming it
+    in the item path and the batch loader alike."""
     path = tmp_path / "face.jpg"
     path.write_bytes(b"\xff\xd8\xff\xe0 not a real jpeg")
     monkeypatch.setitem(sys.modules, "PIL", None)
-    with pytest.raises(RuntimeError, match="face.jpg"):
+    with pytest.raises(OSError, match="face.jpg"):
         tds.image_pipeline({"path": str(path)}, True)
+    with pytest.raises(OSError, match="face.jpg"):
+        tds.load_batch([str(path)], (8, 8))
 
 
 def test_item_path_matches_cv2_path(tmp_path):

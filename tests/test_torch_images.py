@@ -158,12 +158,16 @@ def test_unsupported_and_corrupt_files_raise_naming_the_file(tmp_path):
 
 
 def test_jpeg_goes_through_pil_or_names_the_missing_decoder(tmp_path, monkeypatch):
+    """JPEG decodes with PIL blocked (the port's codec), equal to the JAX
+    package's PIL read; an undecodable file raises naming itself."""
     path = tmp_path / "a.jpg"
     Image.fromarray(_pixels()[..., :3]).save(path, quality=95)
-    np.testing.assert_array_equal(load_image(path), jax_load_image(path))
+    want = jax_load_image(path)
     monkeypatch.setitem(sys.modules, "PIL", None)
-    with pytest.raises(RuntimeError, match="a.jpg.*no JPEG decoder"):
-        load_image(path)
-    # PNG needs no PIL
+    np.testing.assert_array_equal(load_image(path), want)
+    (tmp_path / "bad.jpg").write_bytes(path.read_bytes()[:200])
+    with pytest.raises(OSError, match="bad.jpg.*truncated"):
+        load_image(tmp_path / "bad.jpg")
+    # PNG needs no PIL either
     write_png(_pixels()[..., :3], tmp_path / "b.png")
     assert load_image(tmp_path / "b.png").shape == (33, 29, 3)

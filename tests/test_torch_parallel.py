@@ -12,7 +12,10 @@ on every launch) running `torch_ranks`' functions, which import no JAX.
   data=2 x model=2 on its draws: every gradient within rel L2 1e-4 (the JAX
   8-device dry run read 1.06e-5 between mesh and single device), targets
   equal, logs within rel 1e-4, adapters and EMA within 1e-6 relative plus
-  the AdamW slack `assert_steps_match_jax` states;
+  the AdamW slack `assert_steps_match_jax` states; at data=2 the all-reduce
+  equal to the sum of the ranks' own gradients, and each rank's own within
+  rel L2 1e-4 of the port's one-process step over that rank's lanes only
+  (`chip_smoke.lane_shares`), the ranks' lanes swapped failing that;
 - exp-3 at data=2: `ot_draws` equal to the JAX trainer's on a data=2 mesh,
   the gathered targets equal to the port's world-1 targets;
 - one `FaceRecTrainer` step at data=2 against the JAX mesh step (SphereFace
@@ -180,6 +183,19 @@ def test_mesh_train_step_matches_jax_mesh_trainer(tmp_path, jax_mesh_step, data,
             assert torch.equal(t, a + b)
         for r in out:
             assert max(_rel(t.numpy(), w) for t, w in zip(r["local"], j["grads"])) > 1e-4
+        # each rank's own gradients against the one-process step over that
+        # rank's lanes only (its pair VJPs on those lanes alone); swapping
+        # the ranks' lanes breaks the check
+        from torch_ranks import debias_step  # in this process: no mesh at 1 x 1
+
+        one = debias_step(data=1, model=1, cfg=CFG, params=j["params"], db_feats=j["db_feats"],
+                          adapters=j["adapters"], noises=j["noises"], n_steps=j["n_steps"], ids=(COND, UNCOND),
+                          lane_spans=[slice(0, 2), slice(2, 4)])
+        assert all(s.norm() > 0 for s in one["shares"])
+        for r in range(2):
+            own = torch.cat([g.flatten() for g in out[r]["local"]])
+            assert _rel(own.numpy(), one["shares"][r].numpy()) < 1e-4
+            assert _rel(own.numpy(), one["shares"][1 - r].numpy()) > 1e-4
 
 
 def test_exp3_targets_gathered_over_the_data_axis(tmp_path):

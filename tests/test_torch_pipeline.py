@@ -195,9 +195,9 @@ def test_gen_images_cli_writes_pngs_and_resumes(tmp_path):
     ])
     assert (cfg.num_imgs_per_prompt, cfg.tiny_smoke, cfg.guidance_scale) == (3, True, 7.5)
     written = gen_images.main(cfg)
-    assert [p.name for p in written] == ["img_0.png", "img_1.png", "img_2.png"]
+    assert [p.name for p in written] == ["img_0.jpg", "img_1.jpg", "img_2.jpg"]
     first = [p.read_bytes() for p in written]
-    assert all(b.startswith(b"\x89PNG\r\n\x1a\n") for b in first)
+    assert all(b.startswith(b"\xff\xd8\xff\xe0\x00\x10JFIF") for b in first)  # as the JAX CLI writes them
     assert gen_images.main(cfg) == []  # everything exists: resume skips
     written[2].unlink()  # generated alone in its batch, as it will be again
     again = gen_images.main(cfg)  # only the missing image, with the same noise

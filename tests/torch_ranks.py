@@ -64,11 +64,15 @@ def gather_grad() -> list:
 
 
 def debias_step(*, data: int, model: int, cfg: dict, params, db_feats, adapters, noises, n_steps: int,
-                ids, steps: int = 1) -> dict:
+                ids, steps: int = 1, lane_spans=None) -> dict:
     """`steps` port train_steps of the tiny SD (`load_jax(params)`) on a
     data x model mesh (no mesh at 1 x 1) with the synthetic stack; -> the
     last step's global grads, this rank's own before the all-reduce, the
-    targets, its logs, adapters, EMA and the trainer's OT draws."""
+    targets, its logs, adapters, EMA and the trainer's OT draws; with
+    `lane_spans`, also each span's share of the step's gradient
+    (`chip_smoke.lane_shares`)."""
+    import contextlib
+
     from fairdiff_torch.io.from_jax import adapters_from_jax
     from fairdiff_torch.sampling import pipeline as tpipe
     from fairdiff_torch.training import debias as tdebias
@@ -87,9 +91,17 @@ def debias_step(*, data: int, model: int, cfg: dict, params, db_feats, adapters,
         return reduce(grads)
 
     trainer._reduce_grads = keep_local
-    for _ in range(steps):
-        state, logs = trainer.train_step(state, ids, noises=noises, n_steps=n_steps)
+    if lane_spans:
+        from chip_smoke import lane_shares
+
+        sharing = lane_shares(trainer, lane_spans)
+    else:
+        sharing = contextlib.nullcontext({})
+    with sharing as shares:
+        for _ in range(steps):
+            state, logs = trainer.train_step(state, ids, noises=noises, n_steps=n_steps)
     return {
+        "shares": [shares[(i, None)] for i in range(len(lane_spans or []))],
         "grads": tree_leaves(trainer._last_grads), "local": local["grads"], "targets": trainer._last_targets,
         "logs": logs,
         "adapters": tree_leaves(state.adapters), "ema": tree_leaves(state.ema), "ot_draws": trainer.ot_draws,
