@@ -12,7 +12,13 @@ Phases (any failure raises and exits non-zero):
      quality-95 bytes against PIL's, an entropy byte flipped and the restart
      markers stripped as controls that must fail), and the batch loader's
      img/s at 512 x 112x112 on JPEG and filtered PNG beside the numpy loader
-     it replaced, with the host's core count;
+     it replaced, with the host's core count; then emd: the native EMD
+     solver (csrc/emd.cpp, built with the codec) on the committed plans of
+     the JAX package's native solver, bit-equal (ties included), the two
+     saturated target cases' targets equal and uncertainties within 1e-12,
+     controls that must fail (a NaN cost and a mass mismatch raise; a plan
+     with two rows swapped fails the comparison), and `emd_batch` ms on both
+     routes at exp-3's and exp-6's shapes, with the host's core count;
   3. each kernel against its plain PyTorch version on the card, in bf16, at
      the shapes the SD-1.5 path gives it (CFG batch of N=2 images; K1 also
      at [8,576,8,160], the 1280-channel blocks at 768 px), both against an
@@ -67,10 +73,12 @@ Phases (any failure raises and exits non-zero):
      writes) and --flash_bwd merged: K6 launch counts, moved adapters;
  16. train-exp3: phase 10 for exp-3 (gender x race, sampled OT with 200
      draws; 16 lanes, micro-batch 4, 19 denoising steps, synthetic stack):
-     s/step, the phase split with phase 2 on its own line, peak memory,
+     s/step, the phase split with phase 2 on its own line (its OT problems
+     all on the native EMD solver), peak memory,
      exact launch counts, finite non-zero grads, a lane with a target for
      each attribute, race_gap and gender_race_gap logged;
- 17. train-exps: phase 9 for exp-2 to exp-6 at 2 denoising steps (exp-2: the exported prefix
+ 17. train-exps: phase 9 for exp-2 to exp-6 at 2 denoising steps (exp-3 to
+     exp-6: every OT problem on the native EMD solver; exp-2: the exported prefix
      table moved and `gen_images` reads it back; exp-5: two prompt files
      the phase writes, repeats 1 and 6);
  18. unet-vjp-lora: phase 8 with a rank-4 UNet LoRA through the merged
@@ -480,6 +488,138 @@ def phase_imageio(power: str) -> dict:
     if failed:
         raise AssertionError(f"[imageio] failed: {failed}")
     return dict(rates, cores=cores)
+
+
+EMD_FIXTURES = Path(__file__).resolve().parent / "fairdiff_torch" / "testdata" / "emd_fixtures.npz"
+EMD_UNC_ATOL = 1e-12  # the same float64 sums over the same plans
+EMD_DRAWS = 200  # exp-3's OT draws a step (100 a device, 2 devices)
+
+
+def _emd_ms(fn) -> float:
+    """ms of `fn()`: the median of 5 calls after one warm call."""
+    import numpy as np
+
+    fn()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e3
+
+
+def phase_emd(power: str) -> dict:
+    """[emd]: the native EMD solver (csrc/emd.cpp through fairness/emd.py)
+    on the card's host, no JAX. Every committed fixture (plans the JAX
+    package's native solver wrote: the saturated exp-3 and exp-6 target
+    cases, identical rows at 8 and 16 lanes, exp-3's 200 draws x 8 classes
+    and exp-6's enumerated combinations at 16 lanes, 20 random problems
+    with N 4..40 and C 2..16) is solved to the same plan, bit for bit; the
+    two saturated cases' targets through the port's target functions equal
+    the JAX package's and their uncertainties are within 1e-12. Controls,
+    each of which must fail: a NaN cost raises (and the library itself
+    returns 2 and writes nothing), a mass mismatch raises, a fixture plan
+    with two rows swapped (an equally optimal plan of identical rows) fails
+    the comparison. Then `emd_batch` ms on both routes: exp-3's 200 draws x
+    8 classes at 16 and 32 lanes and exp-6's enumerated combinations at 16
+    and 24 lanes, with the host's core count."""
+    import ctypes
+
+    import numpy as np
+
+    from fairdiff_torch.fairness import emd, targets
+
+    t_start = time.perf_counter()
+    failed = []
+    fx = dict(np.load(EMD_FIXTURES))
+    cases = sorted(k[:-len(".plans")] for k in fx if k.endswith(".plans"))
+    equal = {c: bool(np.array_equal(emd.emd_batch(fx[f"{c}.bs"], fx[f"{c}.cost"]),
+                                    fx[f"{c}.plans"].astype(np.float64))) for c in cases}
+    problems = sum(len(fx[f"{c}.bs"]) for c in cases)
+    log(f"[emd] {len(cases)} fixtures, {problems} problems, plans bit-equal to the JAX native solver's: "
+        + ", ".join(f"{c} {ok}" for c, ok in equal.items()))
+    failed += [f"fixture {c}" for c, ok in equal.items() if not ok]
+
+    seed, draws = int(fx["ot_seed"]), int(fx["ot_draws"])
+    got = {
+        "tied_ot2": targets.sampled_ot_targets_2attr(fx["tied_ot2.probs_gender"], fx["tied_ot2.probs_race"],
+                                                     np.random.default_rng(seed), draws),
+        "tied_enum": (targets.enumerated_ot_targets(fx["tied_enum.probs"]),),
+    }
+    for case, ts in got.items():
+        same = all(np.array_equal(t.targets, w) for t, w in zip(ts, fx[f"{case}.targets"]))
+        unc = max(float(np.abs(t.uncertainty - w).max()) for t, w in zip(ts, fx[f"{case}.uncertainty"]))
+        log(f"[emd] {case}: targets {[t.targets.tolist() for t in ts]} equal to the JAX package's {same}, "
+            f"uncertainty max |diff| {unc:.3e} (limit {EMD_UNC_ATOL:.0e})")
+        if not same or unc > EMD_UNC_ATOL:
+            failed.append(f"{case} targets")
+
+    # controls
+    def raises(bs, cost) -> str:
+        try:
+            emd.emd_batch(bs, cost)
+        except ValueError as err:
+            return f"raises ({err})"
+        return "solved"
+
+    cost, bs = fx["identical8.cost"], fx["identical8.bs"][8:9]
+    nan_cost = cost.copy()
+    nan_cost[3] = np.nan
+    nan_py = raises(bs, nan_cost)
+    plan = np.full(cost.shape, 7.0)
+    f64p, i64p = ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_int64)
+    b0 = np.ascontiguousarray(bs[0], np.int64)
+    nan_rc = emd._lib().emd_assignment(nan_cost.ctypes.data_as(f64p), b0.ctypes.data_as(i64p), *cost.shape,
+                                       plan.ctypes.data_as(f64p))
+    mass = bs.copy()
+    mass[0, 0] += 1
+    mass_py = raises(mass, cost)
+    want = fx["identical8.plans"][8].astype(np.float64)
+    i = 0
+    j = int(np.flatnonzero((want != want[i]).any(axis=1))[0])  # a row in another class
+    swapped = want.copy()
+    swapped[[i, j]] = swapped[[j, i]]
+    swapped_equal = bool(np.array_equal(emd.emd_batch(bs, cost)[0], swapped))
+    swap_cost = float((swapped * cost).sum() - (want * cost).sum())
+    log(f"[emd] controls: NaN cost row {nan_py}, the library returns {nan_rc} with the plan untouched "
+        f"{bool((plan == 7.0).all())}; mass mismatch {mass_py}; identical8 plan 8 with rows {i} and {j} swapped "
+        f"(cost change {swap_cost:.1e}): equal {swapped_equal} (each must fail)")
+    if not nan_py.startswith("raises") or nan_rc != 2 or not (plan == 7.0).all():
+        failed.append("control: NaN cost")
+    if not mass_py.startswith("raises"):
+        failed.append("control: mass mismatch")
+    if swapped_equal:
+        failed.append("control: swapped rows passed the comparison")
+
+    # times at the path's shapes, both routes
+    rng = np.random.default_rng(30)
+    eg, er = np.repeat(np.eye(2), 4, axis=0), np.tile(np.eye(4), (2, 1))
+    cores = os.cpu_count()
+    times = {}
+    for kind, n in (("exp3", 16), ("exp3", 32), ("exp6", 16), ("exp6", 24)):
+        pr = rng.dirichlet(np.ones(4), n)
+        if kind == "exp3":  # sampled_ot_targets_2attr's problems
+            pg = rng.dirichlet(np.ones(2), n)
+            cost = np.sqrt(((pg[:, None] - eg[None]) ** 2).sum(-1) + ((pr[:, None] - er[None]) ** 2).sum(-1))
+            joint = (rng.random((EMD_DRAWS, n)) > 0.5) * 4 + rng.integers(0, 4, (EMD_DRAWS, n))
+            bs = np.stack([np.bincount(row, minlength=8) for row in joint])
+        else:  # enumerated_ot_targets'
+            cost = np.sqrt(((pr[:, None] - np.eye(4)[None]) ** 2).sum(-1))
+            bs = targets.enumerate_multinomial_combs(n, 4, 0.95)[0]
+        native = _emd_ms(lambda: emd.emd_batch(bs, cost))
+        scipy = _emd_ms(lambda: emd.emd_batch(bs, cost, native=False))
+        optima = [(emd.emd_batch(bs, cost, native=r) * cost).sum(axis=(1, 2)) for r in (True, False)]
+        same_cost = bool(np.allclose(*optima, rtol=0, atol=1e-9))
+        times[f"{kind}_{n}"] = {"problems": len(bs), "classes": bs.shape[1], "native_ms": native, "scipy_ms": scipy}
+        log(f"[emd] emd_batch {kind}, {n} lanes, {len(bs)} problems x {bs.shape[1]} classes: native {native:.3f} ms, "
+            f"scipy {scipy:.3f} ms ({scipy / native:.2f}x), equal optima {same_cost}; host of {cores} cores "
+            f"(card {power})")
+        if not same_cost:
+            failed.append(f"{kind} {n}: optima differ between the routes")
+    log(f"[emd] {time.perf_counter() - t_start:.1f} s")
+    if failed:
+        raise AssertionError(f"[emd] failed: {failed}")
+    return dict(times, cores=cores)
 
 
 # K4's shapes on the path: x [M, d] of the feed-forwards at 4096, 1024, 256
@@ -1366,8 +1506,21 @@ def reset_counts() -> None:
     from fairdiff_torch.ops import geglu as gg
     from fairdiff_torch.ops import group_norm as gn
 
+    from fairdiff_torch.fairness import emd
+
     fa.launches = fa.launches_lse = fa.launches_dq = fa.launches_dkv = fa.launches_merged = 0
     gg.launches = gg.launches_dx = gn.launches = 0
+    emd.solves = 0  # the native EMD solver's problems (a host library: not in launch_counts)
+
+
+def native_ot_problems(cfg, steps: int, ot_draws: int, lanes: int) -> tuple[int, int]:
+    """(problems the native EMD solver solved since `reset_counts`, the
+    problems `steps` training steps hand it when every lane has a face)."""
+    from fairdiff_torch.fairness import emd, targets
+
+    per_step = {"ot2": ot_draws, "ot3": ot_draws,
+                "enum": len(targets.enumerate_multinomial_combs(lanes, 4, 0.95)[0])}.get(cfg.target_kind, 0)
+    return emd.solves, steps * per_step
 
 
 # Launches of one pair VJP (a single-step UNet forward and backward, remat
@@ -1728,6 +1881,7 @@ def phase_train(flash_bwd: str = "split", zoo: bool = False, experiment: str = "
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         ran = launch_counts()
+        solved, want_solved = native_ot_problems(trainer.cfg, 2, trainer.ot_draws, 4)
         lines = [json.loads(x) for x in out.getvalue().splitlines() if x.startswith("{")]
         for x in lines:
             log(f"{tag} {json.dumps(x)}")
@@ -1753,7 +1907,8 @@ def phase_train(flash_bwd: str = "split", zoo: bool = False, experiment: str = "
         f"{steps} denoising steps, SD weights {'from ' + repr(model_dir) if model_dir else 'random'}, "
         f"guidance {'from ' + repr(Path(guidance_dir).name) if guidance_dir else 'synthetic'}, "
         f"tokenizer {'CLIP BPE' if tokenizer_dir else 'hash'}, "
-        f"flash_bwd={flash_bwd!r}, {seconds:.2f} s incl. setup; {what}; launches {ran} (want {want})")
+        f"flash_bwd={flash_bwd!r}, {seconds:.2f} s incl. setup; {what}; launches {ran} (want {want}); "
+        f"OT problems on the native EMD solver {solved} (want {want_solved})")
     failed = [name for name, ok in (
         ("two steps", [x["step"] for x in lines] == [1, 2]),
         ("finite grads", all(x["grads_finite"] and x["grad_norm"] > 0 for x in lines)),
@@ -1764,6 +1919,7 @@ def phase_train(flash_bwd: str = "split", zoo: bool = False, experiment: str = "
             for x in lines)),
         ("adapters moved", moved),
         ("launches", ran == want),
+        ("native OT", solved == want_solved),
     ) if not ok]
     if failed:
         raise AssertionError(f"{tag} failed: {failed}")
@@ -1905,7 +2061,9 @@ def phase_train_step(power: str, zoo: bool = False, experiment: str = "exp1", un
     log(f"{tag} {experiment} step, SD-1.5 bf16, {lanes} lanes, micro-batch {p}, 19 denoising steps{ot}, "
         f"{'filled real-architecture zoo' if zoo else 'synthetic'} guidance: {seconds:.3f} s/step on {power}; "
         f"peak memory {peak_gib:.2f} GiB; phases (s) {split}")
-    log(f"{tag} phase 2 ({dcfg.target_kind} targets, host): {trainer.timers.last['phase2_targets']:.4f} s")
+    solved, want_solved = native_ot_problems(dcfg, 1, trainer.ot_draws, lanes)
+    log(f"{tag} phase 2 ({dcfg.target_kind} targets, host): {trainer.timers.last['phase2_targets']:.4f} s; "
+        f"OT problems on the native EMD solver {solved} (want {want_solved})")
     log(f"{tag} launches in the step {ran} (want {want})")
     log(f"{tag} logs {json.dumps(logs)}")
     kept = {a: int((t != -1).sum()) for a, t in trainer._last_targets.items()}
@@ -1924,7 +2082,7 @@ def phase_train_step(power: str, zoo: bool = False, experiment: str = "exp1", un
         log(f"{tag} unet_lora gradient: {g_unet.numel()} elements, norm {g_unet.norm().item():.4e}")
         moved = moved and bool(torch.isfinite(g_unet).all()) and g_unet.abs().max().item() > 0
     if not (logs["grads_finite"] and moved and logs["num_denoising_steps"] == 19 and ran == want
-            and targeted and all(k in logs for k in metrics)):
+            and targeted and all(k in logs for k in metrics) and solved == want_solved):
         raise AssertionError(f"{tag} failed: {logs}, launches {ran}, lanes with a target {kept}")
     return {"seconds": seconds, "peak_gib": peak_gib, "split": split}
 
@@ -3996,6 +4154,9 @@ def main() -> int:
     t = time.perf_counter()
     phase_imageio(power)
     log(f"[time] imageio {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    phase_emd(power)
+    log(f"[time] emd {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     rows = phase_kernels()
     log(f"[time] kernels {time.perf_counter() - t:.1f} s")

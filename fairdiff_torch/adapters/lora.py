@@ -97,3 +97,11 @@ def apply_lora(module: nn.Module, lora: Mapping, scale: float = 1.0) -> dict[str
         w = module.get_parameter(name)
         merged[name] = (w.float() + scale * delta).to(w.dtype)
     return merged
+
+
+def lora_param_count(lora: Mapping) -> int:
+    """Elements in every leaf of a LoRA tree (tensors or arrays)."""
+    return sum(
+        lora_param_count(v) if isinstance(v, Mapping) else v.numel() if torch.is_tensor(v) else int(np.size(v))
+        for v in lora.values()
+    )

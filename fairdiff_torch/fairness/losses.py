@@ -14,6 +14,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from fairdiff_torch.guidance.face_feats import FaceFeatsDB
+
 
 class FairLossOutput(NamedTuple):
     total: torch.Tensor  # scalar, mean over lanes
@@ -38,6 +40,30 @@ def fair_ce_loss(
     valid = face_indicators & (targets != -1)
     ce = cross_entropy(logits.float(), targets)
     return torch.where(valid, ce, 0.0), valid
+
+
+def face_realism_loss(
+    face_embeds: torch.Tensor,  # [N, D] current, normalised
+    face_embeds_ori: torch.Tensor,  # [N, D] the original image's, normalised
+    face_indicators: torch.Tensor,  # [N]
+    targets: torch.Tensor,  # [N]
+    preds_ori: torch.Tensor,  # [N]
+    probs_ori_max: torch.Tensor,  # [N] the original confidence
+    db: Optional[FaceFeatsDB],
+    confidence_level: float = 0.9,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """1 - cos against the original image's embedding where the identity is
+    kept with confidence >= `confidence_level`, else against the top-1
+    database match of the current embedding (itself without a database);
+    the targets carry no gradient. -> (per-lane loss masked to 0, valid mask)."""
+    valid = face_indicators & (targets != -1)
+    from_ori = valid & (targets == preds_ori) & (probs_ori_max >= confidence_level)
+    searched = face_embeds.detach()
+    if db is not None:
+        _, searched = db.semantic_search(searched)
+    target_embeds = torch.where(from_ori[:, None], face_embeds_ori, searched)
+    loss = cosine_loss(face_embeds, target_embeds.detach())
+    return torch.where(valid, loss, 0.0), valid
 
 
 def composite_loss(

@@ -1,6 +1,8 @@
 """Dynamic loss weights and the face-region gradient mask (counterpart of
 fairdiff/fairness/weights.py).
 
+- `dynamic_weights`, `face_region_grad_scale`: one attribute, one factor
+  (exp-1's `gen_dynamic_weights` and `apply_grad_hook_face`).
 - `dynamic_weights_multi`: the image-preservation loss weight per lane, 1
   where every attribute keeps its original prediction, else the smallest
   factor of the attributes that change (exp-1 gives lanes without a face
@@ -20,6 +22,18 @@ import torch
 def keep_identity(targets: torch.Tensor, preds_ori: torch.Tensor) -> torch.Tensor:
     """True where the target keeps the originally predicted class."""
     return (targets == preds_ori) & (targets != -1)
+
+
+def dynamic_weights(
+    face_indicators: torch.Tensor,  # [N] bool
+    targets: torch.Tensor,  # [N] int, -1 fill
+    preds_ori: torch.Tensor,  # [N] int, -1 fill
+    factor: float = 0.2,
+) -> torch.Tensor:
+    """1 for lanes without a face or whose target keeps the original
+    prediction, `factor` for the others (a target of -1 counts as changed)."""
+    w_face = torch.where(keep_identity(targets, preds_ori), 1.0, factor)
+    return torch.where(face_indicators, w_face, 1.0)
 
 
 def multi_attr_factor(
@@ -64,13 +78,11 @@ class ScaleGradRegion(torch.autograd.Function):
         return g * scale_map, None
 
 
-def face_region_grad_scale_multi(
+def _scale_face_region(
     images: torch.Tensor,  # [N, H, W, C]
     face_bboxes: torch.Tensor,  # [N, 4], -1 fill
     face_bboxes_ori: torch.Tensor,  # [N, 4], -1 fill
-    targets: dict[str, torch.Tensor],
-    preds_ori: dict[str, torch.Tensor],
-    factors: dict[str, float],
+    f: torch.Tensor,  # [N] the factor of each lane
 ) -> torch.Tensor:
     _, h, w, _ = images.shape
     b = face_bboxes.clamp_min(0).float()
@@ -86,6 +98,31 @@ def face_region_grad_scale_multi(
         & (ys >= y0[:, None, None]) & (ys < y1[:, None, None])
     ).float()
     has_face = (face_bboxes != -1).any(dim=-1)
-    f = multi_attr_factor(targets, preds_ori, factors)
     scale = torch.where(has_face[:, None, None], masks * f[:, None, None] + (1.0 - masks), 1.0)
     return ScaleGradRegion.apply(images, scale[..., None].to(images.dtype))
+
+
+def face_region_grad_scale(
+    images: torch.Tensor,  # [N, H, W, C]
+    face_bboxes: torch.Tensor,  # [N, 4], -1 fill
+    face_bboxes_ori: torch.Tensor,  # [N, 4], -1 fill
+    targets: torch.Tensor,  # [N]
+    preds_ori: torch.Tensor,  # [N]
+    factor: float = 0.1,
+) -> torch.Tensor:
+    """Identity forward; the backward scales the image gradient inside the
+    intersection of the two face boxes by 1 (target keeps the original
+    prediction) or `factor`."""
+    f = torch.where(keep_identity(targets, preds_ori), 1.0, factor)
+    return _scale_face_region(images, face_bboxes, face_bboxes_ori, f)
+
+
+def face_region_grad_scale_multi(
+    images: torch.Tensor,  # [N, H, W, C]
+    face_bboxes: torch.Tensor,  # [N, 4], -1 fill
+    face_bboxes_ori: torch.Tensor,  # [N, 4], -1 fill
+    targets: dict[str, torch.Tensor],
+    preds_ori: dict[str, torch.Tensor],
+    factors: dict[str, float],
+) -> torch.Tensor:
+    return _scale_face_region(images, face_bboxes, face_bboxes_ori, multi_attr_factor(targets, preds_ori, factors))

@@ -68,6 +68,17 @@ def analyze_faces(
     )
 
 
+def get_face(
+    images: torch.Tensor,
+    detect_fn: Callable[[torch.Tensor], FaceDetections],
+    **kwargs,
+) -> FaceAnalysis:
+    """`analyze_faces` on the detections of any detector that keeps the
+    FaceDetections contract (FaceDetectorNet, a composed two-stage
+    detector, a synthetic oracle); `kwargs` go to `analyze_faces`."""
+    return analyze_faces(images, detect_fn(images), **kwargs)
+
+
 def merge_detections(a: FaceDetections, b: FaceDetections) -> FaceDetections:
     """Lanes `a` missed are filled from `b` (the reference's two-stage
     semantics: the fallback is consulted only where the primary found

@@ -9,9 +9,11 @@ source is rebuilt and an unchanged one is loaded as it is. The libraries
 have a plain C interface: every pointer and the stream are passed as
 `ctypes.c_void_p`, and every launch returns `cudaGetLastError()`.
 
-Each `csrc/<name>.cpp` in HOST_LIBRARIES (the image codec) is compiled the
-same way with `$CXX` or `c++` (`-O3 -std=c++17 -shared -fPIC -pthread`), on
-the CPU as on the card's host.
+Each `csrc/<name>.cpp` in HOST_LIBRARIES (the image codec, the EMD solver)
+is compiled the same way with `$CXX` or `c++` (`-O3 -std=c++17 -shared -fPIC
+-pthread -ffp-contract=off`), on the CPU as on the card's host. No FMA
+contraction: the EMD solver must break ties in the same double arithmetic
+as the JAX package's copy, which is built without it.
 
 There is no fallback: a missing compiler or a failed compile raises.
 """
@@ -30,7 +32,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "fairdiff_torch"
 KERNELS = ("flash_attention", "geglu", "group_norm")
-HOST_LIBRARIES = ("imageio",)
+HOST_LIBRARIES = ("imageio", "emd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -205,6 +205,115 @@ def test_face_region_grad_scale_matches_jax():
     np.testing.assert_allclose(tg, jg, **TOL)
 
 
+@pytest.mark.parametrize("factor", [0.2, 0.5, 1.5])
+def test_single_attribute_dynamic_weights_match_jax(factor):
+    """`dynamic_weights` (exp-1's one attribute), exact: 1 without a face or
+    where the target keeps the prediction, else `factor`."""
+    targets, preds = _targets_preds()
+    ind = np.array([True, True, True, False, True])
+    for name in ("gender", "race"):
+        want = jweights.dynamic_weights(jnp.asarray(ind), jnp.asarray(targets[name]), jnp.asarray(preds[name]), factor)
+        got = tweights.dynamic_weights(torch.from_numpy(ind), torch.from_numpy(targets[name]),
+                                       torch.from_numpy(preds[name]), factor)
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("factor", [0.1, 0.35, 1.5])
+def test_single_attribute_face_region_grad_scale_matches_jax(factor):
+    """`face_region_grad_scale`: identity forward, and its VJP scales the
+    image gradient by `factor` inside the box intersection (a factor above
+    1 too, which the multi-attribute rule would cap at 1); within TOL."""
+    targets, preds = _targets_preds()
+    images = _images(5, 24, seed=19)
+    boxes = np.array([[2, 3, 15, 20], [-1, -1, -1, -1], [0, 0, 30, 30], [5, 5, 10, 10], [4, 2, 20, 12]], np.int32)
+    boxes_ori = np.array([[4, 1, 18, 16], [3, 3, 9, 9], [-1, -1, -1, -1], [6, 4, 22, 9], [0, 0, 24, 24]], np.int32)
+    for name in ("gender", "race"):
+        t, p = targets[name], preds[name]
+        jout, tout, jg, tg = _value_and_grad(
+            lambda x: jweights.face_region_grad_scale(
+                x, jnp.asarray(boxes), jnp.asarray(boxes_ori), jnp.asarray(t), jnp.asarray(p), factor),
+            lambda x: tweights.face_region_grad_scale(
+                x, torch.from_numpy(boxes), torch.from_numpy(boxes_ori), torch.from_numpy(t),
+                torch.from_numpy(p), factor),
+            images, seed=20,
+        )
+        np.testing.assert_array_equal(tout, images)
+        np.testing.assert_array_equal(jout, images)
+        np.testing.assert_allclose(tg, jg, **TOL)
+        assert not np.allclose(tg, np.random.default_rng(20).normal(size=images.shape).astype(np.float32))
+
+
+@pytest.mark.parametrize("with_db", [True, False])
+def test_face_realism_loss_matches_jax(with_db):
+    """`face_realism_loss`: against the original embedding where the
+    identity is kept with confidence >= 0.9, else the database's top-1 match
+    (the current embedding without a database); values, valid mask and the
+    gradient of a weighted sum in the embeddings, within TOL."""
+    rng = np.random.default_rng(21)
+
+    def unit(*shape):
+        x = rng.normal(size=shape).astype(np.float32)
+        return x / np.linalg.norm(x, axis=-1, keepdims=True)
+
+    emb, emb_ori, feats = unit(6, 8), unit(6, 8), unit(9, 8)
+    ind = np.array([True, True, True, False, True, True])
+    targets = np.array([1, 0, -1, 1, 2, 2])
+    preds = np.array([1, 1, 0, 1, 2, 2])
+    conf = np.array([0.95, 0.99, 0.97, 0.99, 0.5, 0.9], np.float32)
+    w = rng.normal(size=6).astype(np.float32)
+    jdb = jff.FaceFeatsDB(jnp.asarray(feats), None, {}) if with_db else None
+    tdb = tff.FaceFeatsDB(torch.from_numpy(feats), None, {}) if with_db else None
+
+    def jloss(e):
+        return jlosses.face_realism_loss(e, jnp.asarray(emb_ori), jnp.asarray(ind), jnp.asarray(targets),
+                                         jnp.asarray(preds), jnp.asarray(conf), jdb)
+
+    jl, jv = jloss(jnp.asarray(emb))
+    jg = jax.grad(lambda e: jnp.sum(jloss(e)[0] * w))(jnp.asarray(emb))
+    te = torch.from_numpy(emb).requires_grad_()
+    tl, tv = tlosses.face_realism_loss(te, torch.from_numpy(emb_ori), torch.from_numpy(ind),
+                                       torch.from_numpy(targets), torch.from_numpy(preds), torch.from_numpy(conf), tdb)
+    (tl * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_allclose(tl.detach().numpy(), np.asarray(jl), **TOL)
+    np.testing.assert_allclose(te.grad.numpy(), np.asarray(jg), **TOL)
+    assert (tl.detach().numpy()[~np.asarray(jv)] == 0).all() and tl[0] != 0  # lane 0 against its original
+
+
+def test_get_face_matches_jax():
+    """`get_face`: a detector that reads the images (a face where an
+    image's mean is above -0.5: lanes 0 and 2), then `analyze_faces`; chips
+    and aligned faces and their image gradients within atol 1e-4, rtol 1e-5
+    (the warps' bilinear weights), boxes and indicators exact."""
+    boxes, lms, scores = _boxes(), _landmarks(4), np.array([0.9, 0.8, 0.7], np.float32)
+    kw = dict(chip_size=32, aligned_size=24)
+
+    def jdetect(x):
+        ind = x.mean(axis=(1, 2, 3)) > -0.5
+        return JDetections(ind, jnp.asarray(boxes), jnp.asarray(lms), jnp.asarray(scores))
+
+    def tdetect(x):
+        ind = x.mean(dim=(1, 2, 3)) > -0.5
+        return tfaces.FaceDetections(ind, torch.from_numpy(boxes), torch.from_numpy(lms), torch.from_numpy(scores))
+
+    images = _images(seed=22)
+    images[1] -= 1.0
+    for field in ("chips", "aligned"):
+        jout, tout, jg, tg = _value_and_grad(
+            lambda x: getattr(jfaces.get_face(x, jdetect, **kw), field),
+            lambda x: getattr(tfaces.get_face(x, tdetect, **kw), field), images,
+        )
+        np.testing.assert_allclose(tout, jout, atol=1e-4, rtol=1e-5, err_msg=field)
+        np.testing.assert_allclose(tg, jg, atol=1e-4, rtol=1e-5, err_msg=field)
+    jres = jfaces.get_face(jnp.asarray(images), jdetect, **kw)
+    tres = tfaces.get_face(torch.from_numpy(images), tdetect, **kw)
+    np.testing.assert_array_equal(tres.indicators.numpy(), [True, False, True])
+    np.testing.assert_array_equal(tres.indicators.numpy(), np.asarray(jres.indicators))
+    np.testing.assert_array_equal(tres.bboxes.numpy(), np.asarray(jres.bboxes))
+    np.testing.assert_allclose(tres.landmarks.numpy(), np.asarray(jres.landmarks), **TOL)
+
+
 def test_losses_match_jax():
     rng = np.random.default_rng(10)
     logits = rng.normal(size=(5, 2)).astype(np.float32)

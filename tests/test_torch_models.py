@@ -207,6 +207,22 @@ def test_vae_encode_matches_jax(vae_pair):
         assert rel_err(_to_np(g), np.asarray(w)) < 1e-4
 
 
+@pytest.mark.parametrize("rank", [1, 4])
+def test_lora_param_count_matches_jax(rank):
+    """`lora_param_count` on the tiny text encoder's LoRA tree, exact: the
+    port's own tree (tensors), the JAX tree as numpy and as converted by
+    `adapters_from_jax`, against the JAX count of the JAX tree."""
+    jm, params, tm = _clip_pair()
+    jtree = jlora.init_lora(params, jlora.text_encoder_targets, rank, jax.random.key(rank))
+    want = jlora.lora_param_count(jtree)
+    ttree = tlora_lib.init_lora(tm, tlora_lib.text_encoder_targets, rank, torch.Generator().manual_seed(rank))
+    as_np = jax.tree.map(np.asarray, jtree)
+    assert want > 0
+    assert tlora_lib.lora_param_count(ttree) == want
+    assert tlora_lib.lora_param_count(as_np) == want
+    assert tlora_lib.lora_param_count(adapters_from_jax(as_np)) == want
+
+
 def test_npz_tree_roundtrip_and_layout(tmp_path):
     """A tree saved flat with '/'-joined keys loads to the same state dict;
     Dense kernels transpose and HWIO conv kernels become OIHW."""

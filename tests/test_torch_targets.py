@@ -3,12 +3,15 @@ package's (`fairdiff/fairness/{emd,targets}.py`), on the same numpy inputs
 and the same seeded `np.random.Generator`.
 
 Targets must be equal exactly and uncertainties within 1e-12 (the same
-float64 sums; only the assignment solver may differ). On Dirichlet
-probabilities the optimal plan is unique, so the JAX package may take its
-native solver; inputs with tied costs (identical rows) admit several optimal
-plans, and there the JAX package is held to its scipy route (native solver
-off), whose tie-breaking the port shares.
+float64 sums). Both packages solve on their native solvers by default, and
+the port's (`csrc/emd.cpp`) returns the JAX one's plan, ties included:
+inputs with tied costs (identical rows) admit several optimal plans, and
+there the JAX package is held on its default route, untouched. The scipy
+routes are held against each other as cases of their own (`native=False`
+on the port, the JAX package's native solver off).
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -16,8 +19,12 @@ import torch
 
 from fairdiff.fairness import emd as jemd
 from fairdiff.fairness import targets as jt
+from fairdiff.training import debias as jdebias
+from fairdiff.training import presets as jpresets
 from fairdiff_torch.fairness import emd as temd
 from fairdiff_torch.fairness import targets as tt
+from fairdiff_torch.training import debias as tdebias
+from fairdiff_torch.training import presets as tpresets
 
 torch.set_num_threads(1)
 
@@ -31,6 +38,16 @@ def jax_scipy_route(monkeypatch):
 
     monkeypatch.setattr(emd_lib, "emd_batch_native", lambda *a: None)
     monkeypatch.setattr(emd_lib, "emd_assignment_native", lambda *a: None)
+
+
+@pytest.fixture(params=["native", "scipy"])
+def route(request, monkeypatch):
+    """Both packages on their default (native) solvers, or both on scipy's:
+    the port's targets through `emd_batch(..., native=False)`."""
+    if request.param == "scipy":
+        request.getfixturevalue("jax_scipy_route")
+        monkeypatch.setattr(tt, "emd_batch", functools.partial(temd.emd_batch, native=False))
+    return request.param
 
 
 def _same(got: tt.Targets, want: jt.Targets) -> None:
@@ -49,18 +66,22 @@ def test_emd_matches_jax_scipy_route(n, c, seed):
     cost = rng.random((n, c))
     bs = np.stack([np.bincount(rng.integers(0, c, n), minlength=c) for _ in range(5)])
     want = np.stack([jemd.emd_assignment(b, cost, native=False) for b in bs])
-    got = temd.emd_batch(bs, cost)
+    got = temd.emd_batch(bs, cost, native=False)
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got.sum(axis=2), np.ones((5, n)))  # one class a lane
     np.testing.assert_array_equal(got.sum(axis=1), bs)  # the target masses
+    np.testing.assert_array_equal(temd.emd_batch(bs, cost), want)  # one optimum: both routes agree
     assert temd.emd_value(bs[0], cost) == pytest.approx(float((want[0] * cost).sum()), abs=1e-12)
 
 
-def test_emd_batch_matches_jax_with_ties(jax_scipy_route):
+def test_emd_batch_matches_the_jax_route_with_ties(route):
     """A cost matrix of identical rows: every assignment is optimal."""
     cost = np.tile(np.random.default_rng(4).random(4), (8, 1))
     bs = np.array([[2, 2, 2, 2], [8, 0, 0, 0], [1, 3, 0, 4]])
-    np.testing.assert_array_equal(temd.emd_batch(bs, cost), jemd.emd_batch(bs, cost))
+    native = route == "native"
+    np.testing.assert_array_equal(temd.emd_batch(bs, cost, native=native), jemd.emd_batch(bs, cost))
+    np.testing.assert_array_equal(temd.emd_assignment(bs[2], cost, native=native),
+                                  jemd.emd_assignment(bs[2], cost, native=native))
 
 
 def test_emd_rejects_a_mass_mismatch():
@@ -118,7 +139,7 @@ def test_enumerated_ot_matches_jax(n):
 
 
 @pytest.mark.parametrize("kind", ["ot2", "ot3", "enum"])
-def test_tied_rows_match_the_jax_scipy_route(kind, jax_scipy_route):
+def test_tied_rows_match_the_jax_route(kind, route):
     """Identical rows (the case of tests/test_fairness.py's enumerated-OT
     test): every lane costs the same, so the plan is one of many."""
     n = 8
@@ -136,6 +157,65 @@ def test_tied_rows_match_the_jax_scipy_route(kind, jax_scipy_route):
     for g, w in zip(got, want):
         _same(g, w)
         assert (g.targets != -1).all()
+
+
+TIED_GENDER = np.array([[1, 0]] * 5 + [[0, 1]] * 3, np.float64)
+TIED_RACE = np.array([[1, 0, 0, 0]] * 6 + [[0, 0, 1, 0]] * 2, np.float64)
+TIED_ENUM = np.array([[1, 0, 0, 0]] * 5 + [[0, 1, 0, 0]] * 3, np.float64)
+
+
+@pytest.mark.parametrize("kind", ["ot2", "enum"])
+def test_saturated_rows_match_the_jax_default_route(kind):
+    """Saturated one-hot rows (a classifier at 0/1, or duplicate logits):
+    the port on its default route gives the JAX package's default targets;
+    its scipy route breaks the ties otherwise (race lanes 3 and 4 for ot2:
+    [0 1 1 1 3 0 2 3] against [0 1 1 3 1 0 2 3]; lane 2 for enum)."""
+    if kind == "ot2":
+        want = jt.sampled_ot_targets_2attr(TIED_GENDER, TIED_RACE, np.random.default_rng(1), 200)
+        got = tt.sampled_ot_targets_2attr(TIED_GENDER, TIED_RACE, np.random.default_rng(1), 200)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tt, "emd_batch", functools.partial(temd.emd_batch, native=False))
+            scipy = tt.sampled_ot_targets_2attr(TIED_GENDER, TIED_RACE, np.random.default_rng(1), 200)
+    else:
+        want, got = (jt.enumerated_ot_targets(TIED_ENUM),), (tt.enumerated_ot_targets(TIED_ENUM),)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tt, "emd_batch", functools.partial(temd.emd_batch, native=False))
+            scipy = (tt.enumerated_ot_targets(TIED_ENUM),)
+    for g, w in zip(got, want):
+        _same(g, w)
+    assert not np.array_equal(scipy[-1].targets, want[-1].targets)
+
+
+PHASE1_TIED = {
+    "gender": TIED_GENDER.astype(np.float32),
+    "race": TIED_RACE.astype(np.float32),
+    "age": np.array([[1, 0]] * 4 + [[0, 1]] * 4, np.float32),
+}
+
+
+def _bare_trainer(cls, cfg):
+    """A trainer with only what `make_targets` reads: its config, no mesh."""
+    trainer = object.__new__(cls)
+    trainer.cfg, trainer.mesh = cfg, None
+    return trainer
+
+
+@pytest.mark.parametrize("gate", ["preset", "open"])
+@pytest.mark.parametrize("preset", ["exp3", "exp4", "exp6"])
+def test_make_targets_matches_the_jax_trainer_on_tied_probs(preset, gate):
+    """`DebiasTrainer.make_targets` (ot2, ot3, enum) on tied phase-1
+    probabilities against the JAX trainer's, the same generator on both
+    sides; "open" lifts the uncertainty gate so every tie shows."""
+    over = {}
+    if gate == "open":
+        over["uncertainty_thresholds"] = (1.0,) * len(tpresets.PRESETS[preset]().attributes)
+    tcfg, jcfg = tpresets.PRESETS[preset](**over), jpresets.PRESETS[preset](**over)
+    assert tcfg.target_kind == jcfg.target_kind
+    got = _bare_trainer(tdebias.DebiasTrainer, tcfg).make_targets(PHASE1_TIED, np.random.default_rng(3))
+    want = _bare_trainer(jdebias.DebiasTrainer, jcfg).make_targets(PHASE1_TIED, np.random.default_rng(3))
+    assert sorted(got) == sorted(want) == sorted(tcfg.attributes)
+    for name in want:
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
 
 
 def _with_fill(rng, n, k, rows):
