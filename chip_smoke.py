@@ -386,17 +386,33 @@ def _loader_rate(fn, n: int) -> float:
     return n / float(np.median(times))
 
 
+def strip_png_chunk(data: bytes, tag: bytes) -> bytes:
+    """PNG bytes without their chunks of type `tag` (at least one)."""
+    out, pos = data[:8], 8
+    while pos < len(data):
+        n = 12 + struct.unpack(">I", data[pos:pos + 4])[0]
+        if data[pos + 4:pos + 8] != tag:
+            out += data[pos:pos + n]
+        pos += n
+    assert len(out) < len(data), f"no {tag!r} chunk to strip"
+    return out
+
+
 def phase_imageio(power: str) -> dict:
     """[imageio]: the host codec (csrc/imageio.cpp) on the card's host, no
-    PIL. Every committed fixture (PIL-written JPEGs: 4:4:4, 4:2:2, 4:2:0,
-    grey, progressive, restart markers, optimised tables, Adobe RGB, odd
-    sizes) decodes to PIL's stored pixels exactly; the encoder's quality-95
-    file against PIL's bytes (equal, else the pixel error of the two decoded,
-    at most 1); two corrupted fixtures, one entropy-coded byte flipped and
-    the restart markers stripped, each of which must fail that check; then
-    the batch loader at 512 x 112x112 (sfnet20's batch) on JPEG (quality 95)
-    and on libpng-filtered PNG, against the numpy loader it replaced (PNG
-    only: that loader read JPEG through PIL), with the host's core count."""
+    PIL and no libpng. Every committed JPEG fixture (PIL-written: 4:4:4,
+    4:2:2, 4:2:0, grey, progressive, restart markers, optimised tables, Adobe
+    RGB, odd sizes; cv2-written 4:4:0, baseline and progressive) decodes to
+    PIL's stored pixels exactly; every PNG fixture (sBIT, sRGB and gAMA near
+    1/2.2, sRGB/gAMA precedence, ancillary chunks with a bad CRC) decodes
+    under "native" to the native loader's (libpng's) stored pixels exactly;
+    the encoder's quality-95 file against PIL's bytes (equal, else the pixel
+    error of the two decoded, at most 1); four corrupted fixtures, one
+    entropy-coded byte flipped, the restart markers stripped, a PNG's sBIT
+    and another's gAMA stripped, each of which must fail its check; then the
+    batch loader at 512 x 112x112 (sfnet20's batch) on JPEG (quality 95) and
+    on libpng-filtered PNG, against the numpy loader it replaced (PNG only:
+    that loader read JPEG through PIL), with the host's core count."""
     import numpy as np
 
     from fairdiff_torch.facerec.datasets import load_batch
@@ -406,10 +422,11 @@ def phase_imageio(power: str) -> dict:
     failed = []
     fx = dict(np.load(IMAGEIO_FIXTURES))
     names = sorted(k[:-4] for k in fx if k.endswith(".jpg"))
+    pngs = sorted(k[:-4] for k in fx if k.endswith(".png"))
 
-    def decodes_exactly(data: bytes, want) -> tuple[bool, str]:
+    def decodes_exactly(data: bytes, want, convention: str = "pil") -> tuple[bool, str]:
         try:
-            got = imageio.decode(data)
+            got = imageio.decode(data, convention)
         except OSError as err:
             return False, f"raises ({err})"
         if got.shape != want.shape:
@@ -421,6 +438,10 @@ def phase_imageio(power: str) -> dict:
     log(f"[imageio] {len(names)} fixtures decoded against PIL's pixels (exact): "
         + ", ".join(f"{n} {ok}" for n, (ok, _) in results.items()))
     failed += [f"fixture {n}: {why}" for n, (ok, why) in results.items() if not ok]
+    png_results = {n: decodes_exactly(fx[f"{n}.png"].tobytes(), fx[f"{n}.native"], "native") for n in pngs}
+    log(f"[imageio] {len(pngs)} PNG fixtures decoded under \"native\" against the native loader's pixels (exact): "
+        + ", ".join(f"{n} {ok}" for n, (ok, _) in png_results.items()))
+    failed += [f"PNG fixture {n}: {why}" for n, (ok, why) in png_results.items() if not ok]
 
     source, want_bytes = fx["encode.source"], fx["encode.q95"].tobytes()
     got_bytes = imageio.encode_jpeg(source, 95)
@@ -445,8 +466,14 @@ def phase_imageio(power: str) -> dict:
     stripped = decodes_exactly(stripped_bytes, fx["restart_q80.pixels"])
     log(f"[imageio] controls: 420_q95 with entropy byte {at} flipped: {flipped[1]}; restart_q80 with its "
         f"{n_restarts} restart markers stripped: {stripped[1]} (each must fail)")
-    failed += [f"control {n} passed the decode check" for n, r in (("flipped", flipped), ("stripped", stripped))
-               if r[0]]
+    no_sbit = decodes_exactly(strip_png_chunk(fx["f2_rgb16_sbit8.png"].tobytes(), b"sBIT"),
+                              fx["f2_rgb16_sbit8.native"], "native")
+    no_gama = decodes_exactly(strip_png_chunk(fx["f1_rgb16_adam7_gama43200.png"].tobytes(), b"gAMA"),
+                              fx["f1_rgb16_adam7_gama43200.native"], "native")
+    log(f"[imageio] controls: f2_rgb16_sbit8 without its sBIT: {no_sbit[1]}; f1_rgb16_adam7_gama43200 without its "
+        f"gAMA: {no_gama[1]} (each must fail)")
+    failed += [f"control {n} passed the decode check" for n, r in (("flipped", flipped), ("stripped", stripped),
+                                                                  ("no sBIT", no_sbit), ("no gAMA", no_gama)) if r[0]]
 
     # the loader on the card's host
     scratch = Path(__file__).resolve().parent / "build"

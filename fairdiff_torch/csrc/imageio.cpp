@@ -7,9 +7,13 @@
 //   filters, Adam7, tRNS, in two conventions:
 //     kPil:    what PIL's `Image.open(p).convert("RGB")` gives (alpha dropped,
 //              16-bit samples cut to their high byte, 16-bit grey clipped);
-//     kNative: what libpng's simplified API gives for PNG_FORMAT_RGB with a
-//              null background onto a zeroed buffer (alpha composited onto
-//              black in linear light, 16-bit samples taken as linear);
+//     kNative: what libpng 1.6's simplified API gives for PNG_FORMAT_RGB
+//              with a null background onto a zeroed buffer (alpha composited
+//              onto black in linear light, 16-bit samples taken as linear),
+//              with libpng's rules for gAMA, sRGB, cHRM, sBIT and tRNS and
+//              its chunk order and CRC handling (IHDR once and first among
+//              the chunks it knows, an ancillary chunk with a bad CRC
+//              dropped, nothing after the image data read);
 // - JPEG decode: baseline, extended and progressive Huffman, 8-bit, 1 or 3
 //   components, sampling factors 1-2, restart intervals, JFIF and Adobe
 //   markers. Equal to libjpeg(-turbo)'s default output: the accurate integer
@@ -294,6 +298,120 @@ int64_t png_reciprocal2(int64_t a, int64_t b) { return int64_t(std::floor(1e15 /
 int64_t png_product2(int64_t a, int64_t b) { return int64_t(std::floor(double(a) * double(b) * 1e-5 + .5)); }
 bool gamma_significant(int64_t g) { return g < 100000 - 5000 || g > 100000 + 5000; }
 
+// png_muldiv: a * times / divisor, rounded; false on a zero divisor or a
+// result outside 32 bits
+bool png_muldiv(int64_t* res, int64_t a, int64_t times, int64_t divisor) {
+  if (!divisor) return false;
+  if (!a || !times) {
+    *res = 0;
+    return true;
+  }
+  double r = std::floor(double(a) * double(times) / double(divisor) + .5);
+  if (r > 2147483647. || r < -2147483648.) return false;
+  *res = int64_t(r);
+  return true;
+}
+
+// png_gamma_threshold: whether file -> screen needs a gamma correction at all
+bool gamma_threshold(int64_t screen, int64_t file) {
+  int64_t g;
+  return !png_muldiv(&g, screen, file, 100000) || gamma_significant(g);
+}
+
+// The part of libpng's png_colorspace (png.c) that decides the file gamma:
+// gAMA, sRGB and cHRM in file order, each able to invalidate the colour
+// space, after which no later one changes it; the gamma set so far stays.
+struct Xy {
+  int64_t v[8];  // white x, y; red x, y; green x, y; blue x, y (the cHRM order)
+};
+const Xy kSrgbXy = {{31270, 32900, 64000, 33000, 30000, 60000, 15000, 6000}};
+
+bool endpoints_match(const Xy& a, const Xy& b, int64_t delta) {
+  for (int i = 0; i < 8; ++i)
+    if (a.v[i] < b.v[i] - delta || a.v[i] > b.v[i] + delta) return false;
+  return true;
+}
+
+// png_colorspace_check_xy: png_XYZ_from_xy, back with png_xy_from_XYZ,
+// within 5e-5 of the chunk's values
+bool chromaticities_valid(const Xy& c) {
+  const int64_t wx = c.v[0], wy = c.v[1], rx = c.v[2], ry = c.v[3], gx = c.v[4], gy = c.v[5], bx = c.v[6],
+                by = c.v[7], one = 100000;
+  if (rx < 0 || rx > one || ry < 0 || ry > one - rx || gx < 0 || gx > one || gy < 0 || gy > one - gx || bx < 0 ||
+      bx > one || by < 0 || by > one - bx || wx < 0 || wx > one || wy < 5 || wy > one - wx)
+    return false;
+  int64_t left, right, red_inv, green_inv;  // the products over 7 cannot overflow
+  png_muldiv(&left, gx - bx, ry - by, 7);
+  png_muldiv(&right, gy - by, rx - bx, 7);
+  int64_t denominator = left - right;
+  png_muldiv(&left, gx - bx, wy - by, 7);
+  png_muldiv(&right, gy - by, wx - bx, 7);
+  if (!png_muldiv(&red_inv, wy, denominator, left - right) || red_inv <= wy) return false;
+  png_muldiv(&left, ry - by, wx - bx, 7);
+  png_muldiv(&right, rx - bx, wy - by, 7);
+  if (!png_muldiv(&green_inv, wy, denominator, left - right) || green_inv <= wy) return false;
+  int64_t blue_scale = png_reciprocal(wy) - png_reciprocal(red_inv) - png_reciprocal(green_inv);
+  if (blue_scale <= 0) return false;
+  int64_t XYZ[9];  // red, green, blue; X, Y, Z each
+  const int64_t xy[3][2] = {{rx, ry}, {gx, gy}, {bx, by}};
+  for (int k = 0; k < 3; ++k)
+    for (int j = 0; j < 3; ++j) {
+      int64_t num = j < 2 ? xy[k][j] : one - xy[k][0] - xy[k][1];
+      bool ok = k < 2 ? png_muldiv(&XYZ[3 * k + j], num, one, k ? green_inv : red_inv)
+                      : png_muldiv(&XYZ[3 * k + j], num, blue_scale, one);
+      if (!ok) return false;
+    }
+  // png_xy_from_XYZ, in libpng's 32-bit sums
+  Xy back;
+  int32_t dwhite = 0, white_x = 0, white_y = 0;
+  for (int k = 0; k < 3; ++k) {
+    int32_t d = int32_t(uint32_t(XYZ[3 * k]) + uint32_t(XYZ[3 * k + 1]) + uint32_t(XYZ[3 * k + 2]));
+    if (!png_muldiv(&back.v[2 + 2 * k], XYZ[3 * k], one, d) || !png_muldiv(&back.v[3 + 2 * k], XYZ[3 * k + 1], one, d))
+      return false;
+    dwhite = int32_t(uint32_t(dwhite) + uint32_t(d));
+    white_x = int32_t(uint32_t(white_x) + uint32_t(XYZ[3 * k]));
+    white_y = int32_t(uint32_t(white_y) + uint32_t(XYZ[3 * k + 1]));
+  }
+  if (!png_muldiv(&back.v[0], white_x, one, dwhite) || !png_muldiv(&back.v[1], white_y, one, dwhite)) return false;
+  return endpoints_match(c, back, 5);
+}
+
+struct ColourSpace {
+  int64_t gamma = 0;  // 0: unset
+  bool invalid = false, from_gama = false, from_srgb = false, from_chrm = false;
+
+  // png_handle_gAMA -> png_colorspace_set_gamma
+  void gama(int64_t g) {
+    if (g < 16 || g > 625000000 || from_gama) {  // out of range, or a duplicate
+      invalid = true;
+      return;
+    }
+    if (invalid) return;
+    int64_t test;
+    // png_colorspace_check_gamma: an sRGB gamma stays unless this one is within 5% of it
+    if (from_srgb && (!png_muldiv(&test, gamma, 100000, g) || gamma_significant(test))) return;
+    gamma = g;
+    from_gama = true;
+  }
+  // png_handle_sRGB -> png_colorspace_set_sRGB
+  void srgb(int intent) {
+    if (invalid) return;
+    if (from_srgb || intent > 3) {  // a second sRGB, or an unknown rendering intent
+      invalid = true;
+      return;
+    }
+    gamma = 45455;
+    from_srgb = true;
+  }
+  // png_handle_cHRM -> png_colorspace_set_chromaticities: a second cHRM, an
+  // impossible one or one more than 0.001 from an earlier sRGB's invalidates
+  void chrm(const Xy& c) {
+    if (invalid) return;
+    invalid = from_chrm || !chromaticities_valid(c) || (from_srgb && !endpoints_match(c, kSrgbXy, 100));
+    from_chrm = true;
+  }
+};
+
 void build_8bit_table(uint8_t* table, int64_t gamma) {
   bool sig = gamma_significant(gamma);
   for (int i = 0; i < 256; ++i)
@@ -342,23 +460,91 @@ struct PngInfo {
   std::vector<uint8_t> palette;  // 3 * n
   std::vector<uint8_t> trns;     // raw tRNS payload
   bool has_trns = false;
-  int64_t file_gamma = 0;  // from gAMA / sRGB, 0 when absent
+  int64_t file_gamma = 0;  // libpng's colour-space gamma (gAMA, sRGB, cHRM), 0 when unset
+  int sig_bit = 0;         // sBIT's grey, or its largest of red, green and blue; 0 when absent
 };
 
-// Decode to samples: [h][w][channels] at the file's bit depth.
-std::vector<uint16_t> png_samples(const uint8_t* d, size_t n, PngInfo* info) {
+// The ancillary chunks that change libpng's output, as its reader takes
+// them (pngrutil.c): gAMA, sRGB, cHRM and sBIT before PLTE and IDAT, tRNS
+// before IDAT (and after PLTE for a palette), each of its exact length or
+// ignored; sBIT and tRNS once, sBIT with every value in 1..bit depth (8 for
+// a palette), a palette's tRNS no longer than the palette.
+void png_ancillary_chunk(const uint8_t* type, const uint8_t* body, uint32_t len, bool plte, bool idat,
+                         PngInfo* info, ColourSpace* cs, bool* have_sbit) {
+  if (idat) return;
+  int color = info->color;
+  if (!std::memcmp(type, "tRNS", 4)) {
+    bool ok = color == 0 ? len == 2 : color == 2 ? len == 6
+            : color == 3 ? plte && len && len <= info->palette.size() / 3 : false;
+    if (ok && !info->has_trns) {
+      info->trns.assign(body, body + len);
+      info->has_trns = true;
+    }
+    return;
+  }
+  if (plte) return;
+  if (!std::memcmp(type, "gAMA", 4)) {
+    if (len == 4) cs->gama(be32(body) > 0x7FFFFFFFu ? -1 : int64_t(be32(body)));
+  } else if (!std::memcmp(type, "sRGB", 4)) {
+    if (len == 1) cs->srgb(body[0]);
+  } else if (!std::memcmp(type, "cHRM", 4)) {
+    if (len != 32) return;
+    Xy c;
+    for (int i = 0; i < 8; ++i) {
+      if (be32(body + 4 * i) > 0x7FFFFFFFu) return;
+      c.v[i] = be32(body + 4 * i);
+    }
+    cs->chrm(c);
+  } else if (!std::memcmp(type, "sBIT", 4)) {
+    uint32_t want = color == 3 ? 3 : uint32_t(info->channels);
+    int depth = color == 3 ? 8 : info->depth;
+    if (*have_sbit || len != want) return;
+    for (uint32_t i = 0; i < len; ++i)
+      if (body[i] == 0 || body[i] > depth) return;
+    *have_sbit = true;
+    info->sig_bit = (color & 2) ? std::max({body[0], body[1], body[2]}) : body[0];
+  }
+}
+
+// the chunks libpng 1.6's reader has a handler for (pngread.c png_read_info)
+bool png_known_chunk(const uint8_t* type) {
+  static const char* const kKnown[] = {"IHDR", "PLTE", "IDAT", "IEND", "bKGD", "cHRM", "eXIf", "gAMA", "hIST", "iCCP",
+                                       "iTXt", "oFFs", "pCAL", "pHYs", "sBIT", "sCAL", "sPLT", "sRGB", "tEXt", "tIME",
+                                       "tRNS", "zTXt"};
+  for (const char* k : kKnown)
+    if (!std::memcmp(type, k, 4)) return true;
+  return false;
+}
+
+// Decode to samples: [h][w][channels] at the file's bit depth. Under kNative
+// an ancillary chunk whose CRC fails is dropped, as libpng does; a critical
+// one, and under kPil any, fails.
+std::vector<uint16_t> png_samples(const uint8_t* d, size_t n, int convention, PngInfo* info) {
   if (n < 8 || std::memcmp(d, kPngSig, 8) != 0) fail(kNotImage);
+  static const int kChannels[7] = {1, 0, 3, 1, 2, 0, 4};
   size_t pos = 8;
   std::vector<uint8_t> idat;
-  bool header = false, end = false;
+  bool header = false, end = false, plte = false, have_sbit = false;
+  ColourSpace cs;
   while (!end) {
+    // libpng's simplified reader stops at the end of the image data: what
+    // follows the last IDAT (IEND included) is never read
+    if (convention == kNative && !idat.empty() && (pos + 8 > n || std::memcmp(d + pos + 4, "IDAT", 4))) break;
     if (pos + 12 > n) fail(kCorrupt);  // truncated before IEND
     uint32_t len = be32(d + pos);
     if (len > n - pos - 12) fail(kCorrupt);
     const uint8_t* type = d + pos + 4;
     const uint8_t* body = d + pos + 8;
-    if (crc32(type, len + 4) != be32(body + len)) fail(kCorrupt);
-    if (!std::memcmp(type, "IHDR", 4)) {
+    // libpng reads IHDR once, before every chunk it knows ("missing IHDR",
+    // "out of place"); an unknown chunk may come first
+    bool ihdr = !std::memcmp(type, "IHDR", 4);
+    if (convention == kNative && (header ? ihdr : !ihdr && png_known_chunk(type))) fail(kCorrupt);
+    if (crc32(type, len + 4) != be32(body + len)) {
+      if (convention != kNative || !(type[0] & 0x20)) fail(kCorrupt);
+      pos += 12 + len;
+      continue;
+    }
+    if (ihdr) {
       if (len != 13) fail(kCorrupt);
       info->w = be32(body);
       info->h = be32(body + 4);
@@ -366,17 +552,15 @@ std::vector<uint16_t> png_samples(const uint8_t* d, size_t n, PngInfo* info) {
       info->color = body[9];
       info->interlace = body[12];
       if (body[10] != 0 || body[11] != 0 || info->interlace > 1) fail(kUnsupported);
+      info->channels = info->color < 7 ? kChannels[info->color] : 0;
       header = true;
     } else if (!std::memcmp(type, "PLTE", 4)) {
       if (len % 3 || len > 768) fail(kCorrupt);
       info->palette.assign(body, body + len);
-    } else if (!std::memcmp(type, "tRNS", 4)) {
-      info->trns.assign(body, body + len);
-      info->has_trns = true;
-    } else if (!std::memcmp(type, "gAMA", 4)) {
-      if (len == 4 && be32(body)) info->file_gamma = be32(body);
-    } else if (!std::memcmp(type, "sRGB", 4)) {
-      info->file_gamma = 45455;
+      plte = true;
+    } else if (!std::memcmp(type, "tRNS", 4) || !std::memcmp(type, "gAMA", 4) || !std::memcmp(type, "sRGB", 4) ||
+               !std::memcmp(type, "cHRM", 4) || !std::memcmp(type, "sBIT", 4)) {
+      if (header) png_ancillary_chunk(type, body, len, plte, !idat.empty(), info, &cs, &have_sbit);
     } else if (!std::memcmp(type, "IDAT", 4)) {
       idat.insert(idat.end(), body, body + len);
     } else if (!std::memcmp(type, "IEND", 4)) {
@@ -387,8 +571,8 @@ std::vector<uint16_t> png_samples(const uint8_t* d, size_t n, PngInfo* info) {
     pos += 12 + len;
   }
   if (!header || idat.empty()) fail(kCorrupt);
+  info->file_gamma = cs.gamma;
   int depth = info->depth, color = info->color;
-  static const int kChannels[7] = {1, 0, 3, 1, 2, 0, 4};
   if (color > 6 || !kChannels[color]) fail(kCorrupt);
   bool ok_depth = (color == 0 && (depth == 1 || depth == 2 || depth == 4 || depth == 8 || depth == 16)) ||
                   (color == 3 && (depth == 1 || depth == 2 || depth == 4 || depth == 8)) ||
@@ -505,14 +689,16 @@ void png_to_rgb_native(const PngInfo& info, const std::vector<uint16_t>& s, uint
   // the transparent colour of a tRNS chunk, at the file's bit depth
   uint16_t trns_key[3] = {0, 0, 0};
   if (trns) {
-    size_t want = color == 0 ? 2 : 6;
-    if (info.trns.size() < want) fail(kCorrupt);
+    size_t want = color == 0 ? 2 : 6;  // the chunk's length, checked when it was read
     for (size_t c = 0; c < want / 2; ++c) trns_key[c] = uint16_t((info.trns[2 * c] << 8) | info.trns[2 * c + 1]);
   }
   bool has_alpha = alpha_channel || trns || (color == 3 && info.has_trns);
+  // libpng corrects the gamma of a file without alpha only where file x
+  // screen lies 5% or more from 1 (png_gamma_threshold sets PNG_GAMMA); with
+  // alpha it composes through its tables whatever the gamma
+  bool correct = gamma_threshold(screen, file_gamma);
 
   if (!sixteen) {
-    // identity where libpng finds the gamma insignificant
     uint8_t gamma_table[256], to_1[256], from_1[256];
     build_8bit_table(gamma_table, png_reciprocal2(file_gamma, screen));
     build_8bit_table(to_1, png_reciprocal(file_gamma));
@@ -545,7 +731,7 @@ void png_to_rgb_native(const PngInfo& info, const std::vector<uint16_t>& s, uint
         }
       }
       if (!has_alpha) {
-        for (int c = 0; c < 3; ++c) o[c] = gamma_table[v[c]];
+        for (int c = 0; c < 3; ++c) o[c] = correct ? gamma_table[v[c]] : uint8_t(v[c]);
       } else if (a == 0) {
         o[0] = o[1] = o[2] = 0;
       } else if (a == 255) {
@@ -561,9 +747,13 @@ void png_to_rgb_native(const PngInfo& info, const std::vector<uint16_t>& s, uint
     return;
   }
 
-  // 16-bit samples: gamma on 11 significant bits (PNG_MAX_GAMMA_8), then scale to 8
-  const int shift = 5, max = (1 << 11) - 1;
-  std::vector<uint16_t> to8(1 << 11);  // png_build_16to8_table
+  // 16-bit samples: gamma on the top 16 - shift bits, then scale to 8. The
+  // shift is png_build_gamma_table's: the bits sBIT calls insignificant, at
+  // least 5 (PNG_MAX_GAMMA_8 keeps 11) and at most 8
+  int shift = info.sig_bit > 0 && info.sig_bit < 16 ? 16 - info.sig_bit : 0;
+  shift = std::min(std::max(shift, 16 - 11), 8);
+  const int max = (1 << (16 - shift)) - 1;
+  std::vector<uint16_t> to8(size_t(max) + 1);  // png_build_16to8_table
   {
     int64_t g = png_product2(file_gamma, screen);
     uint32_t last = 0;
@@ -575,12 +765,12 @@ void png_to_rgb_native(const PngInfo& info, const std::vector<uint16_t>& s, uint
     }
     while (last < to8.size()) to8[last++] = 65535;
   }
-  std::vector<uint16_t> to_1(1 << 11);  // png_build_16bit_table(1 / file gamma)
+  std::vector<uint16_t> to_1(size_t(max) + 1);  // png_build_16bit_table(1 / file gamma)
   {
     int64_t g = png_reciprocal(file_gamma);
     for (int ig = 0; ig <= max; ++ig)
       to_1[ig] = gamma_significant(g) ? uint16_t(std::floor(65535. * std::pow(ig * (1. / max), g * .00001) + .5))
-                                      : uint16_t((uint32_t(ig) * 65535 + (1u << 10)) / uint32_t(max));
+                                      : uint16_t((uint32_t(ig) * 65535 + (1u << (15 - shift))) / uint32_t(max));
   }
   for (size_t i = 0; i < n; ++i) {
     const uint16_t* p = s.data() + i * ch;
@@ -597,7 +787,7 @@ void png_to_rgb_native(const PngInfo& info, const std::vector<uint16_t>& s, uint
       a = match ? 0 : 65535;
     }
     if (!has_alpha || a == 65535) {
-      for (int c = 0; c < 3; ++c) o[c] = uint8_t(png_scale16(to8[v[c] >> shift]));
+      for (int c = 0; c < 3; ++c) o[c] = uint8_t(png_scale16(correct || has_alpha ? to8[v[c] >> shift] : v[c]));
       continue;
     }
     int a8 = png_scale16(a);
@@ -625,7 +815,7 @@ void png_to_rgb_native(const PngInfo& info, const std::vector<uint16_t>& s, uint
 
 void decode_png(const uint8_t* d, size_t n, int convention, Image* img) {
   PngInfo info;
-  std::vector<uint16_t> samples = png_samples(d, n, &info);
+  std::vector<uint16_t> samples = png_samples(d, n, convention, &info);
   img->w = int(info.w);
   img->h = int(info.h);
   img->rgb.assign(size_t(info.w) * info.h * 3, 0);

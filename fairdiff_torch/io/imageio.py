@@ -7,9 +7,16 @@ The library is built with the host's C++ compiler at first use
 
 - "pil": what PIL's `Image.open(p).convert("RGB")` gives, which the JAX
   package's `io.images.load_image` reads;
-- "native": what the JAX package's native loader gives through libpng's
-  simplified API (alpha composited onto black in linear light, 16-bit PNG
-  samples taken as linear). JPEG reads the same in both.
+- "native": what the JAX package's native loader gives through libpng
+  1.6's simplified API (alpha composited onto black in linear light, 16-bit
+  PNG samples taken as linear unless a chunk says otherwise). It follows
+  libpng's chunk rules too: sRGB fixes the file gamma over any gAMA not
+  within 5% of it, the first gAMA wins, a duplicate or invalid colour chunk
+  freezes the colour space; no gamma correction where file x screen gamma
+  lies within 5% of 1; sBIT narrows the 16-bit gamma tables; an ancillary
+  chunk with a bad CRC is dropped, IHDR must come once and before every
+  chunk libpng knows, and nothing after the image data is read. JPEG reads
+  the same in both.
 """
 
 from __future__ import annotations

@@ -30,11 +30,16 @@ from typing import Any
 
 import torch
 
+from fairdiff_torch.device import resolve_device
+
 
 def spawn(target: str, world: int, *, backend: str, kwargs: dict | None = None,
-          workdir: str | Path, timeout: float, device: str = "cpu", threads: int = 1) -> list[Any]:
+          workdir: str | Path, timeout: float, device: str | None = None, threads: int = 1) -> list[Any]:
     """`target` ("module:function") run as function(**kwargs) on `world`
-    ranks; -> each rank's return value, by rank."""
+    ranks, on the cards unless `device` is "cpu"; -> each rank's return
+    value, by rank. Raises, as `resolve_device` does, when CUDA is implied
+    and absent."""
+    device = resolve_device(device).type
     workdir = Path(workdir).absolute()
     workdir.mkdir(parents=True, exist_ok=True)
     tag = f"{os.getpid()}-{time.monotonic_ns()}"

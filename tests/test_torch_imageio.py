@@ -8,19 +8,23 @@ u8 to both readers, PNG pixels equal to PIL (the "pil" convention) or to
 libpng (the "native" one), the batch loader equal to the native loader in
 fp32, and the encoder's bytes equal to PIL's.
 
-The card's machine has no PIL, so `chip_smoke.py` holds the library to
-`fairdiff_torch/testdata/imageio_fixtures.npz`: PIL-written JPEGs, their
-PIL-decoded pixels and PIL's quality-95 bytes for the encoder, written by
-`make_fixtures` below (`python tests/test_torch_imageio.py` rewrites it).
+The card's machine has no PIL and no libpng, so `chip_smoke.py` holds the
+library to `fairdiff_torch/testdata/imageio_fixtures.npz`: PIL- and
+cv2-written JPEGs and their PIL-decoded pixels, PIL's quality-95 bytes for
+the encoder, and PNGs with colour chunks and the native loader's pixels for
+them, written by `make_fixtures` below (`python tests/test_torch_imageio.py`
+rewrites it).
 """
 
 import io
 import struct
 import subprocess
 import sys
+import tempfile
 import zlib
 from pathlib import Path
 
+import cv2
 import numpy as np
 import pytest
 import torch
@@ -82,6 +86,24 @@ FIXTURE_CASES = {
     "one_pixel_q95": (1, 1, "RGB", dict(quality=95)),
 }
 ENCODE_HW = (48, 40)
+# name -> (h, w, progressive, quality): 4:4:0 (h1v2) files from cv2's libjpeg
+JPEG_440_FIXTURES = {"440_q90": (45, 37, False, 90), "440_progressive_q85": (17, 33, True, 85)}
+# name -> (colour type, bit depth, Adam7, tRNS, chunks as `png_with_chunks`
+# takes them), at PNG_FIXTURE_HW: PNGs whose "native" pixels libpng (the
+# native loader) decides through sBIT, gamma significance, sRGB/gAMA
+# precedence and ancillary CRCs
+PNG_FIXTURES = {
+    "f1_grey16_srgb": (0, 16, 0, False, ["sRGB"]),
+    "f1_rgb16_adam7_gama43200": (2, 16, 1, False, ["gAMA 43200"]),
+    "f2_rgb16_sbit8": (2, 16, 0, False, ["sBIT 8"]),
+    "f2_rgba16_sbit10_gama45455": (6, 16, 0, False, ["sBIT 10", "gAMA 45455"]),
+    "f3_grey16_gama_bad_crc": (0, 16, 0, False, ["gAMA 50000 !crc"]),
+    "f3_rgb8_text_bad_crc": (2, 8, 0, False, ["tEXt !crc"]),
+    "f4_rgb16_srgb_gama100000": (2, 16, 0, False, ["sRGB", "gAMA 100000"]),
+    "f4_grey8_gama100000_gama45455": (0, 8, 0, False, ["gAMA 100000", "gAMA 45455"]),
+    "f5_rgb8_gama43200": (2, 8, 0, False, ["gAMA 43200"]),
+}
+PNG_FIXTURE_HW = (16, 16)
 
 
 def make_fixtures() -> dict[str, np.ndarray]:
@@ -91,8 +113,19 @@ def make_fixtures() -> dict[str, np.ndarray]:
         data = pil_jpeg(px[..., 0] if mode == "L" else px, **kw)
         out[f"{name}.jpg"] = np.frombuffer(data, np.uint8)
         out[f"{name}.pixels"] = pil_rgb(data)
+    for name, (h, w, progressive, quality) in JPEG_440_FIXTURES.items():
+        data = cv2_jpeg_440(smooth(h, w, seed=h + w), progressive, quality)
+        out[f"{name}.jpg"] = np.frombuffer(data, np.uint8)
+        out[f"{name}.pixels"] = pil_rgb(data)
     out["encode.source"] = smooth(*ENCODE_HW, seed=99)
     out["encode.q95"] = np.frombuffer(pil_jpeg(out["encode.source"], quality=95), np.uint8)
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (color, depth, interlace, trns, tokens) in PNG_FIXTURES.items():
+            data = png_with_chunks(color, depth, interlace, trns, tokens, *PNG_FIXTURE_HW)
+            path = Path(tmp) / f"{name}.png"
+            path.write_bytes(data)
+            out[f"{name}.png"] = np.frombuffer(data, np.uint8)
+            out[f"{name}.native"] = native_u8(path, PNG_FIXTURE_HW)
     return out
 
 
@@ -102,8 +135,11 @@ def test_fixtures_are_the_seeded_scripts_and_decode_exactly():
     assert stored.keys() == fresh.keys()
     for k in fresh:
         np.testing.assert_array_equal(stored[k], fresh[k], err_msg=k)
-    for name in FIXTURE_CASES:
+    for name in [*FIXTURE_CASES, *JPEG_440_FIXTURES]:
         np.testing.assert_array_equal(imageio.decode(stored[f"{name}.jpg"].tobytes()), stored[f"{name}.pixels"])
+    for name in PNG_FIXTURES:
+        np.testing.assert_array_equal(imageio.decode(stored[f"{name}.png"].tobytes(), "native"),
+                                      stored[f"{name}.native"], err_msg=name)
     assert imageio.encode_jpeg(stored["encode.source"], 95) == stored["encode.q95"].tobytes()
     assert FIXTURES.stat().st_size < 150_000
 
@@ -254,6 +290,221 @@ def test_pil_written_pngs_both_conventions(tmp_path, mode):
     with Image.open(path) as back:
         np.testing.assert_array_equal(imageio.decode(path, "pil"), np.asarray(back.convert("RGB")))
     np.testing.assert_array_equal(imageio.decode(path, "native"), native_u8(path, (19, 21)))
+
+
+# ------------------------------------------------- PNG chunks under "native"
+
+CHRM = {"srgb": [31270, 32900, 64000, 33000, 30000, 60000, 15000, 6000],
+        "adobe": [31270, 32900, 64000, 33000, 21000, 71000, 15000, 6000], "zero": [0] * 8}
+
+
+def _token_chunk(token: str, channels: int) -> bytes:
+    """One chunk from a token: "gAMA 45455", "sRGB", "sRGB intent 5",
+    "sRGB len 2", "sBIT 9" (one value a channel), "sBIT 4,9,6", "cHRM adobe",
+    "tEXt", "PLTE" (a suggested palette), "tRNS <hex>", "tRNS x<n>" (n zero
+    bytes); "!crc" at its end spoils the CRC."""
+    token, bad = (token[:-4].strip(), True) if token.endswith("!crc") else (token, False)
+    kind, _, arg = token.partition(" ")
+    if kind == "gAMA":
+        data = struct.pack(">I", int(arg))
+    elif kind == "sRGB":
+        data = bytes([int(arg.split()[1])]) if arg.startswith("intent") else bytes(2 if arg == "len 2" else 1)
+    elif kind == "sBIT":
+        data = bytes(int(v) for v in arg.split(",")) if "," in arg else bytes([int(arg)] * channels)
+    elif kind == "cHRM":
+        data = struct.pack(">8I", *CHRM[arg])
+    elif kind == "tEXt":
+        data = b"Comment\x00a chunk spliced in"
+    elif kind == "PLTE":
+        data = bytes(range(48))
+    else:  # raw hex, or "x<n>": n zero bytes
+        data = bytes(int(arg[1:])) if arg.startswith("x") else bytes.fromhex(arg)
+    chunk = _chunk(kind.encode(), data)
+    return chunk[:-4] + struct.pack(">I", zlib.crc32(chunk[4:-4]) ^ 1) if bad else chunk
+
+
+def png_with_chunks(color, depth, interlace, trns, tokens, h=32, w=32) -> bytes:
+    """`png_case`'s file with chunks spliced in: after IHDR, or with "@sig "
+    before IHDR, "@idat " before the first IDAT (after PLTE and tRNS) or
+    "@end " between the last IDAT and IEND. "-tRNS" moves the file's own
+    tRNS chunk to IEND; "IHDR" is a copy of the file's IHDR."""
+    png = png_case(color, depth, interlace, trns, h, w)
+    channels = 3 if color == 3 else _CHANNELS[color]
+    at = {"sig": b"", "ihdr": b"", "idat": b"", "end": b""}
+    for token in tokens:
+        if token == "IHDR":
+            at["ihdr"] += png[8:33]
+            continue
+        if token == "-tRNS":
+            i = png.index(b"tRNS") - 4
+            n = 12 + struct.unpack(">I", png[i:i + 4])[0]
+            at["end"] += png[i:i + n]
+            png = png[:i] + png[i + n:]
+            continue
+        where, token = token[1:].split(" ", 1) if token.startswith("@") else ("ihdr", token)
+        at[where] += _token_chunk(token, channels)
+    i, j = 33, png.index(b"IDAT") - 4
+    png = png[:8] + at["sig"] + png[8:i] + at["ihdr"] + png[i:j] + at["idat"] + png[j:]
+    k = png.index(b"IEND") - 4
+    return png[:k] + at["end"] + png[k:]
+
+
+_GREY16, _RGB16, _GA16, _RGBA16 = (0, 16), (2, 16), (4, 16), (6, 16)
+# (group, color, depth, interlace, tRNS, chunks)
+CHUNK_CASES = (
+    # F1: 16-bit without alpha, where file x screen gamma is within 5% of 1, is scaled without a table
+    [("f1", c, 16, i, False, g) for c in (0, 2) for i in (0, 1)
+     for g in (["sRGB"], ["gAMA 43200"], ["gAMA 45455"], ["gAMA 47700"], ["gAMA 50000"], ["gAMA 100000"], [])]
+    # F2: sBIT sets the 16-bit tables' shift (grey's value, or the largest colour one)
+    + [("f2", c, 16, 0, t, [f"sBIT {s}", *g]) for s in (1, 8, 9, 10, 11, 15)
+       for c, t in ((0, False), (2, False), (4, False), (6, False), (0, True), (2, True))
+       for g in ([], ["gAMA 45455"])]
+    + [("f2", c, d, 0, False, [s]) for c, d, s in ((0, 16, "sBIT 0"), (2, 16, "sBIT 0"), (0, 16, "sBIT 17"),
+                                                    (2, 16, "sBIT 17"), (0, 8, "sBIT 5"), (2, 8, "sBIT 5"),
+                                                    (3, 8, "sBIT 5"), (2, 16, "sBIT 4,9,6"),
+                                                    (6, 16, "sBIT 10,10,10,3"), (0, 16, "@end sBIT 8"))]
+    + [("f2", 0, 16, 0, False, ["sBIT 9", "sBIT 12"]), ("f2", 2, 16, 0, False, ["sBIT 0,0,0", "sBIT 9"]),
+       ("f2", 2, 16, 0, False, ["sBIT 9 !crc", "sBIT 12"]), ("f2", 2, 16, 0, False, ["PLTE", "sBIT 8"])]
+    # F4: sRGB over any gAMA, the first gAMA over a later one, each where libpng reads it
+    + [("f4", 2, d, 0, False, g) for d in (8, 16)
+       for g in (["sRGB", "gAMA 100000"], ["gAMA 100000", "sRGB"], ["gAMA 100000", "gAMA 45455"])]
+    + [("f4", 0, 16, 0, False, g) for g in (
+        ["sRGB", "gAMA 46000"], ["sRGB", "gAMA 100000", "gAMA 46000"], ["sRGB", "sRGB"], ["sRGB len 2"],
+        ["sRGB intent 5"], ["sRGB intent 5", "gAMA 50000"], ["gAMA 0", "sRGB"], ["gAMA 15", "gAMA 50000"],
+        ["gAMA 16"], ["gAMA 625000001", "sRGB"], ["@end gAMA 50000"], ["@end sRGB"])]
+    + [("f4", 2, 16, 0, False, ["PLTE", "gAMA 50000"]), ("f4", 3, 8, 0, False, ["@idat gAMA 100000"]),
+       ("f4", 3, 8, 0, False, ["@idat sRGB"])]
+    # 8-bit files without alpha follow the same threshold as 16-bit ones
+    + [("f5", c, d, 0, False, [f"gAMA {g}"]) for c, d in ((0, 8), (2, 8), (3, 8), (0, 2)) for g in (43200, 47800)]
+    # cHRM: no effect of its own, but a duplicate, an impossible one or one unlike an earlier
+    # sRGB's leaves the colour space invalid, and no later gAMA or sRGB counts
+    + [("chrm", c, d, 0, False, g) for c, d in ((2, 8), (6, 8), (4, 16))
+       for g in (["gAMA 45455"], ["gAMA 100000"], ["sRGB"], ["cHRM srgb", "gAMA 100000"], ["cHRM adobe", "sRGB"])]
+    + [("chrm", 0, 16, 0, False, g) for g in (["cHRM srgb", "cHRM srgb", "gAMA 50000"], ["cHRM zero", "gAMA 50000"],
+                                              ["sRGB", "cHRM adobe", "gAMA 46000"], ["cHRM adobe", "gAMA 50000"])]
+    # tRNS: of its colour type's length, once, before IDAT, after a palette and no longer than it
+    + [("trns", c, 8, 0, t, g) for c, t, g in (
+        (2, False, ["@idat tRNS 0001"]), (0, False, ["@idat tRNS 000100020003"]), (0, True, ["-tRNS"]),
+        (2, True, ["@idat tRNS 000100020003"]), (3, False, ["tRNS 000a14"]), (3, False, ["@idat tRNS x300"]))]
+)
+CHUNK_IDS = [f"{g}-c{c}d{d}i{i}{'t' if t else ''}-{'+'.join(k) or 'none'}".replace(" ", "_")
+             for g, c, d, i, t, k in CHUNK_CASES]
+
+
+@pytest.mark.parametrize("group,color,depth,interlace,trns,tokens", CHUNK_CASES, ids=CHUNK_IDS)
+def test_png_chunks_native_equal_the_native_loader(tmp_path, group, color, depth, interlace, trns, tokens):
+    """libpng's reading of gAMA, sRGB, cHRM, sBIT and tRNS (pngrutil.c,
+    png.c's colour space, png_build_gamma_table's shift): the "native"
+    decode equal to the native loader in u8, the batch loader in fp32, and
+    the "pil" decode still equal to PIL, which ignores these chunks (and
+    raises on a bad CRC, as "pil" does)."""
+    path = tmp_path / "x.png"
+    path.write_bytes(png_with_chunks(color, depth, interlace, trns, tokens))
+    np.testing.assert_array_equal(imageio.decode(path, "native"), native_u8(path, (32, 32)))
+    want = imageloader_lib.load_batch([str(path)], (32, 32), n_threads=1)
+    np.testing.assert_allclose(imageio.load_batch([path], (32, 32), n_threads=1), want, rtol=0, atol=1e-6)
+    if any(t.endswith("!crc") for t in tokens):
+        with pytest.raises(OSError, match="corrupt or truncated"):
+            imageio.decode(path, "pil")
+    elif tokens == ["@idat tRNS 0001"] and color == 2:  # PIL cannot open an RGB file with a 2-byte tRNS
+        with pytest.raises(OSError):
+            Image.open(path)
+    else:
+        with Image.open(path) as img:
+            np.testing.assert_array_equal(imageio.decode(path, "pil"), np.asarray(img.convert("RGB")))
+
+
+def _spoil_idat_crc(png: bytes) -> bytes:
+    i = png.index(b"IDAT") - 4
+    end = i + 8 + struct.unpack(">I", png[i:i + 4])[0]
+    return png[:end] + bytes([png[end] ^ 1]) + png[end + 1:]
+
+
+# name -> (file, whether the native loader reads it): "native" drops an
+# ancillary chunk whose CRC fails and reads nothing after the image data;
+# PIL, and so "pil", raises on every bad CRC and a missing IEND
+CRC_CASES = {
+    **{f"{t.split()[0]}_bad_crc_d{d}": (lambda t=t, d=d: png_with_chunks(2, d, 0, False, [t + " !crc"]), True)
+       for t in ("gAMA 100000", "sRGB", "tEXt", "sBIT 5") for d in (8, 16)},
+    "zzZz_bad_crc": (lambda: png_with_chunks(0, 16, 0, False, ["zzZz !crc"]), True),
+    "IEND_bad_crc": (lambda: png_case(2, 8, 0, False, 32, 32)[:-4] + b"\0\0\0\0", True),
+    "IEND_missing": (lambda: png_case(2, 16, 1, False, 32, 32)[:-12], True),
+    "tEXt_bad_crc_after_IDAT": (lambda: png_with_chunks(0, 8, 0, False, ["@end tEXt !crc"]), True),
+    "IDAT_bad_crc": (lambda: _spoil_idat_crc(png_case(2, 8, 0, False, 32, 32)), False),
+    "truncated_in_IDAT": (lambda: png_case(2, 16, 0, False, 32, 32)[:-40], False),
+}
+
+
+@pytest.mark.parametrize("name", list(CRC_CASES))
+def test_png_bad_crcs_and_truncation(tmp_path, name):
+    make, native_reads = CRC_CASES[name]
+    path = tmp_path / f"{name}.png"
+    path.write_bytes(make())
+    with pytest.raises(OSError, match=f"{name}.png is corrupt or truncated"):
+        imageio.decode(path, "pil")
+    if not native_reads:
+        with pytest.raises(OSError, match="not decodable"):
+            native_u8(path, (32, 32))
+        for call in (lambda: imageio.decode(path, "native"), lambda: imageio.load_batch([path], (32, 32))):
+            with pytest.raises(OSError, match=f"{name}.png is corrupt or truncated"):
+                call()
+        return
+    np.testing.assert_array_equal(imageio.decode(path, "native"), native_u8(path, (32, 32)))
+    np.testing.assert_allclose(imageio.load_batch([path], (32, 32), n_threads=1),
+                               imageloader_lib.load_batch([str(path)], (32, 32), n_threads=1), rtol=0, atol=1e-6)
+
+
+# name -> (chunks, whether libpng reads the file): it wants IHDR once, before
+# every chunk it has a handler for; an unknown chunk may come first. PIL
+# reads them all but those with a bad CRC, and so does "pil".
+ORDER_CASES = {
+    "gAMA_before_IHDR": (["@sig gAMA 100000"], False), "sBIT_before_IHDR": (["@sig sBIT 8"], False),
+    "tEXt_before_IHDR": (["@sig tEXt"], False), "tEXt_bad_crc_before_IHDR": (["@sig tEXt !crc"], False),
+    "zzZz_before_IHDR": (["@sig zzZz"], True), "zzZz_bad_crc_before_IHDR": (["@sig zzZz !crc"], True),
+    "IHDR_twice": (["IHDR"], False), "IHDR_after_gAMA": (["gAMA 45455", "IHDR"], False),
+}
+
+
+@pytest.mark.parametrize("name", list(ORDER_CASES))
+def test_png_ihdr_comes_first_and_once(tmp_path, name):
+    tokens, native_reads = ORDER_CASES[name]
+    path = tmp_path / f"{name}.png"
+    path.write_bytes(png_with_chunks(2, 8, 0, False, tokens))
+    if tokens[0].endswith("!crc"):  # PIL raises on a bad CRC, and so does "pil"
+        with pytest.raises(OSError, match="corrupt or truncated"):
+            imageio.decode(path, "pil")
+    else:
+        with Image.open(path) as img:
+            np.testing.assert_array_equal(imageio.decode(path, "pil"), np.asarray(img.convert("RGB")))
+    if native_reads:
+        np.testing.assert_array_equal(imageio.decode(path, "native"), native_u8(path, (32, 32)))
+        return
+    with pytest.raises(OSError, match="not decodable"):
+        native_u8(path, (32, 32))
+    with pytest.raises(OSError, match=f"{name}.png is corrupt or truncated"):
+        imageio.decode(path, "native")
+
+
+def cv2_jpeg_440(pixels, progressive: bool, quality: int = 90) -> bytes:
+    """h1v2 (4:4:0) JPEG bytes from cv2's libjpeg, which PIL cannot write."""
+    flags = [cv2.IMWRITE_JPEG_QUALITY, quality, cv2.IMWRITE_JPEG_SAMPLING_FACTOR, cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440,
+             cv2.IMWRITE_JPEG_PROGRESSIVE, int(progressive)]
+    ok, buf = cv2.imencode(".jpg", np.ascontiguousarray(pixels[..., ::-1]), flags)
+    assert ok
+    return buf.tobytes()
+
+
+@pytest.mark.parametrize("hw", [(45, 37), (64, 64), (17, 33)])
+@pytest.mark.parametrize("progressive", [False, True], ids=["baseline", "progressive"])
+def test_jpeg_440_equals_pil_and_the_native_loader(tmp_path, progressive, hw):
+    data = cv2_jpeg_440(smooth(*hw, seed=hw[0] + hw[1]), progressive)
+    sof = data.index(b"\xff\xc2" if progressive else b"\xff\xc0")
+    assert data[sof + 11] == 0x12 and data[sof + 14] == data[sof + 17] == 0x11  # Y h1v2, Cb and Cr h1v1
+    path = tmp_path / "440.jpg"
+    path.write_bytes(data)
+    got = imageio.decode(path)
+    np.testing.assert_array_equal(got, pil_rgb(data))
+    np.testing.assert_array_equal(got, native_u8(path, hw))
 
 
 # ------------------------------------------------------------ batch loader

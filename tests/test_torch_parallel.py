@@ -69,7 +69,16 @@ CFG = dict(train_text_encoder=True, train_unet=True, lora_rank=2, train_images_p
 
 def _spawn(tmp_path, target, world, **kwargs):
     return spawn(f"torch_ranks:{target}", world, backend="gloo", kwargs=kwargs, workdir=tmp_path,
-                 timeout=TIMEOUT)
+                 timeout=TIMEOUT, device="cpu")
+
+
+def test_spawn_defaults_to_the_cards(tmp_path, monkeypatch):
+    """`spawn` with no device resolves it as every entry point does: to
+    CUDA, so where there is none it raises before it starts a rank."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        spawn("torch_ranks:mesh_ops", 2, backend="gloo", workdir=tmp_path / "w", timeout=TIMEOUT)
+    assert not (tmp_path / "w").exists()
 
 
 @pytest.mark.parametrize("n", [1, 2, 4, 6, 8, 12])

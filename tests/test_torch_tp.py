@@ -119,7 +119,7 @@ def test_tp_forwards_match_jax_shard_sd_params(tmp_path, tiny, monkeypatch, flas
     ctx = rng.normal(size=(4, 4, 32)).astype(np.float32)
     ids = np.array([[0, 5, 6, 63], [0, 7, 63, 63], [0, 9, 8, 63], [0, 63, 63, 63]], np.int32)
     want_eps, want_hidden = _jax_forwards(jsd, params, x, t, ctx, ids)
-    out = spawn("torch_ranks:sd_forwards", 4, backend="gloo", workdir=tmp_path, timeout=240,
+    out = spawn("torch_ranks:sd_forwards", 4, backend="gloo", workdir=tmp_path, timeout=240, device="cpu",
                 kwargs=dict(data=2, model=2, params=params, x=x, t=t, ctx=ctx, ids=ids, flash=flash))
     assert all(r["heads"] == 1 for r in out)  # the tiny UNet's 2 heads over 2 model ranks
     for r in (0, 1):  # the two model ranks of each data rank hold the same rows
