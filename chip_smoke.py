@@ -30,7 +30,9 @@ Phases (any failure raises and exits non-zero):
      the same forward in bf16 on the card, kernels against the plain routes;
      then unet-768: a bf16 CFG forward at 768 px (sample_size 96, 2 rows)
      with the same limits against the plain routes' fp32 output, 15 K1
-     launches of which 5 at head dim 160;
+     launches of which 5 at head dim 160, then a merged pair VJP on those
+     2 rows with phase 12's limits: 14 K6 launches, 5 at head dim 160, each
+     held to its plain version, no K2 or K3;
   5. the slice: `fairdiff_torch.tools.gen_images.main` at full width on
      random weights, 2 prompts x 2 images, batch 2, 30 steps, with the
      kernel launch counts checked against 10 (flash) and 16 (GEGLU) per
@@ -39,12 +41,14 @@ Phases (any failure raises and exits non-zero):
   7. kernels-bwd: the training kernels K1 with lse, K2 (dq), K3 (dk/dv) and
      K5 (GEGLU dx), bf16 and fp32, each against its plain version at the
      phase-4 shapes (a pair VJP's CFG batch of 2p = 8 rows; the flash
-     kernels also at [8,576,8,160], where the merged route runs K3 then K2)
+     kernels also at [8,576,8,160], where K6 runs 64-key blocks)
      and a ragged shape, with phase 3's limits and dropped-tile controls, K1
      with lse, K2, K3, K5 and K6 each run twice (o, lse, dq, dk, dv, dx
      bit-equal; K6's dq within its summation order), and with kernel, plain
      and library times, the bound and the kernel's factor over both (K5's
-     dproj and split-K bytes logged beside the bound);
+     dproj and split-K bytes logged beside the bound; K6 also timed alone,
+     without its wrapper's delta, zeroed buffer and cast, and beside the
+     split route);
   8. unet-vjp: one full-width SD-1.5 pair VJP (8 rows, bf16, remat), every
      K2, K3 and K5 launch held against its plain version on its operands,
      the context gradient against the plain routes and an fp32 run, launch
@@ -159,7 +163,7 @@ Phases (any failure raises and exits non-zero):
      and its fp32 twin: the CFG UNet forward at 2 rows and the text encoder
      as the bf16 UNet parity holds them, K1 at 4 local heads per launch, one
      pair VJP's LoRA gradients (1.25x the replicated error against fp32);
- 30. tools: bench_gen (batches 10, 16, 20), bench_attention (and --grad),
+ 30. tools: bench_gen (batches 10, 16), bench_attention (and --grad),
      bench_geglu, roofline (flash, programs, report), tp_scaling
      (trainer_pair at lanes 4-24, unet_vjp), setup_data (synthesize, check),
      convergence_demo (20 steps on the card) and plot_curves, each with its
@@ -404,12 +408,14 @@ def phase_imageio(power: str) -> dict:
     4:2:2, 4:2:0, grey, progressive, restart markers, optimised tables, Adobe
     RGB, odd sizes; cv2-written 4:4:0, baseline and progressive) decodes to
     PIL's stored pixels exactly; every PNG fixture (sBIT, sRGB and gAMA near
-    1/2.2, sRGB/gAMA precedence, ancillary chunks with a bad CRC) decodes
-    under "native" to the native loader's (libpng's) stored pixels exactly;
-    the encoder's quality-95 file against PIL's bytes (equal, else the pixel
-    error of the two decoded, at most 1); four corrupted fixtures, one
-    entropy-coded byte flipped, the restart markers stripped, a PNG's sBIT
-    and another's gAMA stripped, each of which must fail its check; then the
+    1/2.2, sRGB/gAMA precedence, ancillary chunks with a bad CRC, an sRGB
+    ICC profile, a rejected one, a palette longer than its bit depth allows,
+    an Adler-32 libpng never reaches) decodes under "native" to the native
+    loader's (libpng's) stored pixels exactly; the encoder's quality-95 file
+    against PIL's bytes (equal, else the pixel error of the two decoded, at
+    most 1); five corrupted fixtures, one entropy-coded byte flipped, the
+    restart markers stripped, a PNG's sBIT, another's gAMA and a third's
+    iCCP stripped, each of which must fail its check; then the
     batch loader at 512 x 112x112 (sfnet20's batch) on JPEG (quality 95) and
     on libpng-filtered PNG, against the numpy loader it replaced (PNG only:
     that loader read JPEG through PIL), with the host's core count."""
@@ -470,10 +476,13 @@ def phase_imageio(power: str) -> dict:
                               fx["f2_rgb16_sbit8.native"], "native")
     no_gama = decodes_exactly(strip_png_chunk(fx["f1_rgb16_adam7_gama43200.png"].tobytes(), b"gAMA"),
                               fx["f1_rgb16_adam7_gama43200.native"], "native")
+    no_iccp = decodes_exactly(strip_png_chunk(fx["f6_rgb16_iccp_srgb.png"].tobytes(), b"iCCP"),
+                              fx["f6_rgb16_iccp_srgb.native"], "native")
     log(f"[imageio] controls: f2_rgb16_sbit8 without its sBIT: {no_sbit[1]}; f1_rgb16_adam7_gama43200 without its "
-        f"gAMA: {no_gama[1]} (each must fail)")
-    failed += [f"control {n} passed the decode check" for n, r in (("flipped", flipped), ("stripped", stripped),
-                                                                  ("no sBIT", no_sbit), ("no gAMA", no_gama)) if r[0]]
+        f"gAMA: {no_gama[1]}; f6_rgb16_iccp_srgb without its iCCP: {no_iccp[1]} (each must fail)")
+    failed += [f"control {n} passed the decode check" for n, r in (
+        ("flipped", flipped), ("stripped", stripped), ("no sBIT", no_sbit), ("no gAMA", no_gama),
+        ("no iCCP", no_iccp)) if r[0]]
 
     # the loader on the card's host
     scratch = Path(__file__).resolve().parent / "build"
@@ -899,12 +908,15 @@ UNET_768_LAUNCHES = {"flash_attention": 15, "geglu": 16}
 UNET_768_D160 = 5
 
 
-def phase_unet_768() -> list[int]:
+def phase_unet_768(power: str) -> list[int]:
     """One bf16 CFG UNet forward at 768 px (sample_size 96; one image, so 2
     rows) on the card, with the limits of phase 4's bf16 forward against the
     plain routes' fp32 output on the card (the 576-token attention of the
     1280-channel blocks, head dim 160, raised ValueError before K1 took
-    D = 160), and exactly UNET_768_D160 K1 launches at D = 160."""
+    D = 160), and exactly UNET_768_D160 K1 launches at D = 160; then one
+    merged pair VJP on the same 2 rows (`phase_unet_vjp` with its limits and
+    each K6 launch's checks), exactly UNET_768_D160 of its K6 launches at
+    D = 160 and none of K2 or K3."""
     from fairdiff_torch.models.layers import init_weights
     from fairdiff_torch.models.unet2d import UNet2DCondition, UNetConfig
     from fairdiff_torch.ops import flash_attention as fa
@@ -931,6 +943,15 @@ def phase_unet_768() -> list[int]:
     log(f"[unet-768] K1 launches at head dim 160: {n160} (want {UNET_768_D160})")
     if n160 != UNET_768_D160:
         raise AssertionError(f"[unet-768] {n160} K1 launches at D = 160, want {UNET_768_D160}")
+    del unet
+    torch.cuda.empty_cache()
+    vjp = phase_unet_vjp(power, flash_bwd="merged", sample_size=96, rows=2, tag="[unet-768]",
+                         want=UNET_768_VJP_LAUNCHES_MERGED, profile=False)
+    k6_160 = sum(d == 160 for d in vjp["head_dims"])
+    log(f"[unet-768] merged pair VJP: K6 launches at head dim 160: {k6_160} (want {UNET_768_D160}); "
+        f"K6 head dims {vjp['head_dims']}")
+    if k6_160 != UNET_768_D160:
+        raise AssertionError(f"[unet-768] {k6_160} K6 launches at D = 160, want {UNET_768_D160}")
     return head_dims
 
 
@@ -1085,23 +1106,27 @@ def _flash_bwd_checks(q, k, v, do, fwd=None, grads=None):
     return out, (o, lse, delta), grads
 
 
-# keys a block of the key-block backward (K3 and K6, one wgmma kernel) owns:
-# K6's unit of key work, whose dq tile one bulk reduce-add adds
-MERGED_BLOCK_KEYS = 128
+def merged_tiles(d: int) -> tuple[int, int]:
+    """K6's (keys a block, q rows a tile) at head dim `d`
+    (csrc/flash_attention.cu `kv::Smem<DP, true>`): (128, 64) up to 128,
+    (64, 32) above. A block's keys are its unit of key work, whose dq tile
+    one bulk reduce-add adds for each q tile."""
+    return (128, 64) if d <= 128 else (64, 32)
 
 
 def _merged_checks(q, k, v, o, lse, do, got, split=None):
     """K6's (dq, dk, dv) `got` against the plain version
     (`flash_attention_bwd_plain`, the same rounding points) and, where given,
     against K2/K3's outputs `split` on the same inputs, with the limits of
-    phase 3. Controls drop the last 128-key tile (dq: the block of keys whose
-    contribution one bulk reduce-add adds) or the last 64-row q tile (dk, dv:
-    the block's loop unit) from the plain version."""
+    phase 3. Controls drop the last key block (dq: the keys whose
+    contribution one bulk reduce-add adds) or the last q tile (dk, dv: the
+    block's loop unit) from the plain version (`merged_tiles`)."""
     from fairdiff_torch.ops import flash_attention as fa
 
     S, T = q.shape[1], k.shape[1]
-    last_k = (T - 1) // MERGED_BLOCK_KEYS * MERGED_BLOCK_KEYS
-    last_q = (S - 1) // 64 * 64
+    block_keys, q_tile = merged_tiles(q.shape[-1])
+    last_k = (T - 1) // block_keys * block_keys
+    last_q = (S - 1) // q_tile * q_tile
     delta = fa.attention_delta(o, do)
     plain = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
     qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
@@ -1240,7 +1265,7 @@ def phase_kernels_bwd() -> dict[str, dict]:
     for label, qs, kvs in (
         ("self4096", (B, 4096, 8, 40), (B, 4096, 8, 40)),
         ("self1024", (B, 1024, 8, 80), (B, 1024, 8, 80)),
-        ("self576", (B, 576, 8, 160), (B, 576, 8, 160)),  # 768 px: K3 then K2 on the merged route
+        ("self576", (B, 576, 8, 160), (B, 576, 8, 160)),  # 768 px, 1280 channels
         ("ragged", (1, 600, 2, 40), (1, 300, 2, 40)),
     ):
         q, do = (torch.randn(qs, generator=g, device="cuda", dtype=bf) for _ in range(2))
@@ -1301,22 +1326,29 @@ def phase_kernels_bwd() -> dict[str, dict]:
             **dict(zip(("bound_ms", "bound_by"), flash_bound(b, s, t, h, d, "dkv"))),
         )
         # K6's function reads q, k, v, dO, lse and delta once and writes dq,
-        # dk and dv once. Its fp32 dq reduce-adds (one [64-row, D] tile a
-        # 128-key block and q tile, into a buffer padded to 64 rows) are this
-        # design's cost, not bytes the function needs: they stay out of the
-        # bound and are logged beside it. Above D = 128 the route is K3 then
-        # K2, with no reduce-adds
-        k6 = d <= fa.MERGED_MAX_D
+        # dk and dv once. Its fp32 dq reduce-adds (one [q tile, D] tile a key
+        # block and q tile: `merged_tiles`) are this design's cost, not bytes
+        # the function needs: they stay out of the bound and are logged
+        # beside it
+        block_keys, q_tile = merged_tiles(d)
+        # the kernel alone, launched on the wrapper's operands (its fp32 dq
+        # buffer summing on), beside the wrapper (delta, the zeroed buffer
+        # and the cast around it) and the split route (delta, K2, K3)
+        dq32 = torch.zeros(b, h, -(-s // fa.DQ_ROWS) * fa.DQ_ROWS, d, dtype=torch.float32, device="cuda")
+        dk_, dv_ = torch.empty_like(k), torch.empty_like(v)
+        k6_args = [q, k, v, do, lse, delta, dk_, dv_, dq32]
         rows[f"flash_attention_bwd_merged/{label}"] = dict(
             shape=f"q{list(qs)} kv{list(kvs)} bf16",
             ms=time_ms(lambda: fa.flash_attention_bwd_merged(q, k, v, o, lse, do)),
             plain_ms=time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do), iters=3),
             library_ms=sdpa_bwd,
-            reduce_gb=4.0 * -(-t // MERGED_BLOCK_KEYS) * b * h * -(-s // fa.DQ_ROWS) * fa.DQ_ROWS * d / 1e9 * k6,
-            route="K6" if k6 else "K3 then K2",
+            reduce_gb=4.0 * -(-t // block_keys) * b * h * -(-s // q_tile) * q_tile * d / 1e9,
+            route=f"K6, {block_keys}-key blocks",
+            kernel_alone_ms=time_ms(lambda: fa._launch("bwd_merged", k6_args, q, t)),
+            split_route_ms=time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do)),
             **dict(zip(("bound_ms", "bound_by"), flash_bound(b, s, t, h, d, "merged"))),
         )
-        del qt, kt, vt, sdpa_out
+        del qt, kt, vt, sdpa_out, dq32, dk_, dv_, k6_args
         torch.cuda.empty_cache()
     for label, m, d in (
         ("d320", PAIR_ROWS * 4096, 320),
@@ -1357,7 +1389,8 @@ def phase_kernels_bwd() -> dict[str, dict]:
         f"rel L2 <= {F32_REL_L2_TOL}; controls drop the kernel's last key tile (o: K1's, dq: K2's; "
         f"{key_tile(40)} keys at D <= 80, {key_tile(96)} above), the last 64-row q tile "
         f"(dk, dv) or the last 64 columns of I from dproj (GEGLU dx); merged (K6) controls drop the last "
-        f"{MERGED_BLOCK_KEYS}-key tile (dq) or the last 64-row q tile (dk, dv), and K6 is also held to the "
+        f"key block (dq: {merged_tiles(40)[0]} keys, {merged_tiles(160)[0]} above D = 128) or the last q tile "
+        f"(dk, dv: {merged_tiles(40)[1]} rows, {merged_tiles(160)[1]} above), and K6 is also held to the "
         f"limits against K2/K3's outputs; K1 with lse, K2, K3 and K5 run twice must be bit-equal")
     for key, c in checks.items():
         extra = f" lse max abs {c['lse_max_abs_err']:.3e} |" if "lse_max_abs_err" in c else ""
@@ -1367,7 +1400,8 @@ def phase_kernels_bwd() -> dict[str, dict]:
             f"{c['kernel_vs_f32']:.3e} plain {c['plain_vs_f32']:.3e} | control {c['control_rel_l2']:.3e} "
             f"| fp32 body rel L2 {f32_rel[key]:.3e}")
     for key, r in rows.items():
-        reduce = (f" | {r['route']}, dq reduce-adds {r['reduce_gb']:.3f} GB (not in the bound)"
+        reduce = (f" | {r['route']}, dq reduce-adds {r['reduce_gb']:.3f} GB (not in the bound) | the kernel "
+                  f"alone {r['kernel_alone_ms']:.4f} ms; the split route (delta, K2, K3) {r['split_route_ms']:.4f} ms"
                   if "reduce_gb" in r else "")
         reduce += (f" | dproj {r['dproj_gb']:.3f} GB, split-K partials {r['part_gb']:.3f} GB "
                    f"(not in the bound) | kernels (profiler): "
@@ -1570,6 +1604,14 @@ PAIR_VJP_LAUNCHES_LORA = dict(PAIR_VJP_LAUNCHES, flash_attention=0, flash_attent
 # the same with flash_bwd="merged": K6 takes K2's and K3's 9 launches
 PAIR_VJP_LAUNCHES_MERGED = dict(PAIR_VJP_LAUNCHES, flash_attention_dq=0, flash_attention_dkv=0,
                                 flash_attention_bwd_merged=9)
+# `[unet-768]`'s merged pair VJP (2 rows at 768 px, remat on): of the 15 flash
+# sites the first transformer block's self-attention does not depend on the
+# context (K1 without lse, in the forward and in remat's recompute); the
+# other 14 run K1 with lse twice and K6 once, UNET_768_D160 of the K6
+# launches at D = 160; no K2 or K3. The 16 feed-forwards run K4 twice and K5
+# once, as at 512 px
+UNET_768_VJP_LAUNCHES_MERGED = dict(PAIR_VJP_LAUNCHES_MERGED, flash_attention_lse=28,
+                                    flash_attention_bwd_merged=14)
 # two runs of the merged pair VJP differ where K6's reduce-adds summed dq in
 # another order and a bf16 rounding of dq flipped; every bf16 rounding after
 # that point then differs too, so two runs differ by the bf16 noise of the
@@ -1588,33 +1630,39 @@ PAIR_VJP_LAUNCHES_RECOMPUTE = dict(PAIR_VJP_LAUNCHES, flash_attention=20, flash_
                                    flash_attention_dq=0, flash_attention_dkv=0)
 
 
-def phase_unet_vjp(power: str, flash_bwd: str = "split", beside: dict | None = None) -> dict:
+def phase_unet_vjp(power: str, flash_bwd: str = "split", beside: dict | None = None, sample_size: int = 64,
+                   rows: int = PAIR_ROWS, tag: str = "", want: dict | None = None, profile: bool = True) -> dict:
     """One full-width SD-1.5 pair VJP on the card, as phase 4 runs it, with
     the flash backward `flash_bwd` ("split": K2 + K3, "merged": K6,
-    "recompute": autograd through the plain attention). The recompute route
-    is also held against the split route's gradient on the same weights
-    (within the sanity bound two bf16 backward routes are held to), and its
-    time and peak memory are printed beside `beside` (`[unet-vjp]`'s)."""
+    "recompute": autograd through the plain attention), on `rows` rows of
+    `sample_size` latents (`[unet-768]` runs 2 rows at 96). The recompute
+    route is also held against the split route's gradient on the same
+    weights (within the sanity bound two bf16 backward routes are held to),
+    and its time and peak memory are printed beside `beside`
+    (`[unet-vjp]`'s). The result's `head_dims` are those of the flash
+    backward launches, in order."""
     from fairdiff_torch.models.layers import init_weights
     from fairdiff_torch.models.unet2d import UNet2DCondition, UNetConfig
     from fairdiff_torch.ops import flash_attention as fa
     from fairdiff_torch.ops import geglu as gg
 
     merged, recompute = flash_bwd == "merged", flash_bwd == "recompute"
-    tag = {"split": "[unet-vjp]", "merged": "[unet-vjp-merged]", "recompute": "[unet-vjp-recompute]"}[flash_bwd]
-    want = {"split": PAIR_VJP_LAUNCHES, "merged": PAIR_VJP_LAUNCHES_MERGED,
-            "recompute": PAIR_VJP_LAUNCHES_RECOMPUTE}[flash_bwd]
+    tag = tag or {"split": "[unet-vjp]", "merged": "[unet-vjp-merged]", "recompute": "[unet-vjp-recompute]"}[flash_bwd]
+    want = want or {"split": PAIR_VJP_LAUNCHES, "merged": PAIR_VJP_LAUNCHES_MERGED,
+                    "recompute": PAIR_VJP_LAUNCHES_RECOMPUTE}[flash_bwd]
     parts = ("merged_dq", "merged_dk", "merged_dv") if merged else ("lse", "dq", "dk", "dv")
     g = torch.Generator().manual_seed(4)
-    unet = init_weights(UNet2DCondition(UNetConfig.sd15(), remat=True, flash_bwd=flash_bwd), g)
+    cfg = dataclasses.replace(UNetConfig.sd15(), sample_size=sample_size)
+    unet = init_weights(UNet2DCondition(cfg, remat=True, flash_bwd=flash_bwd), g)
     unet = unet.cuda().requires_grad_(False)
-    p = PAIR_ROWS // 2
-    x = torch.randn(p, 64, 64, 4, generator=g).cuda()
-    cot = torch.randn(p, 64, 64, 4, generator=g).cuda() * 1e-2
-    ctx0 = torch.randn(PAIR_ROWS, 77, 768, generator=g).cuda()
+    p = rows // 2
+    x = torch.randn(p, sample_size, sample_size, 4, generator=g).cuda()
+    cot = torch.randn(p, sample_size, sample_size, 4, generator=g).cuda() * 1e-2
+    ctx0 = torch.randn(rows, 77, 768, generator=g).cuda()
     mask = (torch.arange(77)[None] < torch.tensor([[9]] * p + [[12]] * p)).int().cuda()
     per_launch: dict[str, list[dict]] = {"flash_attention_bwd": [], "geglu_dx": []}
     reruns: list[dict] = []  # merged: each K6 launch run again on its operands
+    head_dims: list[int] = []  # of each flash backward launch (the checked run)
 
     def context_grad(model, dtype):
         ctx = ctx0.to(dtype).requires_grad_()
@@ -1628,6 +1676,7 @@ def phase_unet_vjp(power: str, flash_bwd: str = "split", beside: dict | None = N
 
     def checked_bwd(q, k, v, o, lse, do):
         got = real_bwd(q, k, v, o, lse, do)
+        head_dims.append(q.shape[-1])
         if merged:
             per_launch["flash_attention_bwd"].append(_merged_checks(q, k, v, o, lse, do, got))
             reruns.append(_merged_rerun(got, real_bwd(q, k, v, o, lse, do), k.shape[1]))
@@ -1695,7 +1744,8 @@ def phase_unet_vjp(power: str, flash_bwd: str = "split", beside: dict | None = N
     e_rerun = rel_l2(kern2, kern)
     rerun_ok = (e_rerun <= MERGED_RERUN_REL_L2_TOL and rel_l2(kern2, exact) <= UNET_BF16_ACCURACY_RATIO * e_p
                 if merged else bool(torch.equal(kern, kern2)))
-    log(f"{tag} SD-1.5 pair VJP (8 rows, bf16, remat, flash_bwd={flash_bwd!r}), d surrogate / d context: "
+    log(f"{tag} SD-1.5 pair VJP ({rows} rows of {sample_size}x{sample_size} latents, bf16, remat, "
+        f"flash_bwd={flash_bwd!r}), d surrogate / d context: "
         f"kernels vs plain routes rel L2 {e_kp:.3e}; vs fp32: kernels {e_k:.3e}, plain {e_p:.3e} (kernels "
         f"<= {UNET_BF16_ACCURACY_RATIO} x plain); dropped-tile control vs fp32 {e_d:.3e} (ratio "
         f"{e_d / e_p:.3f}, must exceed {UNET_BF16_ACCURACY_RATIO}); two runs of the kernels: rel L2 "
@@ -1722,8 +1772,8 @@ def phase_unet_vjp(power: str, flash_bwd: str = "split", beside: dict | None = N
     failed += [f"K6 launch {i} rerun: {r['failed']}" for i, r in enumerate(reruns) if r["failed"]]
     failed += [name for name, ok in (
         ("launches", ran == want),
-        ("checked launches",
-         [len(per_launch["flash_attention_bwd"]), len(per_launch["geglu_dx"])] == [0 if recompute else 9, 16]),
+        ("checked launches", [len(per_launch["flash_attention_bwd"]), len(per_launch["geglu_dx"])] == [
+            want["flash_attention_bwd_merged" if merged else "flash_attention_dq"], want["geglu_dx"]]),
         ("recompute vs split", e_split is None or e_split <= UNET_BF16_REL_L2_TOL),
         ("finite", bool(torch.isfinite(kern).all())),
         ("non-zero", kern.abs().max().item() > 0),
@@ -1733,14 +1783,14 @@ def phase_unet_vjp(power: str, flash_bwd: str = "split", beside: dict | None = N
         ("control", e_d > UNET_BF16_ACCURACY_RATIO * e_p),
     ) if not ok]
     if failed:
-        raise AssertionError(f"pair VJP checks failed: {failed}")
-    kernel_ms = profile_pair_vjp(lambda: context_grad(unet_bf16, torch.bfloat16), seconds, tag)
+        raise AssertionError(f"{tag} pair VJP checks failed: {failed}")
+    kernel_ms = profile_pair_vjp(lambda: context_grad(unet_bf16, torch.bfloat16), seconds, tag) if profile else None
     if beside:
         ms = lambda x: "not measured" if x is None else f"{x:.3f}"
         log(f"{tag} beside [unet-vjp]: wall {seconds:.3f} vs {beside['seconds']:.3f} s, kernel time "
             f"{ms(kernel_ms)} vs {ms(beside['kernel_ms'])} ms, peak {peak_gib:.2f} vs {beside['peak_gib']:.2f} GiB "
             f"above the weights on {power}")
-    return {"seconds": seconds, "peak_gib": peak_gib, "launches": ran, "kernel_ms": kernel_ms}
+    return {"seconds": seconds, "peak_gib": peak_gib, "launches": ran, "kernel_ms": kernel_ms, "head_dims": head_dims}
 
 
 # host calls that wait for the device
@@ -4126,9 +4176,9 @@ def phase_tools(power: str, work: Path) -> None:
         return result
 
     lse = ("flash_attention_lse", "flash_attention_dq", "flash_attention_dkv")
-    rows = run("bench_gen --batches 10,16,20 --timed 1", lambda: bench_gen.main(["--batches", "10,16,20", "--timed", "1"]),
+    rows = run("bench_gen --batches 10,16 --timed 1", lambda: bench_gen.main(["--batches", "10,16", "--timed", "1"]),
                ("flash_attention", "geglu"))
-    if [r["batch"] for r in rows] != [10, 16, 20] or not all(r["img_per_s"] > 0 for r in rows):
+    if [r["batch"] for r in rows] != [10, 16] or not all(r["img_per_s"] > 0 for r in rows):
         failed.append(f"bench_gen rows {rows}")
     fwd = run("bench_attention", lambda: bench_attention.main([]), ("flash_attention",))
     grad = run("bench_attention --grad", lambda: bench_attention.main(["--grad"]),
@@ -4191,7 +4241,7 @@ def main() -> int:
     phase_unet_parity()
     log(f"[time] unet-fp32 {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    phase_unet_768()
+    phase_unet_768(power)
     log(f"[time] unet-768 {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     counts_gen, slice_jpgs = phase_slice()

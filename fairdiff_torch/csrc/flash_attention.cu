@@ -575,9 +575,9 @@ __global__ void __launch_bounds__(NTHR, 1)
 //
 // Design (a warp-specialised block: two key warpgroups, K6's dq warpgroup,
 // a producer warpgroup):
-// - One block owns BK = 128 keys. Their K and V tiles come into shared
-//   memory once, by TMA, and stay there. Each of the two key warpgroups
-//   owns 64 keys, wgmma's M.
+// - One block owns BK = 128 keys (64 for K6 above DP = 128, below). Their K
+//   and V tiles come into shared memory once, by TMA, and stay there. Each
+//   key warpgroup owns 64 keys, wgmma's M.
 // - One producer warp streams the 64-row q and dO tiles (TMA) and the lse
 //   and delta rows (1-D bulk copies) through a ring of STAGES slots, each
 //   marked full and empty by an mbarrier, so no consumer waits on a load it
@@ -618,29 +618,48 @@ __global__ void __launch_bounds__(NTHR, 1)
 //   computing it between two block-wide barriers, each taking half its
 //   columns; each key warpgroup adding its own keys' dq (twice the
 //   reduce-add bytes) was slower. Registers (setmaxnreg): key warpgroups
-//   232 in K3 and 192 in K6 (the dq warpgroup 96, the producer 40 or 32).
-// - K6 stops at DP = 128: at DP = 160 its key warpgroups would hold dK and
-//   dV (160 registers a thread) beside S^T and dP^T, and the dq warpgroup
-//   an 80-register dQ tile, where the 512 threads share 65,536 registers
-//   (2 x 192 + 96 + 32 per thread of a warpgroup today). The wrapper's
-//   merged route computes D > 128 with K3 then K2.
+//   232 in K3 and 192 in K6 up to DP = 128 (the dq warpgroup 96, the
+//   producer 40 or 32); K6 above, below.
+// - K6 above DP = 128 (DP 144 and 160: SD-1.5's 1280-channel transformers
+//   at 768 px) is one key warpgroup of 64 keys a block (BK = 64), the dq
+//   warpgroup and the producer: 384 threads. The budget, per thread of a
+//   warpgroup, of the 512 registers that the warpgroups share (65,536 over
+//   128 threads each): two key warpgroups would each hold dK and dV (2 x 80
+//   at DP = 160) beside S^T and dP^T (2 x 16 at 32-row q tiles), 232 as in
+//   K3, so two of them and an 80-register dQ tile would not fit. One key
+//   warpgroup takes its 232, the producer 40, and the dq warpgroup 128 of
+//   the 240 left. That warpgroup computes the tile transposed, dQ^T [DP x
+//   BQ] = K^T dS^T (M over the head dim in tiles of 64, 3 at DP 144-160; N
+//   the 32 q rows of the tile; both operands MN-major, as the same buffers
+//   are read for dS K below DP 144), so its accumulator is 3 x 16
+//   registers, and it writes the fp32 tile to shared memory transposed
+//   back, for the same bulk reduce-add. Its third M tile runs past DP into
+//   V's first column blocks; those rows of dQ^T are never stored. It stages
+//   the tiles in two fp32 buffers, so that one tile's reduce-add reads one
+//   while the next tile is written to the other. Shared memory at DP = 160:
+//   K and V 40 KB, three ring slots of 21 KB, two dS^T buffers of 4 KB, two
+//   fp32 dQ tiles of 20 KB: 153 KB. The cost of the design:
+//   twice the blocks of a 128-key block (576 at [8,576,8,160]: 9 x 64, 4.4
+//   waves of 132 SMs, one block an SM) and twice its dq reduce-add bytes.
 namespace kv {
 
-constexpr int BK = 128;      // keys a block
 // q rows a tile of the ring: 64 up to DP = 128, 32 above, where dK and dV
 // take 2 x 80 registers a thread and S^T and dP^T at 64 columns would take
 // 64 more than the key warpgroups' 232 hold
 template <int DP>
 constexpr int Q_TILE = DP <= 128 ? 64 : 32;
-constexpr int NWG = 2;       // key warpgroups, 64 keys each
-constexpr int NCONS = NWG * 128;
+// key warpgroups a block, 64 keys each: 2, or 1 for K6 above DP = 128
+template <int DP, bool WITH_DQ>
+constexpr int KEY_WGS = WITH_DQ && DP > 128 ? 1 : 2;
 // + K6's dq warpgroup, + the producer warpgroup (one warp works)
-template <bool WITH_DQ>
-constexpr int NTHR = NCONS + (WITH_DQ ? 256 : 128);
+template <int DP, bool WITH_DQ>
+constexpr int NTHR = KEY_WGS<DP, WITH_DQ> * 128 + (WITH_DQ ? 256 : 128);
 
 // shared memory of one block, in bytes from a 1024-aligned base
 template <int DP, bool WITH_DQ>
 struct Smem {
+  static constexpr int NWG = KEY_WGS<DP, WITH_DQ>;
+  static constexpr int BK = 64 * NWG;                         // keys a block
   static constexpr int NB = DP / 16;                          // column blocks
   static constexpr int BQ = Q_TILE<DP>;
   // 2 slots at DP 112-128 (shared memory); above, the 32-row q tiles leave
@@ -651,8 +670,8 @@ struct Smem {
   static constexpr int STAGE = 2 * TILE + 1024;               // q, dO, lse, delta
   static constexpr int K = 0, V = KV, RING = 2 * KV;
   static constexpr int DS = RING + STAGES * STAGE;            // K6: 2 x dS^T [BK x BQ]
-  static constexpr int DQ = DS + (WITH_DQ ? 2 * BK * BQ * 2 : 0);  // K6: fp32 [BQ x D]
-  static constexpr int BAR = DQ + (WITH_DQ ? BQ * DP * 4 : 0);
+  static constexpr int DQ = DS + (WITH_DQ ? 2 * BK * BQ * 2 : 0);  // K6: fp32 [BQ x D], two above DP 128
+  static constexpr int BAR = DQ + (WITH_DQ ? (NWG == 1 ? 2 : 1) * BQ * DP * 4 : 0);
   static constexpr int BYTES = BAR + 8 * (5 + 2 * STAGES) + 1024;  // + alignment slack
   static_assert(BYTES <= 232448, "shared memory");
 };
@@ -662,7 +681,7 @@ struct Maps {
 };
 
 template <int DP, bool WITH_DQ>
-__global__ void __launch_bounds__(NTHR<WITH_DQ>, 1)
+__global__ void __launch_bounds__(NTHR<DP, WITH_DQ>, 1)
     flash_bwd_kv_kernel(const __grid_constant__ Maps maps, const bf16* __restrict__ q,
                         const bf16* __restrict__ k, const bf16* __restrict__ v,
                         const bf16* __restrict__ dout, const float* __restrict__ lse,
@@ -670,7 +689,8 @@ __global__ void __launch_bounds__(NTHR<WITH_DQ>, 1)
                         bf16* __restrict__ dv, float* __restrict__ dq32, int S, int T_, int H,
                         int D, float scale, int mode) {
   using L = Smem<DP, WITH_DQ>;
-  constexpr int NB = L::NB, STAGES = L::STAGES, BQ = L::BQ;
+  constexpr int NB = L::NB, STAGES = L::STAGES, BQ = L::BQ, BK = L::BK, NWG = L::NWG;
+  constexpr int NCONS = NWG * 128;
   constexpr int PRODUCER = NWG + (WITH_DQ ? 1 : 0);  // warpgroup index
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - fd::smem_addr(smem_raw) % 1024) % 1024);
@@ -714,7 +734,7 @@ __global__ void __launch_bounds__(NTHR<WITH_DQ>, 1)
 
   if (wg == PRODUCER) {
     // ---- producer ----
-    if constexpr (WITH_DQ) {
+    if constexpr (WITH_DQ && NWG == 2) {
       asm volatile("setmaxnreg.dec.sync.aligned.u32 32;\n");
     } else {
       asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
@@ -778,49 +798,97 @@ __global__ void __launch_bounds__(NTHR<WITH_DQ>, 1)
   if constexpr (WITH_DQ) {
     if (wg == NWG) {
       // ---- K6's dq warpgroup: dq[tile] = scale dS K over the block's BK
-      // keys, A = dS^T and B = K both read MN-major; the fp32 tile is staged
-      // in shared memory and added into dq32 by one bulk reduce-add ----
-      asm volatile("setmaxnreg.dec.sync.aligned.u32 96;\n");
+      // keys, A = dS^T and B = K both read MN-major (above DP = 128 the
+      // transposed product dQ^T = K^T dS^T, A = K and B = dS^T read
+      // MN-major); the fp32 tile is staged in shared memory and added into
+      // dq32 by one bulk reduce-add ----
+      if constexpr (NWG == 2) {
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 96;\n");
+      } else {
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 128;\n");
+      }
       const int t = threadIdx.x % 128, wi = t / 32, lane = t % 32;
       float* s_dq = reinterpret_cast<float*>(smem + L::DQ);
       const long dq_row0 = (long)blockIdx.y * ((S + DQ_ROWS - 1) / DQ_ROWS * DQ_ROWS);  // dq32: [B, H, S_pad, D]
       for (int it = 0; it < n_tiles; ++it) {
         const int b = it & 1;
+        float* stage = s_dq;  // this tile's fp32 staging tile
         mbar_wait(bar_ds_full(b), (it >> 1) & 1);
-        float acc[DP / 2];
-        #pragma unroll
-        for (int i = 0; i < DP / 2; ++i) acc[i] = 0.0f;
-        keep(acc);
-        wg_fence();
-        #pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk)
-          fd::Gmma<DP>::template ss<1, 1>(acc, desc(s_ds(b) + kk * 512, BK * 32, 256),
-                                          desc(sK + kk * 512, BK * 32, 256), 1);
-        wg_commit();
-        wg_wait();
-        keep(acc);
-        mbar_arrive(bar_ds_empty(b));  // the key warpgroups may overwrite dS^T buffer b
-        if (t == 0) bulk_wait_read();  // the previous tile's reduce-add has read s_dq
-        named_sync(1, 128);
-        // a thread holds column pairs: 8-byte stores (conflict-free at D = 40) where D is even
-        #pragma unroll
-        for (int j = 0; j < DP / 8; ++j) {
+        if constexpr (NWG == 2) {
+          float acc[DP / 2];
           #pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
-            const int row = 16 * wi + lane / 4 + hf * 8, col = 8 * j + 2 * (lane % 4);
-            const float x = acc[4 * j + 2 * hf] * scale, y = acc[4 * j + 2 * hf + 1] * scale;
-            if (D % 2 == 0) {
-              if (col < D) *reinterpret_cast<float2*>(s_dq + row * D + col) = make_float2(x, y);
-            } else {
-              if (col < D) s_dq[row * D + col] = x;
-              if (col + 1 < D) s_dq[row * D + col + 1] = y;
+          for (int i = 0; i < DP / 2; ++i) acc[i] = 0.0f;
+          keep(acc);
+          wg_fence();
+          #pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk)
+            fd::Gmma<DP>::template ss<1, 1>(acc, desc(s_ds(b) + kk * 512, BK * 32, 256),
+                                            desc(sK + kk * 512, BK * 32, 256), 1);
+          wg_commit();
+          wg_wait();
+          keep(acc);
+          mbar_arrive(bar_ds_empty(b));  // the key warpgroups may overwrite dS^T buffer b
+          if (t == 0) bulk_wait_read();  // the previous tile's reduce-add has read s_dq
+          named_sync(1, 128);
+          // a thread holds column pairs: 8-byte stores (conflict-free at D = 40) where D is even
+          #pragma unroll
+          for (int j = 0; j < DP / 8; ++j) {
+            #pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+              const int row = 16 * wi + lane / 4 + hf * 8, col = 8 * j + 2 * (lane % 4);
+              const float x = acc[4 * j + 2 * hf] * scale, y = acc[4 * j + 2 * hf + 1] * scale;
+              if (D % 2 == 0) {
+                if (col < D) *reinterpret_cast<float2*>(s_dq + row * D + col) = make_float2(x, y);
+              } else {
+                if (col < D) s_dq[row * D + col] = x;
+                if (col + 1 < D) s_dq[row * D + col + 1] = y;
+              }
+            }
+          }
+        } else {
+          // dQ^T [DP x BQ]: M tile mt holds head-dim rows 64 mt .. + 64, the
+          // K tile's column blocks 4 mt .. + 4 (past DP: V's, never stored)
+          constexpr int MT = (DP + 63) / 64;
+          float acc[MT][BQ / 2];
+          #pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            #pragma unroll
+            for (int i = 0; i < BQ / 2; ++i) acc[mt][i] = 0.0f;
+            keep(acc[mt]);
+          }
+          wg_fence();
+          #pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            #pragma unroll
+            for (int kk = 0; kk < BK / 16; ++kk)
+              fd::Gmma<BQ>::template ss<1, 1>(acc[mt], desc(sK + 4 * mt * BK * 32 + kk * 512, BK * 32, 256),
+                                              desc(s_ds(b) + kk * 512, BK * 32, 256), 1);
+          }
+          wg_commit();
+          wg_wait();
+          #pragma unroll
+          for (int mt = 0; mt < MT; ++mt) keep(acc[mt]);
+          mbar_arrive(bar_ds_empty(b));  // the key warpgroups may overwrite dS^T buffer b
+          stage = s_dq + b * BQ * DP;  // two staging tiles: tile it - 1's reduce-add may still read the other
+          if (t == 0) bulk_wait_read<1>();  // tile it - 2's reduce-add has read this one
+          named_sync(1, 128);
+          // transposed back: element (d, q) of dQ^T to row q, column d
+          #pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            #pragma unroll
+            for (int j = 0; j < BQ / 8; ++j) {
+              #pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int d = 64 * mt + 16 * wi + lane / 4 + (e / 2) * 8, q = 8 * j + 2 * (lane % 4) + (e & 1);
+                if (d < D) stage[q * D + d] = acc[mt][4 * j + e] * scale;
+              }
             }
           }
         }
         fence_async_smem();
         named_sync(2, 128);  // the fp32 dq tile is in shared memory
         if (t == 0) {
-          bulk_reduce_add(dq32 + (dq_row0 + it * BQ) * D, fd::smem_addr(s_dq), BQ * D * 4);
+          bulk_reduce_add(dq32 + (dq_row0 + it * BQ) * D, fd::smem_addr(stage), BQ * D * 4);
           bulk_commit();
         }
       }
@@ -830,7 +898,7 @@ __global__ void __launch_bounds__(NTHR<WITH_DQ>, 1)
   }
 
   // ---- key warpgroups: warpgroup `wg` owns keys k0 + 64 wg .. + 64 ----
-  if constexpr (WITH_DQ) {
+  if constexpr (WITH_DQ && NWG == 2) {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 192;\n");
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
@@ -1339,8 +1407,9 @@ template <int DP, bool WITH_DQ>
 int launch_bwd_kv(const bf16* q, const bf16* k, const bf16* v, const bf16* dout, const float* lse,
                   const float* delta, bf16* dk, bf16* dv, float* dq32, int B, int S, int T_, int H,
                   int D, float scale, cudaStream_t stream) {
+  using L = kv::Smem<DP, WITH_DQ>;
   auto kernel = kv::flash_bwd_kv_kernel<DP, WITH_DQ>;
-  const size_t smem = kv::Smem<DP, WITH_DQ>::BYTES;
+  const size_t smem = L::BYTES;
   if (int err = set_smem(kernel, smem)) return err;
   const auto aligned4 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 4 == 0; };
   const bool tma = D % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout) &&
@@ -1349,14 +1418,13 @@ int launch_bwd_kv(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
   const bool pairs = D % 2 == 0 && aligned4(q) && aligned4(k) && aligned4(v) && aligned4(dout);
   kv::Maps maps;
   memset(&maps, 0, sizeof(maps));
-  constexpr int BQ = kv::Q_TILE<DP>;
-  if (tma && !(tensor_map(&maps.q, q, B, S, H, D, BQ) && tensor_map(&maps.dout, dout, B, S, H, D, BQ) &&
-               tensor_map(&maps.k, k, B, T_, H, D, kv::BK) && tensor_map(&maps.v, v, B, T_, H, D, kv::BK) &&
-               tensor_map(&maps.dk, dk, B, T_, H, D, kv::BK) && tensor_map(&maps.dv, dv, B, T_, H, D, kv::BK)))
+  if (tma && !(tensor_map(&maps.q, q, B, S, H, D, L::BQ) && tensor_map(&maps.dout, dout, B, S, H, D, L::BQ) &&
+               tensor_map(&maps.k, k, B, T_, H, D, L::BK) && tensor_map(&maps.v, v, B, T_, H, D, L::BK) &&
+               tensor_map(&maps.dk, dk, B, T_, H, D, L::BK) && tensor_map(&maps.dv, dv, B, T_, H, D, L::BK)))
     return (int)cudaErrorInvalidValue;
   const int mode = (tma ? TMA : 0) | (lse_bulk ? LSE_BULK : 0) | (pairs ? PAIRS : 0);
-  const dim3 grid((T_ + kv::BK - 1) / kv::BK, B * H);
-  kernel<<<grid, kv::NTHR<WITH_DQ>, smem, stream>>>(maps, q, k, v, dout, lse, delta, dk, dv, dq32, S, T_, H, D,
+  const dim3 grid((T_ + L::BK - 1) / L::BK, B * H);
+  kernel<<<grid, kv::NTHR<DP, WITH_DQ>, smem, stream>>>(maps, q, k, v, dout, lse, delta, dk, dv, dq32, S, T_, H, D,
                                            scale, mode);
   return (int)cudaGetLastError();
 }
@@ -1365,27 +1433,19 @@ bool bad_shape(int B, int S, int T_, int H, int D) {
   return B < 1 || S < 1 || T_ < 1 || H < 1 || D < 1 || D > MAX_D || (long)B * H > 65535;
 }
 
-// one instantiation per head dim padded to the mma depth: 16 .. 160, or
-// 16 .. 128 for K6 (the wrapper routes D > 128 to K3 and K2)
-#define FD_CASES_TO_112(CALL)                       \
-    case 1: { constexpr int DP = 16; return CALL; } \
-    case 2: { constexpr int DP = 32; return CALL; } \
-    case 3: { constexpr int DP = 48; return CALL; } \
-    case 4: { constexpr int DP = 64; return CALL; } \
-    case 5: { constexpr int DP = 80; return CALL; } \
-    case 6: { constexpr int DP = 96; return CALL; } \
-    case 7: { constexpr int DP = 112; return CALL; }
-#define FD_DISPATCH_DP(D, CALL)                     \
-  switch (((D) + 15) / 16) {                        \
-    FD_CASES_TO_112(CALL)                           \
+// one instantiation per head dim padded to the mma depth: 16 .. 160
+#define FD_DISPATCH_DP(D, CALL)                      \
+  switch (((D) + 15) / 16) {                         \
+    case 1: { constexpr int DP = 16; return CALL; }  \
+    case 2: { constexpr int DP = 32; return CALL; }  \
+    case 3: { constexpr int DP = 48; return CALL; }  \
+    case 4: { constexpr int DP = 64; return CALL; }  \
+    case 5: { constexpr int DP = 80; return CALL; }  \
+    case 6: { constexpr int DP = 96; return CALL; }  \
+    case 7: { constexpr int DP = 112; return CALL; } \
     case 8: { constexpr int DP = 128; return CALL; } \
     case 9: { constexpr int DP = 144; return CALL; } \
     default: { constexpr int DP = 160; return CALL; } \
-  }
-#define FD_DISPATCH_DP_TO_128(D, CALL)              \
-  switch (((D) + 15) / 16) {                        \
-    FD_CASES_TO_112(CALL)                           \
-    default: { constexpr int DP = 128; return CALL; } \
   }
 
 int fwd_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
@@ -1507,12 +1567,12 @@ extern "C" int fd_flash_dkv_f32(const void* q, const void* k, const void* v, con
 }
 
 // K6: dk, dv and the fp32 dq sum in one pass; dq32 [B, H, S_pad, D] (S_pad: S
-// rounded up to 64) must be zero; D <= 128
+// rounded up to 64) must be zero
 extern "C" int fd_flash_bwd_merged_bf16(const void* q, const void* k, const void* v,
                                         const void* dout, const void* lse, const void* delta,
                                         void* dk, void* dv, void* dq32, int B, int S, int T,
                                         int H, int D, float scale, void* stream) {
-  if (bad_shape(B, S, T, H, D) || D > 128) return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, S, T, H, D)) return (int)cudaErrorInvalidValue;
   const auto* qq = static_cast<const bf16*>(q);
   const auto* kk = static_cast<const bf16*>(k);
   const auto* vv = static_cast<const bf16*>(v);
@@ -1523,8 +1583,7 @@ extern "C" int fd_flash_bwd_merged_bf16(const void* q, const void* k, const void
   auto* gv = static_cast<bf16*>(dv);
   auto* gq = static_cast<float*>(dq32);
   auto st = static_cast<cudaStream_t>(stream);
-  FD_DISPATCH_DP_TO_128(D, (launch_bwd_kv<DP, true>(qq, kk, vv, dd, ll, de, gk, gv, gq, B, S, T, H, D,
-                                             scale, st)));
+  FD_DISPATCH_DP(D, (launch_bwd_kv<DP, true>(qq, kk, vv, dd, ll, de, gk, gv, gq, B, S, T, H, D, scale, st)));
 }
 
 extern "C" int fd_flash_bwd_merged_f32(const void* q, const void* k, const void* v,

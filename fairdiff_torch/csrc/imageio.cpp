@@ -10,10 +10,14 @@
 //     kNative: what libpng 1.6's simplified API gives for PNG_FORMAT_RGB
 //              with a null background onto a zeroed buffer (alpha composited
 //              onto black in linear light, 16-bit samples taken as linear),
-//              with libpng's rules for gAMA, sRGB, cHRM, sBIT and tRNS and
-//              its chunk order and CRC handling (IHDR once and first among
-//              the chunks it knows, an ancillary chunk with a bad CRC
-//              dropped, nothing after the image data read);
+//              with libpng's rules for gAMA, sRGB, cHRM, iCCP, sBIT and tRNS
+//              and its chunk order and CRC handling (IHDR once and first
+//              among the chunks it knows, an ancillary chunk with a bad CRC
+//              dropped, nothing after the image data read), a palette cut
+//              to 2^depth entries, and the end of the image data's zlib
+//              stream read as libpng reads it (see Inflater); kPil reads
+//              that end as PIL does, and fails on an iCCP chunk of another
+//              compression method than 0, as PIL does;
 // - JPEG decode: baseline, extended and progressive Huffman, 8-bit, 1 or 3
 //   components, sampling factors 1-2, restart intervals, JFIF and Adobe
 //   markers. Equal to libjpeg(-turbo)'s default output: the accurate integer
@@ -66,12 +70,79 @@ struct InflateHuff {
   uint16_t fast[1 << 9];  // (length << 9) | symbol for codes of <= 9 bits, else 0
 };
 
+uint32_t adler32(const uint8_t* p, size_t n) {
+  uint32_t a = 1, b = 0;
+  for (size_t i = 0; i < n;) {
+    size_t end = std::min(n, i + 5552);
+    for (; i < end; ++i) {
+      a += p[i];
+      b += a;
+    }
+    a %= 65521;
+    b %= 65521;
+  }
+  return (b << 16) | a;
+}
+
+// How much of a zlib stream a reader holds to, beyond the `expect` bytes it
+// wants:
+//   kPrefix: nothing (libpng's iCCP: the profile's bytes, whatever follows);
+//   kReadPil, kReadLibpng: as a reader of image data that stops at the image's last
+//     byte. It feeds the stream in windows (`windows`: the end offset of
+//     each, ascending; PIL takes each IDAT chunk in pieces of 65536 bytes,
+//     libpng in pieces of PNG_IDAT_READ_SIZE, 8192), one row at a time. The
+//     call that produces the image's last byte goes on within its window
+//     until the stream needs output or input: an error met there, a bad
+//     Adler-32 included, fails the read, and a stream that ends there is
+//     whole. Beyond that window PIL reads no more; libpng reads on
+//     (png_read_finish_IDAT): an error it meets is benign, but a stream that
+//     needs more data than the IDAT chunks hold fails ("Not enough image
+//     data").
+enum StreamEnd { kPrefix, kReadPil, kReadLibpng };
+
 class Inflater {
  public:
-  Inflater(const uint8_t* data, size_t n, size_t expect) : d_(data), n_(n) { out_.reserve(expect); }
+  Inflater(const uint8_t* data, size_t n, size_t expect, StreamEnd end,
+           const std::vector<size_t>* windows = nullptr)
+      : d_(data), n_(n), expect_(expect), end_(end), windows_(windows) {
+    out_.reserve(expect);
+  }
 
+  // the stream inflated: at least `expect` bytes
   std::vector<uint8_t> run() {
-    if (n_ < 2) fail(kCorrupt);
+    bool failed = false;
+    try {
+      inflate_all();
+    } catch (const Fail&) {
+      failed = true;
+    }
+    if (fill_bit_ < 0) fail(kCorrupt);  // the wanted bytes never came
+    if (end_ == kPrefix) return std::move(out_);
+    const int64_t stop = consumed();     // where the stream failed or ended
+    const size_t last = size_t((fill_bit_ + 7) / 8) - 1;  // the byte that completed them
+    const size_t window_end = *std::upper_bound(windows_->begin(), windows_->end(), last);
+    const bool in_call = more_bit_ < 0 && !starved_ && stop <= int64_t(window_end) * 8;
+    if (failed && (in_call || (end_ == kReadLibpng && starved_))) fail(kCorrupt);
+    return std::move(out_);
+  }
+
+ private:
+  int64_t consumed() const { return int64_t(pos_) * 8 - cnt_; }
+  // the output reached the image's bytes (once), and whether the symbol that
+  // got there has more to write
+  void filled() {
+    if (fill_bit_ < 0 && out_.size() >= expect_) {
+      fill_bit_ = consumed();
+      if (out_.size() > expect_) more_bit_ = fill_bit_;
+    }
+  }
+  // a symbol after the image's bytes writes output: the reader's call stops here
+  void needs_output() {
+    if (fill_bit_ >= 0 && more_bit_ < 0) more_bit_ = consumed();
+  }
+
+  void inflate_all() {
+    if (n_ < 2) starve();
     int cmf = d_[0], flg = d_[1];
     if ((cmf & 15) != 8 || (cmf >> 4) > 7 || ((cmf << 8) | flg) % 31 != 0 || (flg & 0x20)) fail(kCorrupt);
     pos_ = 2;
@@ -95,20 +166,10 @@ class Inflater {
     cnt_ -= cnt_ % 8;
     uint32_t want = 0;
     for (int i = 0; i < 4; ++i) want = (want << 8) | uint32_t(bits(8));
-    uint32_t a = 1, b = 0;
-    for (size_t i = 0; i < out_.size();) {
-      size_t end = std::min(out_.size(), i + 5552);
-      for (; i < end; ++i) {
-        a += out_[i];
-        b += a;
-      }
-      a %= 65521;
-      b %= 65521;
-    }
-    if (((b << 16) | a) != want) fail(kCorrupt);
-    return std::move(out_);
+    if (adler32(out_.data(), out_.size()) != want) fail(kCorrupt);
   }
 
+ public:
   static void build(InflateHuff* h, const uint8_t* lengths, int n) {
     std::memset(h, 0, sizeof(*h));
     for (int s = 0; s < n; ++s) h->count[lengths[s]]++;
@@ -137,6 +198,10 @@ class Inflater {
   }
 
  private:
+  [[noreturn]] void starve() {  // the stream needs more data than there is
+    starved_ = true;
+    fail(kCorrupt);
+  }
   struct FixedTables {
     InflateHuff lit, dist;
     FixedTables() {
@@ -161,7 +226,7 @@ class Inflater {
   int bits(int need) {
     if (cnt_ < need) {
       refill();
-      if (cnt_ < need) fail(kCorrupt);
+      if (cnt_ < need) starve();
     }
     int v = int(buf_ & ((uint64_t(1) << need) - 1));
     buf_ >>= need;
@@ -192,13 +257,22 @@ class Inflater {
     cnt_ -= cnt_ % 8;
     int len = bits(16), nlen = bits(16);
     if ((len ^ 0xFFFF) != nlen) fail(kCorrupt);
+    if (len) needs_output();
     while (len && cnt_ >= 8) {
       out_.push_back(uint8_t(bits(8)));
       --len;
+      filled();
     }
-    if (size_t(len) > n_ - pos_) fail(kCorrupt);
-    out_.insert(out_.end(), d_ + pos_, d_ + pos_ + len);
-    pos_ += len;
+    // the rest straight from the input: the image's last byte, where it is
+    // among them, was read at its own offset
+    size_t before = out_.size(), take = std::min(size_t(len), n_ - pos_);
+    out_.insert(out_.end(), d_ + pos_, d_ + pos_ + take);
+    if (fill_bit_ < 0 && out_.size() >= expect_) {
+      fill_bit_ = int64_t(pos_ + (expect_ - before) - 1) * 8 + 8;
+      if (out_.size() > expect_ || take < size_t(len)) more_bit_ = fill_bit_;
+    }
+    pos_ += take;
+    if (take < size_t(len)) starve();
   }
   void codes(const InflateHuff& lit, const InflateHuff& dist) {
     static const uint16_t kLenBase[29] = {3,  4,  5,  6,  7,  8,  9,  10, 11,  13,  15,  17,  19,  23, 27,
@@ -213,7 +287,9 @@ class Inflater {
     for (;;) {
       int sym = decode(lit);
       if (sym < 256) {
+        needs_output();
         out_.push_back(uint8_t(sym));
+        filled();
       } else if (sym == 256) {
         return;
       } else {
@@ -223,9 +299,11 @@ class Inflater {
         int ds = decode(dist);
         if (ds >= 30) fail(kCorrupt);
         size_t back = kDistBase[ds] + bits(kDistExtra[ds]);
+        needs_output();
         if (back > out_.size()) fail(kCorrupt);
         size_t from = out_.size() - back;
         for (size_t k = 0; k < len; ++k) out_.push_back(out_[from + k]);
+        filled();
       }
     }
   }
@@ -269,6 +347,12 @@ class Inflater {
   uint64_t buf_ = 0;
   int cnt_ = 0;
   std::vector<uint8_t> out_;
+  size_t expect_;
+  StreamEnd end_;
+  const std::vector<size_t>* windows_;
+  int64_t fill_bit_ = -1;  // bits consumed when the output reached `expect_`
+  int64_t more_bit_ = -1;  // ... when a symbol after that first wrote output
+  bool starved_ = false;   // the stream ran past the end of the data
 };
 
 // -------------------------------------------------------------------- PNG
@@ -410,7 +494,82 @@ struct ColourSpace {
     invalid = from_chrm || !chromaticities_valid(c) || (from_srgb && !endpoints_match(c, kSrgbXy, 100));
     from_chrm = true;
   }
+  // png_handle_iCCP (its CRC is not looked at): a chunk too short to hold a
+  // profile is ignored; after sRGB (or an sRGB profile) it is one profile too
+  // many; else a keyword of 1-79 bytes, compression 0 and a profile that
+  // passes png_icc_check_length, _header and _tag_table, or the colour space
+  // is invalid. A profile libpng knows as sRGB (png_icc_set_sRGB) counts as
+  // an sRGB chunk of the profile's intent; any other changes nothing.
+  void iccp(const uint8_t* body, uint32_t len, int color);
 };
+
+// png_sRGB_checks (png.c): the ICC sRGB profiles libpng recognises, by
+// Adler-32, CRC-32, length, rendering intent and the header's MD5 field
+struct KnownSrgb {
+  uint32_t adler, crc, length, intent, md5[4];
+};
+const KnownSrgb kKnownSrgb[] = {
+    {0x0a3fd9f6, 0x3b8772b9, 3048, 0, {0x29f83dde, 0xaff255ae, 0x7842fae4, 0xca83390d}},  // black scaled
+    {0x4909e5e1, 0x427ebb21, 3052, 1, {0xc95bd637, 0xe95d8a3b, 0x0df38f99, 0xc1320389}},  // no black scaling
+    {0xfd2144a1, 0x306fd8ae, 60988, 0, {0xfc663378, 0x37e2886b, 0xfd72e983, 0x8228f1b8}},  // v4 display class
+    {0x209c35d2, 0xbbef7812, 60960, 0, {0x34562abf, 0x994ccd06, 0x6d2c5721, 0xd0d68c5d}},  // v4 preference
+    {0xa054d762, 0x5d5129ce, 3024, 1, {0, 0, 0, 0}},                                        // noBPC
+    {0xf784f3fb, 0x182ea552, 3144, 0, {0, 0, 0, 0}},  // HP-Microsoft v2 perceptual
+    {0x0398f3fc, 0xf29e526d, 3144, 1, {0, 0, 0, 0}},  // HP-Microsoft v2 media-relative
+};
+
+// png_compare_ICC_profile_with_sRGB: the first entry whose MD5 field,
+// length and intent match decides, by its Adler-32 and CRC-32
+bool known_srgb(const std::vector<uint8_t>& profile) {
+  const uint8_t* p = profile.data();
+  for (const KnownSrgb& k : kKnownSrgb) {
+    if (be32(p + 84) != k.md5[0] || be32(p + 88) != k.md5[1] || be32(p + 92) != k.md5[2] ||
+        be32(p + 96) != k.md5[3])
+      continue;
+    if (be32(p) == k.length && be32(p + 64) == k.intent)
+      return adler32(p, k.length) == k.adler && crc32(p, k.length) == k.crc;
+  }
+  return false;
+}
+
+void ColourSpace::iccp(const uint8_t* body, uint32_t len, int color) {
+  if (len < 14 || invalid) return;
+  if (from_srgb) {  // "too many profiles"
+    invalid = true;
+    return;
+  }
+  const uint32_t head = std::min<uint32_t>(81, len);  // keyword, its 0 and the method
+  if (len - head < 11) return;
+  uint32_t kl = 0;
+  while (kl < 80 && kl < head && body[kl]) ++kl;
+  invalid = true;  // until the profile passes
+  if (kl < 1 || kl > 79 || kl + 1 >= head || body[kl + 1] != 0) return;
+  const uint8_t* z = body + kl + 2;
+  const size_t zn = len - kl - 2;
+  std::vector<uint8_t> profile;
+  try {
+    std::vector<uint8_t> h = Inflater(z, zn, 132, kPrefix).run();
+    const uint8_t* p = h.data();
+    const uint32_t length = be32(p), tags = be32(p + 128), space = be32(p + 16), cls = be32(p + 12),
+                   pcs = be32(p + 20);
+    if (length < 132 || length > 8000000) return;  // PNG_USER_CHUNK_MALLOC_MAX
+    if (p[8] > 3 && (length & 3)) return;
+    if (tags > 357913930 || length < 132 + 12 * tags) return;
+    if (be32(p + 64) >= 0xffff || be32(p + 36) != 0x61637370) return;  // intent, 'acsp'
+    if (space == 0x52474220 ? !(color & 2) : space == 0x47524159 ? (color & 2) : true) return;  // 'RGB ', 'GRAY'
+    if (cls == 0x61627374 || cls == 0x6c696e6b) return;        // 'abst', 'link'
+    if (pcs != 0x58595a20 && pcs != 0x4c616220) return;        // 'XYZ ', 'Lab '
+    profile = Inflater(z, zn, length, kPrefix).run();
+    for (uint32_t t = 0; t < tags; ++t) {
+      const uint32_t start = be32(profile.data() + 132 + 12 * t + 4), size = be32(profile.data() + 132 + 12 * t + 8);
+      if (start > length || size > length - start) return;
+    }
+  } catch (const Fail&) {
+    return;  // the profile's bytes did not all come
+  }
+  invalid = false;
+  if (known_srgb(profile)) srgb(int(be32(profile.data() + 64)));
+}
 
 void build_8bit_table(uint8_t* table, int64_t gamma) {
   bool sig = gamma_significant(gamma);
@@ -524,6 +683,8 @@ std::vector<uint16_t> png_samples(const uint8_t* d, size_t n, int convention, Pn
   static const int kChannels[7] = {1, 0, 3, 1, 2, 0, 4};
   size_t pos = 8;
   std::vector<uint8_t> idat;
+  std::vector<size_t> windows;  // the reader's pieces of the IDAT data (see Inflater)
+  const size_t piece = convention == kNative ? 8192 : 65536;
   bool header = false, end = false, plte = false, have_sbit = false;
   ColourSpace cs;
   while (!end) {
@@ -539,6 +700,11 @@ std::vector<uint16_t> png_samples(const uint8_t* d, size_t n, int convention, Pn
     // "out of place"); an unknown chunk may come first
     bool ihdr = !std::memcmp(type, "IHDR", 4);
     if (convention == kNative && (header ? ihdr : !ihdr && png_known_chunk(type))) fail(kCorrupt);
+    if (convention == kNative && !std::memcmp(type, "iCCP", 4)) {  // read whatever its CRC
+      if (!plte && idat.empty()) cs.iccp(body, len, info->color);
+      pos += 12 + len;
+      continue;
+    }
     if (crc32(type, len + 4) != be32(body + len)) {
       if (convention != kNative || !(type[0] & 0x20)) fail(kCorrupt);
       pos += 12 + len;
@@ -556,13 +722,24 @@ std::vector<uint16_t> png_samples(const uint8_t* d, size_t n, int convention, Pn
       header = true;
     } else if (!std::memcmp(type, "PLTE", 4)) {
       if (len % 3 || len > 768) fail(kCorrupt);
-      info->palette.assign(body, body + len);
+      // png_handle_PLTE keeps 2^depth entries of a palette image's palette
+      const uint32_t keep = convention == kNative && info->color == 3 ? std::min(len, 3u << info->depth) : len;
+      info->palette.assign(body, body + keep);
       plte = true;
+    } else if (convention == kPil && !std::memcmp(type, "iCCP", 4)) {
+      // PIL's chunk_iCCP raises on a compression method other than 0 (the
+      // byte after the keyword's 0, or the first byte where there is none)
+      const uint8_t* nul = static_cast<const uint8_t*>(std::memchr(body, 0, len));
+      const size_t at = nul ? size_t(nul - body) + 1 : 0;
+      if (at >= len || body[at] != 0) fail(kCorrupt);
     } else if (!std::memcmp(type, "tRNS", 4) || !std::memcmp(type, "gAMA", 4) || !std::memcmp(type, "sRGB", 4) ||
                !std::memcmp(type, "cHRM", 4) || !std::memcmp(type, "sBIT", 4)) {
       if (header) png_ancillary_chunk(type, body, len, plte, !idat.empty(), info, &cs, &have_sbit);
     } else if (!std::memcmp(type, "IDAT", 4)) {
+      const size_t start = idat.size();
       idat.insert(idat.end(), body, body + len);
+      for (size_t e = start + piece; e < idat.size(); e += piece) windows.push_back(e);
+      if (len) windows.push_back(idat.size());
     } else if (!std::memcmp(type, "IEND", 4)) {
       end = true;
     } else if (!(type[0] & 0x20)) {
@@ -596,8 +773,8 @@ std::vector<uint16_t> png_samples(const uint8_t* d, size_t n, int convention, Pn
     if (w <= uint32_t(passes[p][0]) || h <= uint32_t(passes[p][1])) pw = ph = 0;
     if (pw && ph) expect += ph * (1 + (pw * pixel_bits + 7) / 8);
   }
-  std::vector<uint8_t> raw = Inflater(idat.data(), idat.size(), expect).run();
-  if (raw.size() < expect) fail(kCorrupt);
+  std::vector<uint8_t> raw =
+      Inflater(idat.data(), idat.size(), expect, convention == kNative ? kReadLibpng : kReadPil, &windows).run();
   std::vector<uint16_t> samples(size_t(w) * h * ch);
   size_t at = 0;
   for (int p = 0; p < npass; ++p) {

@@ -81,8 +81,10 @@ __device__ __forceinline__ void bulk_reduce_add(float* dst, uint32_t src, uint32
                ::"l"(dst), "r"(src), "r"(bytes) : "memory");
 }
 __device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+// wait until at most N committed bulk groups of this thread still read shared memory
+template <int N = 0>
 __device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
 }
 __device__ __forceinline__ void bulk_wait() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
 // generic-proxy shared-memory writes made visible to the async proxy (wgmma, TMA)

@@ -16,6 +16,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from fairdiff_torch.device import resolve_device
+
 
 def face_embeddings(
     backbone_fn: Callable[[torch.Tensor], torch.Tensor],
@@ -39,9 +41,11 @@ class FaceFeatsDB(NamedTuple):
     extra: dict  # e.g. {"race": [M]}
 
     @classmethod
-    def from_pickle(cls, path: str | Path, device: torch.device | str = "cpu") -> "FaceFeatsDB":
+    def from_pickle(cls, path: str | Path, device: torch.device | str | None = None) -> "FaceFeatsDB":
         """A reference `face_feats.pkl`: (feats, genders, logits) for exp-1 or
-        (feats, genders, g_logits, races, r_logits) for exp-3 and later."""
+        (feats, genders, g_logits, races, r_logits) for exp-3 and later, on
+        CUDA unless `device="cpu"` is asked for (`resolve_device`)."""
+        device = resolve_device(device)
         with open(path, "rb") as f:
             data = pickle.load(f)
         feats = torch.tensor(np.asarray(data[0], np.float32), device=device)

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from fairdiff_torch.device import resolve_device
 from fairdiff_torch.models.face_detector import DetectorConfig, decode_detections, select_largest_face
 from fairdiff_torch.utils.resize import resize
 
@@ -667,15 +668,17 @@ def load_scrfd(
     strides: tuple[int, ...] = (8, 16, 32),
     num_anchors: int = 2,
     score_threshold: float = 0.5,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ):
-    """-> (detect(params, images), params), the weights on `device` in the
-    graph's stored dtype (fp32 for det_10g: the reference runs it in fp32).
+    """-> (detect(params, images), params), the weights on `device` (CUDA
+    unless "cpu" is asked for: `resolve_device`) in the graph's stored dtype
+    (fp32 for det_10g: the reference runs it in fp32).
 
     images: [N, H, W, 3] RGB in [-1, 1]. SCRFD's preprocessing is
     (pixel - 127.5) / 128 on BGR (insightface `detect`): the same as
     flipping the channels and scaling by 127.5 / 128.
     """
+    device = resolve_device(device)
     graph = parse_onnx(str(path))
     fn, params = build_onnx_fn(graph)
     params = {k: v.to(device) for k, v in params.items()}

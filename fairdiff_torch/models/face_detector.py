@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fairdiff_torch.device import resolve_device
 from fairdiff_torch.guidance.faces import FaceDetections
 from fairdiff_torch.io.adapters_io import load_adapters
 from fairdiff_torch.io.from_jax import load_jax_params
@@ -177,8 +178,10 @@ def make_detect_fn(net: FaceDetectorNet, config: DetectorConfig) -> Callable[[to
 
 
 def load_detector_npz(path: str | Path, dtype: torch.dtype = torch.float32,
-                      device: torch.device | str = "cpu") -> FaceDetectorNet:
+                      device: torch.device | str | None = None) -> FaceDetectorNet:
     """`FaceDetectorNet(DetectorConfig())` with the weights of a detector
-    `.npz` (`|`-joined JAX tree paths, e.g. assets/detector.npz), frozen."""
+    `.npz` (`|`-joined JAX tree paths, e.g. assets/detector.npz), frozen, on
+    CUDA unless `device="cpu"` is asked for (`resolve_device`)."""
+    device = resolve_device(device)
     net = load_jax_params(FaceDetectorNet(DetectorConfig()), load_adapters(path))
     return net.to(device, dtype).eval().requires_grad_(False)

@@ -55,17 +55,14 @@ launches_dq = 0
 launches_dkv = 0
 launches_merged = 0
 
-# the kernels' largest head dim (SD-1.5's 1280-channel transformers: 160);
-# K6 takes up to MERGED_MAX_D, and the merged route computes larger head dims
-# with K3 then K2 (csrc/flash_attention.cu, above `namespace kv`)
+# the kernels' largest head dim (SD-1.5's 1280-channel transformers: 160)
 MAX_D = 160
-MERGED_MAX_D = 128
 
 # the backward routes: K2 + K3, K6, or autograd through the plain attention
 FLASH_BWD = ("split", "merged", "recompute")
 # K6 sums dq in an fp32 buffer [B, H, S_pad, D], S_pad a multiple of its
-# kernel's 64-row q tile, so that every tile's bulk add is one whole
-# contiguous span
+# kernel's q tile (64 rows, 32 above D = 128), so that every tile's bulk add
+# is one whole contiguous span
 DQ_ROWS = 64
 
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
@@ -285,13 +282,10 @@ def flash_attention_bwd_merged(
     `flash_attention_bwd` (plain version `flash_attention_bwd_plain` on the
     CPU). dq is summed over key blocks in an fp32 buffer and rounded once to
     q's type, as the JAX default FAIRDIFF_MERGED_DQ32=1; the kernel adds each
-    key block's tile with a bulk reduce-add, in no fixed order. Head dims
-    above MERGED_MAX_D take K3 then K2 (`flash_attention_bwd`) on CUDA."""
+    key block's tile with a bulk reduce-add, in no fixed order."""
     global launches_merged
     if o.shape != q.shape:
         raise ValueError(f"want o {tuple(q.shape)}, got {tuple(o.shape)}")
-    if q.is_cuda and q.shape[-1] > MERGED_MAX_D:
-        return flash_attention_bwd(q, k, v, o, lse, do)
     delta = attention_delta(o, do)
     _check_bwd(q, k, v, do, lse, delta)
     if q.device.type == "cpu":

@@ -31,6 +31,7 @@ from typing import Callable
 import torch
 from torch import nn
 
+from fairdiff_torch.device import resolve_device
 from fairdiff_torch.guidance.attributes import (
     AttributeSlices,
     celeba_slices,
@@ -75,13 +76,15 @@ def frozen(module: nn.Module, dtype: torch.dtype, device: torch.device | str) ->
 
 def load_detector(scrfd_onnx: str | Path | None, detector_npz: str | Path | None, *,
                   dtype: torch.dtype = torch.bfloat16,
-                  device: torch.device | str = "cpu",
+                  device: torch.device | str | None = None,
                   scrfd_input_size: tuple[int, int] = (640, 640)) -> Callable[[torch.Tensor], FaceDetections]:
     """detect(images) from the detector weights: SCRFD from its `.onnx` as
     the primary, kept in its stored fp32 whatever `dtype` is (the reference
     runs it in fp32, and its box-regression heads are precision-sensitive),
     and the first-party FaceDetectorNet from its `.npz`, in `dtype`, filling
-    the lanes SCRFD misses. With one path, that detector runs alone."""
+    the lanes SCRFD misses. With one path, that detector runs alone. On CUDA
+    unless `device="cpu"` is asked for (`resolve_device`)."""
+    device = resolve_device(device)
     onnx_fn = net_fn = None
     if scrfd_onnx:
         detect, params = load_scrfd(str(scrfd_onnx), input_size=scrfd_input_size, device=device)
@@ -135,10 +138,11 @@ def dino_feature_fn(model: nn.Module) -> Callable[[torch.Tensor], torch.Tensor]:
 
 def load_guidance_stack(directory: str | Path, attributes: tuple[str, ...], *,
                         dtype: torch.dtype = torch.bfloat16,
-                        device: torch.device | str = "cpu") -> GuidanceStack:
+                        device: torch.device | str | None = None) -> GuidanceStack:
     """The stack of a guidance directory, its frozen weights in `dtype` (bf16
     by default, the reference's half-precision inference cast; SCRFD stays
-    fp32)."""
+    fp32), on CUDA unless `device="cpu"` is asked for (`resolve_device`)."""
+    device = resolve_device(device)
     d = Path(directory)
     for name in FEATURE_MODELS:  # the JAX package's orbax tree raises here, before anything loads
         if (d / name).is_dir():

@@ -14,6 +14,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from fairdiff_torch.device import resolve_device
 from fairdiff_torch.guidance import geometry as geo
 from fairdiff_torch.guidance.attributes import AttributeSlices
 from fairdiff_torch.guidance.face_feats import FaceFeatsDB
@@ -65,12 +66,14 @@ def feat_fn(images: torch.Tensor) -> torch.Tensor:
 def synthetic_stack(
     attributes: tuple[str, ...] = ("gender",),
     db_feats: Optional[np.ndarray] = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> GuidanceStack:
     """The synthetic stack; `db_feats` [8, 3] are the face-database rows
     (normalised here). The JAX package draws them with jax.random; by
     default the port draws its own from a seeded generator, and tests pass
-    the JAX rows."""
+    the JAX rows. `device`: CUDA unless "cpu" is asked for
+    (`resolve_device`)."""
+    device = resolve_device(device)
     if db_feats is None:
         db_feats = torch.randn(8, 3, generator=torch.Generator().manual_seed(7)).numpy()
     feats = torch.tensor(np.asarray(db_feats, np.float32), device=device)

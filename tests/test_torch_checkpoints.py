@@ -94,7 +94,7 @@ def test_adamw_moments_and_updates_survive(tmp_path):
 
 def _trainer(**overrides) -> DebiasTrainer:
     sd = StableDiffusion(SDConfig.tiny(), device="cpu").init_random(0)
-    return DebiasTrainer(sd, synthetic_stack(("gender",)), DebiasConfig(**dict(TINY, **overrides)))
+    return DebiasTrainer(sd, synthetic_stack(("gender",), device="cpu"), DebiasConfig(**dict(TINY, **overrides)))
 
 
 def _recording(trainer: DebiasTrainer) -> list[int]:

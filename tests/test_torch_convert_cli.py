@@ -155,7 +155,7 @@ def test_convert_guidance_then_load_guidance_stack_matches_jax(tmp_path, tiny_to
     assert sorted(p.name for p in tdir.iterdir()) == [
         "classifier.npz", "clip_vision.pt", "det_10g.onnx", "detector.npz", "dinov2.pt", "face_embedder.npz",
         "face_embedder_variant.txt", "face_feats.pkl"]
-    stack = tzoo.load_guidance_stack(tdir, ("gender",), dtype=torch.float32)
+    stack = tzoo.load_guidance_stack(tdir, ("gender",), dtype=torch.float32, device="cpu")
     jstack = jzoo.load_guidance_stack(jdir, ("gender",), dtype=jnp.float32)
     assert stack.clip_feat_fn and stack.dino_feat_fn and stack.face_embed_fn
     assert stack.detect_fn.__qualname__.startswith("compose_detectors")

@@ -211,7 +211,7 @@ def test_full_config_weights_load_in_both_packages(tmp_path):
     assert set(metrics) >= {"recall", "det_rate", "fp_rate"} and all(0 <= metrics[k] <= 1 for k in metrics
                                                                     if k != "n_scenes" and k != "lm_err_112px")
     assert np.isfinite(history["loss"]).all()
-    net = load_detector_npz(out)  # the port's reader of assets/detector.npz's layout
+    net = load_detector_npz(out, device="cpu")  # the port's reader of assets/detector.npz's layout
     raw = JaxFaceDetectorNet(JaxDetectorConfig()).apply({"params": jax_load_adapters(out)}, jnp.zeros((1, 64, 64, 3)))
     with torch.no_grad():
         got = net(torch.zeros(1, 64, 64, 3))

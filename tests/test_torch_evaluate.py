@@ -69,7 +69,7 @@ def _trainer(**overrides) -> DebiasTrainer:
     sd = StableDiffusion(SDConfig.tiny(), device="cpu").init_random(0)
     cfg = DebiasConfig(lora_rank=2, train_images_per_prompt=4, train_micro_batch=2, steps_low=2, steps_high=2,
                        val_images_per_prompt=2, eval_denoising_steps=2, max_train_steps=2, **overrides)
-    return DebiasTrainer(sd, synthetic_stack(("gender",)), cfg)
+    return DebiasTrainer(sd, synthetic_stack(("gender",), device="cpu"), cfg)
 
 
 def test_evaluate_artifacts_and_per_prompt_metrics(tmp_path):

@@ -251,6 +251,23 @@ def test_merged_plain_matches_jax_merged_kernel(monkeypatch):
         np.testing.assert_allclose(g.numpy(), w, atol=2e-5, err_msg=name)
 
 
+def test_merged_plain_matches_jax_merged_kernel_at_d144(monkeypatch):
+    """The merged route has no head-dim limit of its own (K6 takes every D up
+    to MAX_D): `flash_attention_bwd_merged` on CPU tensors at D = 144, ragged
+    S and T, against the JAX `_flash_backward_merged`."""
+    assert not hasattr(tfa, "MERGED_MAX_D") and tfa.MAX_D == 160
+    monkeypatch.setattr(pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True))
+    q, k, v, do = _bwd_inputs(200, 129, 144, seed=19)
+    jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))
+    jo, jlse = jfa._flash_forward(jq, jk, jv, with_lse=True)
+    want = [np.asarray(x) for x in jfa._flash_backward_merged(jq, jk, jv, jo, jlse, jdo)]
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    o, lse = tfa.flash_attention_lse(tq, tk, tv)
+    got = tfa.flash_attention_bwd_merged(tq, tk, tv, o, lse, tdo)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(g.numpy(), w, atol=2e-5, err_msg=name)
+
+
 # -- the recompute route ----------------------------------------------------------
 # The JAX `flash_attention` with FAIRDIFF_FLASH_BWD=recompute keeps no lse and
 # differentiates `_xla_attention` in its backward; the port's

@@ -353,7 +353,7 @@ def test_synthetic_stack_matches_jax():
     reference frame): attribute logits, face features and CLIP/DINO
     features, values and image gradients of a weighted sum of them."""
     jstack = jsyn.synthetic_stack(("gender",))
-    tstack = tsyn.synthetic_stack(("gender",), db_feats=np.asarray(jstack.face_db.feats))
+    tstack = tsyn.synthetic_stack(("gender",), db_feats=np.asarray(jstack.face_db.feats), device="cpu")
     np.testing.assert_allclose(tstack.face_db.feats.numpy(), np.asarray(jstack.face_db.feats), **TOL)
     images = _images(3, 128, seed=11)
 

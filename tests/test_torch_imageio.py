@@ -16,6 +16,7 @@ them, written by `make_fixtures` below (`python tests/test_torch_imageio.py`
 rewrites it).
 """
 
+import base64
 import io
 import struct
 import subprocess
@@ -91,7 +92,7 @@ JPEG_440_FIXTURES = {"440_q90": (45, 37, False, 90), "440_progressive_q85": (17,
 # name -> (colour type, bit depth, Adam7, tRNS, chunks as `png_with_chunks`
 # takes them), at PNG_FIXTURE_HW: PNGs whose "native" pixels libpng (the
 # native loader) decides through sBIT, gamma significance, sRGB/gAMA
-# precedence and ancillary CRCs
+# precedence, ancillary CRCs and iCCP
 PNG_FIXTURES = {
     "f1_grey16_srgb": (0, 16, 0, False, ["sRGB"]),
     "f1_rgb16_adam7_gama43200": (2, 16, 1, False, ["gAMA 43200"]),
@@ -102,8 +103,25 @@ PNG_FIXTURES = {
     "f4_rgb16_srgb_gama100000": (2, 16, 0, False, ["sRGB", "gAMA 100000"]),
     "f4_grey8_gama100000_gama45455": (0, 8, 0, False, ["gAMA 100000", "gAMA 45455"]),
     "f5_rgb8_gama43200": (2, 8, 0, False, ["gAMA 43200"]),
+    "f6_rgb16_iccp_srgb": (2, 16, 0, False, ["iCCP srgb"]),
+    "f6_rgb8_iccp_garbage_gama100000": (2, 8, 0, False, ["iCCP garbage", "gAMA 100000"]),
 }
 PNG_FIXTURE_HW = (16, 16)
+
+
+def _long_palette_png() -> bytes:
+    """2-bit palette of 6 entries with a tRNS of 5, which libpng ignores."""
+    rng = np.random.default_rng(17)
+    return encode_png(rng.integers(0, 4, (*PNG_FIXTURE_HW, 1)), 3, 2, 0, rng.integers(0, 256, (6, 3)),
+                      bytes([0, 255, 90, 30, 200]), seed=2)
+
+
+# name -> the file: PNGs that the chunk tokens cannot write (a palette longer
+# than its bit depth allows; an Adler-32 that libpng never reaches)
+PNG_FILE_FIXTURES = {
+    "f7_palette_d2_plte6_trns5": _long_palette_png,
+    "f8_rgb8_adler_bad_own_idat": lambda: _stream_case("adler_bad_own_idat")[0],
+}
 
 
 def make_fixtures() -> dict[str, np.ndarray]:
@@ -119,13 +137,15 @@ def make_fixtures() -> dict[str, np.ndarray]:
         out[f"{name}.pixels"] = pil_rgb(data)
     out["encode.source"] = smooth(*ENCODE_HW, seed=99)
     out["encode.q95"] = np.frombuffer(pil_jpeg(out["encode.source"], quality=95), np.uint8)
+    files = {name: png_with_chunks(color, depth, interlace, trns, tokens, *PNG_FIXTURE_HW)
+             for name, (color, depth, interlace, trns, tokens) in PNG_FIXTURES.items()}
+    files.update({name: make() for name, make in PNG_FILE_FIXTURES.items()})
     with tempfile.TemporaryDirectory() as tmp:
-        for name, (color, depth, interlace, trns, tokens) in PNG_FIXTURES.items():
-            data = png_with_chunks(color, depth, interlace, trns, tokens, *PNG_FIXTURE_HW)
+        for name, data in files.items():
             path = Path(tmp) / f"{name}.png"
             path.write_bytes(data)
             out[f"{name}.png"] = np.frombuffer(data, np.uint8)
-            out[f"{name}.native"] = native_u8(path, PNG_FIXTURE_HW)
+            out[f"{name}.native"] = native_u8(path, struct.unpack(">II", data[16:24])[::-1])
     return out
 
 
@@ -137,7 +157,7 @@ def test_fixtures_are_the_seeded_scripts_and_decode_exactly():
         np.testing.assert_array_equal(stored[k], fresh[k], err_msg=k)
     for name in [*FIXTURE_CASES, *JPEG_440_FIXTURES]:
         np.testing.assert_array_equal(imageio.decode(stored[f"{name}.jpg"].tobytes()), stored[f"{name}.pixels"])
-    for name in PNG_FIXTURES:
+    for name in [*PNG_FIXTURES, *PNG_FILE_FIXTURES]:
         np.testing.assert_array_equal(imageio.decode(stored[f"{name}.png"].tobytes(), "native"),
                                       stored[f"{name}.native"], err_msg=name)
     assert imageio.encode_jpeg(stored["encode.source"], 95) == stored["encode.q95"].tobytes()
@@ -294,6 +314,101 @@ def test_pil_written_pngs_both_conventions(tmp_path, mode):
 
 # ------------------------------------------------- PNG chunks under "native"
 
+# The HP-Microsoft sRGB v2 profile (3144 bytes, media-relative intent), as
+# files carry it, zlib-compressed and in base64: one of the profiles libpng
+# 1.6 knows as sRGB by its checksums (png.c png_sRGB_checks)
+SRGB_ICC = zlib.decompress(base64.b64decode(
+    "eNqdlndUVNcWh8+9d3qhzTACUobeu8AA0nuTXkVhmBlgKAMOMzSxIaICEUVEmiJIUMSA0VAkVkSxEBRUsAckCCgxGEVULG9G"
+    "1ouurLz38vL746xv7bP3ufvsvc9aFwCSpy+XlwZLAZDKE/CDPJzpEZFRdOwAgAEeYIApAExWRrpfsHsIEMnLzYWeIXICXwQB"
+    "8HpYvAJw09AzgE4H/5+kWel8geiYABGbszkZLBEXiDglS5Auts+KmBqXLGYYJWa+KEERy4k5YZENPvsssqOY2ak8tojFOaez"
+    "U9li7hXxtkwhR8SIr4gLM7mcLBHfErFGijCVK+I34thUDjMDABRJbBdwWIkiNhExiR8S5CLi5QDgSAlfcdxXLOBkC8SXcklL"
+    "z+FzExIFdB2WLt3U2ppB9+RkpXAEAsMAJiuZyWfTXdJS05m8HAAW7/xZMuLa0kVFtjS1trQ0NDMy/apQ/3Xzb0rc20V6Gfi5"
+    "ZxCt/4vtr/zSGgBgzIlqs/OLLa4KgM4tAMjd+2LTOACApKhvHde/ug9NPC+JAkG6jbFxVlaWEZfDMhIX9A/9T4e/oa++ZyQ+"
+    "7o/y0F058UxhioAurhsrLSVNyKdnpDNZHLrhn4f4Hwf+dR4GQZx4Dp/DE0WEiaaMy0sQtZvH5gq4aTw6l/efmvgPw/6kxbkW"
+    "idL4EVBjjIDUdSpAfu0HKAoRINH7xV3/o2+++DAgfnnhKpOLc//vN/1nwaXiJYOb8DnOJSiEzhLyMxf3xM8SoAEBSAIqkAfK"
+    "QB3oAENgBqyALXAEbsAb+IMQEAlWAxZIBKmAD7JAHtgECkEx2An2gGpQBxpBM2gFx0EnOAXOg0vgGrgBboP7YBRMgGdgFrwG"
+    "CxAEYSEyRIHkIRVIE9KHzCAGZA+5Qb5QEBQJxUIJEA8SQnnQZqgYKoOqoXqoGfoeOgmdh65Ag9BdaAyahn6H3sEITIKpsBKs"
+    "BRvDDNgJ9oFD4FVwArwGzoUL4B1wJdwAH4U74PPwNfg2PAo/g+cQgBARGqKKGCIMxAXxR6KQeISPrEeKkAqkAWlFupE+5CYy"
+    "iswgb1EYFAVFRxmibFGeqFAUC7UGtR5VgqpGHUZ1oHpRN1FjqFnURzQZrYjWR9ugvdAR6AR0FroQXYFuQrejL6JvoyfQrzEY"
+    "DA2jjbHCeGIiMUmYtZgSzD5MG+YcZhAzjpnDYrHyWH2sHdYfy8QKsIXYKuxR7FnsEHYC+wZHxKngzHDuuCgcD5ePq8AdwZ3B"
+    "DeEmcQt4Kbwm3gbvj2fjc/Cl+EZ8N/46fgK/QJAmaBPsCCGEJMImQiWhlXCR8IDwkkgkqhGtiYFELnEjsZJ4jHiZOEZ8S5Ih"
+    "6ZFcSNEkIWkH6RDpHOku6SWZTNYiO5KjyALyDnIz+QL5EfmNBEXCSMJLgi2xQaJGokNiSOK5JF5SU9JJcrVkrmSF5AnJ65Iz"
+    "UngpLSkXKabUeqkaqZNSI1Jz0hRpU2l/6VTpEukj0lekp2SwMloybjJsmQKZgzIXZMYpCEWd4kJhUTZTGikXKRNUDFWb6kVN"
+    "ohZTv6MOUGdlZWSXyYbJZsvWyJ6WHaUhNC2aFy2FVko7ThumvVuitMRpCWfJ9iWtS4aWzMstlXOU48gVybXJ3ZZ7J0+Xd5NP"
+    "lt8l3yn/UAGloKcQqJClsF/hosLMUupS26WspUVLjy+9pwgr6ikGKa5VPKjYrzinpKzkoZSuVKV0QWlGmabsqJykXK58Rnla"
+    "haJir8JVKVc5q/KULkt3oqfQK+m99FlVRVVPVaFqveqA6oKatlqoWr5am9pDdYI6Qz1evVy9R31WQ0XDTyNPo0XjniZek6GZ"
+    "qLlXs09zXktbK1xrq1an1pS2nLaXdq52i/YDHbKOg84anQadW7oYXYZusu4+3Rt6sJ6FXqJejd51fVjfUp+rv09/0ABtYG3A"
+    "M2gwGDEkGToZZhq2GI4Z0Yx8jfKNOo2eG2sYRxnvMu4z/mhiYZJi0mhy31TG1Ns037Tb9HczPTOWWY3ZLXOyubv5BvMu8xfL"
+    "9Jdxlu1fdseCYuFnsdWix+KDpZUl37LVctpKwyrWqtZqhEFlBDBKGJet0dbO1husT1m/tbG0Edgct/nN1tA22faI7dRy7eWc"
+    "5Y3Lx+3U7Jh29Xaj9nT7WPsD9qMOqg5MhwaHx47qjmzHJsdJJ12nJKejTs+dTZz5zu3O8y42Lutczrkirh6uRa4DbjJuoW7V"
+    "bo/c1dwT3FvcZz0sPNZ6nPNEe/p47vIc8VLyYnk1e816W3mv8+71IfkE+1T7PPbV8+X7dvvBft5+u/0erNBcwVvR6Q/8vfx3"
+    "+z8M0A5YE/BjICYwILAm8EmQaVBeUF8wJTgm+Ejw6xDnkNKQ+6E6ocLQnjDJsOiw5rD5cNfwsvDRCOOIdRHXIhUiuZFdUdio"
+    "sKimqLmVbiv3rJyItogujB5epb0qe9WV1QqrU1afjpGMYcaciEXHhsceiX3P9Gc2MOfivOJq42ZZLqy9rGdsR3Y5e5pjxynj"
+    "TMbbxZfFTyXYJexOmE50SKxInOG6cKu5L5I8k+qS5pP9kw8lf0oJT2lLxaXGpp7kyfCSeb1pymnZaYPp+umF6aNrbNbsWTPL"
+    "9+E3ZUAZqzK6BFTRz1S/UEe4RTiWaZ9Zk/kmKyzrRLZ0Ni+7P0cvZ3vOZK577rdrUWtZa3vyVPM25Y2tc1pXvx5aH7e+Z4P6"
+    "hoINExs9Nh7eRNiUvOmnfJP8svxXm8M3dxcoFWwsGN/isaWlUKKQXziy1XZr3TbUNu62ge3m26u2fyxiF10tNimuKH5fwiq5"
+    "+o3pN5XffNoRv2Og1LJ0/07MTt7O4V0Ouw6XSZfllo3v9tvdUU4vLyp/tSdmz5WKZRV1ewl7hXtHK30ru6o0qnZWva9OrL5d"
+    "41zTVqtYu712fh9739B+x/2tdUp1xXXvDnAP3Kn3qO9o0GqoOIg5mHnwSWNYY9+3jG+bmxSaips+HOIdGj0cdLi32aq5+Yji"
+    "kdIWuEXYMn00+uiN71y/62o1bK1vo7UVHwPHhMeefh/7/fBxn+M9JxgnWn/Q/KG2ndJe1AF15HTMdiZ2jnZFdg2e9D7Z023b"
+    "3f6j0Y+HTqmeqjkte7r0DOFMwZlPZ3PPzp1LPzdzPuH8eE9Mz/0LERdu9Qb2Dlz0uXj5kvulC31OfWcv210+dcXmysmrjKud"
+    "1yyvdfRb9Lf/ZPFT+4DlQMd1q+tdN6xvdA8uHzwz5DB0/qbrzUu3vG5du73i9uBw6PCdkeiR0TvsO1N3U+6+uJd5b+H+xgfo"
+    "B0UPpR5WPFJ81PCz7s9to5ajp8dcx/ofBz++P84af/ZLxi/vJwqekJ9UTKpMNk+ZTZ2adp++8XTl04ln6c8WZgp/lf619rnO"
+    "8x9+c/ytfzZiduIF/8Wn30teyr889GrZq565gLlHr1NfL8wXvZF/c/gt423fu/B3kwtZ77HvKz/ofuj+6PPxwafUT5/+BQOY"
+    "8/w="
+))
+
+
+def _icc_profile(space=b"RGB ", cls=b"mntr", pcs=b"XYZ ", length=512, tags=(), intent=0, sig=b"acsp") -> bytes:
+    """A profile of a 132-byte header and a tag table (id, start, size),
+    padded to `length` with seeded noise (so that its chunk is longer than
+    the 92 bytes below which libpng ignores it): what libpng's checks read,
+    and nothing it knows as sRGB."""
+    head = bytearray(128)
+    head[0:4] = struct.pack(">I", length)
+    head[8] = 2
+    head[12:16], head[16:20], head[20:24], head[36:40] = cls, space, pcs, sig
+    head[64:68] = struct.pack(">I", intent)
+    table = struct.pack(">I", len(tags)) + b"".join(struct.pack(">4sII", *t) for t in tags)
+    noise = np.random.default_rng(length).integers(0, 256, length - 132 - 12 * len(tags)).astype(np.uint8)
+    return bytes(head) + table + noise.tobytes()
+
+
+def _edited(profile: bytes, at: int, value: bytes) -> bytes:
+    return profile[:at] + value + profile[at + len(value):]
+
+
+def _iccp_payload(kind: str) -> bytes:
+    """An iCCP chunk's data: keyword, 0, compression method, zlib stream."""
+    name, method, srgb = b"ICC profile", 0, zlib.compress(SRGB_ICC)
+    stream = {
+        "srgb": srgb,
+        "srgb0": zlib.compress(_edited(SRGB_ICC, 64, b"\0\0\0\0")),  # the perceptual sibling
+        "srgb-edited": zlib.compress(_edited(SRGB_ICC, 500, bytes([SRGB_ICC[500] ^ 1]))),
+        "plain": zlib.compress(_icc_profile()),
+        "plain-grey": zlib.compress(_icc_profile(space=b"GRAY")),
+        "srgb-more": zlib.compress(SRGB_ICC + bytes(400)),  # the stream goes on past the profile
+        "srgb-adler": srgb[:-4] + bytes(b ^ 0x55 for b in srgb[-4:]),
+        "srgb-tail": srgb + b"trailing bytes",
+        "garbage": b"\x78\x9c" + bytes(np.random.default_rng(7).integers(0, 256, 300).astype(np.uint8)),
+        "cut": srgb[:-600],
+        "length-100": zlib.compress(_edited(_icc_profile(), 0, struct.pack(">I", 100))),
+        "signature": zlib.compress(_icc_profile(sig=b"bcsp")),
+        "tag-outside": zlib.compress(_icc_profile(tags=[(b"desc", 500, 20)])),
+        "abstract": zlib.compress(_icc_profile(cls=b"abst")),
+        "pcs-cmyk": zlib.compress(_icc_profile(pcs=b"CMYK")),
+        "intent-ffff": zlib.compress(_icc_profile(intent=0xFFFF)),
+    }.get(kind, srgb)
+    if kind == "no-name":
+        name = b""
+    elif kind == "name-80":
+        name = b"k" * 80
+    elif kind == "method-1":
+        method = 1
+    elif kind == "short":  # shorter than the 92 bytes libpng reads a profile from
+        return b"icc\0\0" + zlib.compress(b"a profile")
+    return name + b"\0" + bytes([method]) + stream
+
+
 CHRM = {"srgb": [31270, 32900, 64000, 33000, 30000, 60000, 15000, 6000],
         "adobe": [31270, 32900, 64000, 33000, 21000, 71000, 15000, 6000], "zero": [0] * 8}
 
@@ -302,7 +417,8 @@ def _token_chunk(token: str, channels: int) -> bytes:
     """One chunk from a token: "gAMA 45455", "sRGB", "sRGB intent 5",
     "sRGB len 2", "sBIT 9" (one value a channel), "sBIT 4,9,6", "cHRM adobe",
     "tEXt", "PLTE" (a suggested palette), "tRNS <hex>", "tRNS x<n>" (n zero
-    bytes); "!crc" at its end spoils the CRC."""
+    bytes), "iCCP <kind>" (`_iccp_payload`); "!crc" at its end spoils the
+    CRC."""
     token, bad = (token[:-4].strip(), True) if token.endswith("!crc") else (token, False)
     kind, _, arg = token.partition(" ")
     if kind == "gAMA":
@@ -317,6 +433,8 @@ def _token_chunk(token: str, channels: int) -> bytes:
         data = b"Comment\x00a chunk spliced in"
     elif kind == "PLTE":
         data = bytes(range(48))
+    elif kind == "iCCP":
+        data = _iccp_payload(arg)
     else:  # raw hex, or "x<n>": n zero bytes
         data = bytes(int(arg[1:])) if arg.startswith("x") else bytes.fromhex(arg)
     chunk = _chunk(kind.encode(), data)
@@ -386,6 +504,23 @@ CHUNK_CASES = (
     + [("trns", c, 8, 0, t, g) for c, t, g in (
         (2, False, ["@idat tRNS 0001"]), (0, False, ["@idat tRNS 000100020003"]), (0, True, ["-tRNS"]),
         (2, True, ["@idat tRNS 000100020003"]), (3, False, ["tRNS 000a14"]), (3, False, ["@idat tRNS x300"]))]
+    # iCCP: a profile libpng knows as sRGB counts as sRGB (its CRC and what follows its bytes in the
+    # stream not looked at); any other valid one changes nothing, so a later sRGB still counts
+    + [("iccp", c, d, 0, False, g) for c, d in ((2, 16), (6, 16)) for g in (
+        ["iCCP srgb"], ["iCCP srgb0"], ["iCCP srgb !crc"], ["iCCP srgb-more"], ["iCCP srgb-adler"],
+        ["iCCP srgb-tail"], ["iCCP srgb-edited", "sRGB"], ["iCCP plain", "sRGB"], ["iCCP plain", "iCCP srgb"],
+        ["gAMA 100000", "iCCP srgb"], ["iCCP srgb", "gAMA 46000"], ["iCCP srgb-edited"])]
+    + [("iccp", 2, 8, 0, False, ["iCCP srgb", "gAMA 100000"]), ("iccp", 2, 8, 0, False, ["iCCP plain", "gAMA 100000"]),
+       ("iccp", 0, 16, 0, False, ["iCCP plain-grey", "sRGB"]), ("iccp", 0, 16, 0, False, ["iCCP srgb"])]
+    # a rejected profile, or one profile too many, invalidates the colour space: no later gAMA or
+    # sRGB counts; one too short to hold a profile (or out of place) is ignored
+    + [("iccp", c, d, 0, False, [f"iCCP {k}", g]) for c, d, g in ((2, 8, "gAMA 100000"), (2, 16, "sRGB"))
+       for k in ("garbage", "no-name", "name-80", "method-1", "cut", "length-100", "signature", "tag-outside",
+                 "abstract", "pcs-cmyk", "intent-ffff", "plain-grey", "short")]
+    + [("iccp", 0, 16, 0, False, ["iCCP plain", "sRGB"]), ("iccp", 0, 8, 0, False, ["iCCP srgb", "gAMA 100000"]),
+       ("iccp", 6, 16, 0, False, ["sRGB", "iCCP plain", "gAMA 46000"]),
+       ("iccp", 6, 8, 0, False, ["iCCP srgb", "iCCP plain", "gAMA 46000"]),
+       ("iccp", 2, 8, 0, False, ["PLTE", "iCCP garbage"]), ("iccp", 2, 16, 0, False, ["@end iCCP srgb"])]
 )
 CHUNK_IDS = [f"{g}-c{c}d{d}i{i}{'t' if t else ''}-{'+'.join(k) or 'none'}".replace(" ", "_")
              for g, c, d, i, t, k in CHUNK_CASES]
@@ -393,7 +528,7 @@ CHUNK_IDS = [f"{g}-c{c}d{d}i{i}{'t' if t else ''}-{'+'.join(k) or 'none'}".repla
 
 @pytest.mark.parametrize("group,color,depth,interlace,trns,tokens", CHUNK_CASES, ids=CHUNK_IDS)
 def test_png_chunks_native_equal_the_native_loader(tmp_path, group, color, depth, interlace, trns, tokens):
-    """libpng's reading of gAMA, sRGB, cHRM, sBIT and tRNS (pngrutil.c,
+    """libpng's reading of gAMA, sRGB, cHRM, sBIT, tRNS and iCCP (pngrutil.c,
     png.c's colour space, png_build_gamma_table's shift): the "native"
     decode equal to the native loader in u8, the batch loader in fp32, and
     the "pil" decode still equal to PIL, which ignores these chunks (and
@@ -409,6 +544,11 @@ def test_png_chunks_native_equal_the_native_loader(tmp_path, group, color, depth
     elif tokens == ["@idat tRNS 0001"] and color == 2:  # PIL cannot open an RGB file with a 2-byte tRNS
         with pytest.raises(OSError):
             Image.open(path)
+    elif "iCCP method-1" in tokens:  # PIL raises on a compression method other than 0, and so does "pil"
+        with pytest.raises(OSError):
+            Image.open(path)
+        with pytest.raises(OSError, match="corrupt or truncated"):
+            imageio.decode(path, "pil")
     else:
         with Image.open(path) as img:
             np.testing.assert_array_equal(imageio.decode(path, "pil"), np.asarray(img.convert("RGB")))
@@ -483,6 +623,121 @@ def test_png_ihdr_comes_first_and_once(tmp_path, name):
         native_u8(path, (32, 32))
     with pytest.raises(OSError, match=f"{name}.png is corrupt or truncated"):
         imageio.decode(path, "native")
+
+
+# ------------------------------------------- the zlib stream's end, long palettes
+
+def _png_parts(png: bytes) -> tuple[bytes, bytes, bytes]:
+    """A one-IDAT PNG -> (what precedes the IDAT chunk, its zlib stream, IEND)."""
+    i = png.index(b"IDAT") - 4
+    n = struct.unpack(">I", png[i:i + 4])[0]
+    return png[:i], png[i + 8:i + 8 + n], png[i + 12 + n:]
+
+
+def _stored_stream(raw: bytes, pad: int) -> bytes:
+    """`raw` as a zlib stream of stored blocks: `pad` empty ones, then one
+    final block of the data, so that every byte's offset is known."""
+    return (b"\x78\x01" + b"\x00\x00\x00\xff\xff" * pad + b"\x01" + struct.pack("<HH", len(raw), len(raw) ^ 0xFFFF)
+            + raw + struct.pack(">I", zlib.adler32(raw)))
+
+
+def _spoil(stream: bytes) -> bytes:  # a wrong Adler-32
+    return stream[:-4] + bytes(b ^ 0x55 for b in stream[-4:])
+
+
+def _more(raw: bytes, extra: bytes = bytes(100)) -> bytes:  # a stream that goes on past the image
+    return zlib.compress(raw + extra, 6)
+
+
+def _more_then_junk(raw: bytes) -> bytes:
+    z = zlib.compressobj(6)
+    return z.compress(raw + bytes(50)) + z.flush(zlib.Z_SYNC_FLUSH) + b"\xff" * 5
+
+
+# name -> (colour type, bit depth, h, w, the IDAT payloads from the image's
+# filtered rows). libpng and PIL stop at the image's last byte; the call that
+# produces it reads on in its input window (libpng's 8192-byte pieces of each
+# IDAT chunk, PIL's 65536) until the stream needs output or input, and fails
+# on an error met there, a bad Adler-32 included. libpng then reads on to the
+# stream's end, taking an error as benign but failing where the IDAT chunks
+# run out; PIL reads no more. The stored streams put the Adler-32 across
+# libpng's first window edge (8192), or just inside it.
+STREAM_CASES = {
+    "adler_bad": (2, 8, 32, 32, lambda raw: [_spoil(zlib.compress(raw))]),
+    "adler_bad_own_idat": (2, 8, 32, 32, lambda raw: [_spoil(zlib.compress(raw))[:-4],
+                                                      _spoil(zlib.compress(raw))[-4:]]),
+    "adler_bad_split": (0, 16, 32, 32, lambda raw: [_spoil(zlib.compress(raw))[:-2],
+                                                    _spoil(zlib.compress(raw))[-2:]]),
+    "adler_bad_more_data": (2, 16, 32, 32, lambda raw: [_spoil(_more(raw))]),
+    "junk_after_more_data": (6, 8, 32, 32, lambda raw: [_more_then_junk(raw)]),
+    "adler_missing": (2, 8, 32, 32, lambda raw: [zlib.compress(raw)[:-4]]),
+    "adler_half": (0, 8, 32, 32, lambda raw: [zlib.compress(raw)[:-2]]),
+    "bytes_after_stream": (2, 8, 32, 32, lambda raw: [zlib.compress(raw) + b"junk"]),
+    "idat_after_stream": (2, 16, 32, 32, lambda raw: [zlib.compress(raw), b"junk"]),
+    "stream_short": (2, 8, 32, 32, lambda raw: [zlib.compress(raw[:-10])]),
+    "adler_bad_past_window": (0, 8, 64, 100, lambda raw: [_spoil(_stored_stream(raw, 344))]),
+    "adler_bad_in_window": (0, 8, 64, 98, lambda raw: [_spoil(_stored_stream(raw, 369))]),
+    "adler_good_past_window": (0, 8, 64, 100, lambda raw: [_stored_stream(raw, 344)]),
+}
+
+
+def _stream_case(name: str) -> tuple[bytes, tuple[int, int]]:
+    color, depth, h, w, make = STREAM_CASES[name]
+    head, stream, tail = _png_parts(png_case(color, depth, 0, False, h, w))
+    return head + b"".join(_chunk(b"IDAT", part) for part in make(zlib.decompress(stream))) + tail, (h, w)
+
+
+def _same_or_both_raise(got, want, path: Path):
+    """`got()` (the port's decode) equals `want()` (the reference's), or both raise."""
+    try:
+        ref = want()
+    except (OSError, SyntaxError):
+        with pytest.raises(OSError, match=f"{path.name} is corrupt or truncated"):
+            got()
+        return
+    np.testing.assert_array_equal(got(), ref)
+
+
+def _pil_rgb_of(path: Path) -> np.ndarray:
+    with Image.open(path) as img:
+        return np.asarray(img.convert("RGB"))
+
+
+@pytest.mark.parametrize("name", list(STREAM_CASES))
+def test_png_zlib_stream_end_as_each_reader(tmp_path, name):
+    """The image data's zlib stream past the image's last byte: "native"
+    fails where libpng (the native loader) does and reads what it reads,
+    and so does the batch loader; "pil" does as PIL does."""
+    data, hw = _stream_case(name)
+    path = tmp_path / f"{name}.png"
+    path.write_bytes(data)
+    if name.endswith("_window"):
+        assert len(data) > 8192 and data.count(b"IDAT") == 1
+    _same_or_both_raise(lambda: imageio.decode(path, "native"), lambda: native_u8(path, hw), path)
+    _same_or_both_raise(lambda: imageio.load_batch([path], hw, n_threads=1),
+                        lambda: imageloader_lib.load_batch([str(path)], hw, n_threads=1), path)
+    _same_or_both_raise(lambda: imageio.decode(path, "pil"), lambda: _pil_rgb_of(path), path)
+
+
+# (bit depth, palette entries, tRNS entries): libpng keeps 2^depth entries of
+# a longer palette (png_handle_PLTE), and a tRNS longer than what it kept is
+# ignored; PIL keeps them all and drops alpha
+PALETTE_CASES = [(1, 4, 3), (1, 4, 2), (1, 256, 2), (2, 6, 5), (2, 7, 4), (2, 200, 150), (4, 20, 17),
+                 (4, 256, 16), (4, 256, 200), (8, 256, 256)]
+
+
+@pytest.mark.parametrize("depth,entries,alphas", PALETTE_CASES,
+                         ids=[f"d{d}-plte{e}-trns{a}" for d, e, a in PALETTE_CASES])
+def test_png_long_palette_native_equals_the_native_loader(tmp_path, depth, entries, alphas):
+    rng = np.random.default_rng(depth * 1000 + entries + alphas)
+    samples = rng.integers(0, 1 << depth, (32, 32, 1))
+    trns = bytes(rng.choice([0, 255, *rng.integers(1, 255, 6)], alphas).astype(np.uint8))
+    path = tmp_path / "p.png"
+    path.write_bytes(encode_png(samples, 3, depth, 0, rng.integers(0, 256, (entries, 3)), trns, seed=depth))
+    np.testing.assert_array_equal(imageio.decode(path, "native"), native_u8(path, (32, 32)))
+    np.testing.assert_allclose(imageio.load_batch([path], (32, 32), n_threads=1),
+                               imageloader_lib.load_batch([str(path)], (32, 32), n_threads=1), rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(imageio.decode(path, "pil"), _pil_rgb_of(path))
 
 
 def cv2_jpeg_440(pixels, progressive: bool, quality: int = 90) -> bytes:

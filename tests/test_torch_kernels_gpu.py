@@ -231,19 +231,18 @@ def test_functions_carry_gradients_on_the_card(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("s,t,h,d", FLASH_SHAPES + [(200, 129, 2, 40)])
+@pytest.mark.parametrize("s,t,h,d", FLASH_SHAPES + [(200, 129, 2, 40), (200, 129, 2, 160), (93, 130, 2, 144),
+                                                    (77, 65, 3, 136)])
 def test_flash_merged_bwd_kernel_matches_plain_and_split(cuda, dtype, s, t, h, d):
     """K6 against its plain version (the same function as K2 + K3) and
     against K2 + K3 on the same inputs, at S and T that are not multiples of
-    64 (and T = 129: a second 128-key block with one key). Above D = 128 the
-    merged route runs K3 then K2 and launches no K6."""
+    64 (and T = 129: one key past the last whole key block, of 128 keys, or
+    of 64 above D = 128), at every head dim: one K6 launch, no K2 or K3."""
     q, k, v, do = _qkv_do(cuda, dtype, s, t, h, d)
     o, lse = fa.flash_attention_lse(q, k, v)
     before = (fa.launches_merged, fa.launches_dq, fa.launches_dkv)
     got = fa.flash_attention_bwd_merged(q, k, v, o, lse, do)
-    k6 = d <= fa.MERGED_MAX_D
-    assert (fa.launches_merged, fa.launches_dq, fa.launches_dkv) == (
-        before[0] + k6, before[1] + (not k6), before[2] + (not k6))
+    assert (fa.launches_merged, fa.launches_dq, fa.launches_dkv) == (before[0] + 1, *before[1:])
     assert all(g.dtype == dtype and g.shape == x.shape for g, x in zip(got, (q, k, v)))
     plain = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
     split = fa.flash_attention_bwd(q, k, v, o, lse, do)
@@ -257,11 +256,13 @@ def test_flash_merged_bwd_kernel_matches_plain_and_split(cuda, dtype, s, t, h, d
 
 # the edges of the key-block backward (K3 and K6, one wgmma kernel fed by TMA):
 # layouts TMA cannot address (a 40-byte head stride at D = 20, H = 3; an odd
-# head dim), S shorter than its ring of three 64-row q tiles, T off its
-# 128-key tile, and the UNet's two path shapes at B*H = 64, as (B, S, T, H, D)
+# head dim; at DP = 160, a 300-byte head stride at D = 150 and an odd D =
+# 145), S shorter than its ring of three 64-row q tiles, T off its 128-key
+# tile (64 for K6 above D = 128), and the UNet's path shapes at B*H = 64, as
+# (B, S, T, H, D)
 KV_EDGE_SHAPES = [(2, 33, 70, 3, 20), (2, 9, 40, 1, 7), (2, 100, 256, 2, 40), (2, 64, 300, 2, 80),
                   (1, 150, 1000, 3, 64), (8, 4096, 4096, 8, 40), (8, 1024, 1024, 8, 80),
-                  (2, 77, 600, 2, 160), (8, 576, 576, 8, 160)]
+                  (2, 77, 600, 2, 160), (8, 576, 576, 8, 160), (2, 70, 130, 3, 150), (2, 33, 65, 1, 145)]
 
 
 @pytest.mark.parametrize("b,s,t,h,d", KV_EDGE_SHAPES)
@@ -269,8 +270,8 @@ def test_flash_key_block_bwd_edges(cuda, b, s, t, h, d):
     """K3 and K6 against the plain backward at the key-block kernel's edges,
     and each run twice: dk and dv are written once, by one block, in a fixed
     order, so both runs are bit-equal. The reference is fp64, or fp32 at the
-    UNet shapes (an fp64 [B, H, S, T] there is 8.6 GB a tensor). At D = 160
-    (32-row q tiles) the merged route runs K3 then K2, not K6."""
+    UNet shapes (an fp64 [B, H, S, T] there is 8.6 GB a tensor). The merged
+    route is one K6 launch at every head dim."""
     mk = lambda n: torch.randn(b, n, h, d, generator=cuda, device="cuda", dtype=torch.bfloat16)
     q, k, v, do = mk(s), mk(t), mk(t), mk(s)
     o, lse = fa.flash_attention_lse(q, k, v)
@@ -278,9 +279,7 @@ def test_flash_key_block_bwd_edges(cuda, b, s, t, h, d):
     before = (fa.launches_dkv, fa.launches_merged, fa.launches_dq)
     dkv = fa.flash_attention_dkv(q, k, v, do, lse, delta)
     merged = fa.flash_attention_bwd_merged(q, k, v, o, lse, do)
-    k6 = d <= fa.MERGED_MAX_D
-    assert (fa.launches_dkv, fa.launches_merged, fa.launches_dq) == (
-        before[0] + 1 + (not k6), before[1] + k6, before[2] + (not k6))
+    assert (fa.launches_dkv, fa.launches_merged, fa.launches_dq) == (before[0] + 1, before[1] + 1, before[2])
     plain = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
     xd = torch.float32 if b * h * s * t > 2**26 else torch.float64
     qx, kx, vx, dox = (x.to(xd) for x in (q, k, v, do))

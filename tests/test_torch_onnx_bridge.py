@@ -272,7 +272,7 @@ def test_load_scrfd_matches_jax(tmp_path, graph):
     path.write_bytes(_scrfd_like_model() if graph == "scrfd_like" else chip_smoke.scrfd_onnx(width=8, seed=3))
     images = np.random.default_rng(17).uniform(-1, 1, (3, 2 * size, 2 * size, 3)).astype(np.float32)
     jdetect, jparams = jb.load_scrfd(str(path), input_size=(size, size))
-    tdetect, tparams = tb.load_scrfd(path, input_size=(size, size))
+    tdetect, tparams = tb.load_scrfd(path, input_size=(size, size), device="cpu")
     want = jdetect(jparams, jnp.asarray(images))
     with torch.no_grad():
         got = tdetect(tparams, torch.from_numpy(images))
@@ -295,14 +295,14 @@ def test_scrfd_feed_follows_a_cast_weight_tree(tmp_path):
     path.write_bytes(_scrfd_like_model())
     images = np.random.default_rng(18).uniform(-1, 1, (2, 48, 48, 3)).astype(np.float32)
     jdetect, jparams = jb.load_scrfd(str(path), input_size=(32, 32))
-    tdetect, tparams = tb.load_scrfd(path, input_size=(32, 32))
+    tdetect, tparams = tb.load_scrfd(path, input_size=(32, 32), device="cpu")
     jbf = jax.tree_util.tree_map(lambda v: v.astype(jnp.bfloat16), jparams)
     want = jdetect(jbf, jnp.asarray(images))
     with torch.no_grad():
         got = tdetect({k: v.bfloat16() for k, v in tparams.items()}, torch.from_numpy(images))
     np.testing.assert_array_equal(got.indicators.numpy(), np.asarray(want.indicators))
     path.write_bytes(chip_smoke.scrfd_onnx(width=8, seed=4))
-    tdetect, tparams = tb.load_scrfd(path, input_size=(64, 64))
+    tdetect, tparams = tb.load_scrfd(path, input_size=(64, 64), device="cpu")
     with torch.no_grad():
         got = tdetect({k: v.bfloat16() for k, v in tparams.items()}, torch.from_numpy(images))
     assert bool(got.indicators.all())

@@ -107,7 +107,8 @@ def _jax_setup(cfg=CFG, remat: bool = False):
 
 def _port_trainer(params, jstack, cfg=CFG, remat: bool = False):
     tsd = tpipe.StableDiffusion(tpipe.SDConfig.tiny(), device="cpu", remat=remat).load_jax(params)
-    tstack = tsyn.synthetic_stack(cfg.get("attributes", ("gender",)), db_feats=np.asarray(jstack.face_db.feats))
+    tstack = tsyn.synthetic_stack(cfg.get("attributes", ("gender",)), db_feats=np.asarray(jstack.face_db.feats),
+                                  device="cpu")
     return tdebias.DebiasTrainer(tsd, tstack, tdebias.DebiasConfig(**cfg))
 
 

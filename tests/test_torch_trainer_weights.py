@@ -45,7 +45,8 @@ GRAD_REL_TOL = 1e-3
 def test_train_step_on_converted_guidance_matches_jax_trainer(tmp_path, tiny_towers):  # noqa: F811
     tdir, jdir = convert_both(tmp_path, *tiny_towers)
     jstack = dataclasses.replace(jzoo.load_guidance_stack(jdir, ("gender",), dtype=jnp.float32), **SIZES)
-    stack = dataclasses.replace(tzoo.load_guidance_stack(tdir, ("gender",), dtype=torch.float32), **SIZES)
+    stack = dataclasses.replace(tzoo.load_guidance_stack(tdir, ("gender",), dtype=torch.float32, device="cpu"),
+                                **SIZES)
     _, params, _, jstate = _jax_setup()
     jtr = jdebias.DebiasTrainer(jpipe.StableDiffusion(jpipe.SDConfig.tiny()), params, jstack,
                                 jdebias.DebiasConfig(**CFG))

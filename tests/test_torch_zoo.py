@@ -81,7 +81,7 @@ def test_detector_on_trained_weights_matches_jax():
     x = _images((2, 128, 128, 3), seed=0)
     cfg = jdet.DetectorConfig()
     jraw = jdet.FaceDetectorNet(cfg).apply({"params": params}, jnp.asarray(x))
-    net = tdet.load_detector_npz(DETECTOR)
+    net = tdet.load_detector_npz(DETECTOR, device="cpu")
     with torch.no_grad():
         raw = net(torch.from_numpy(x))
     for name in ("score", "bbox", "kps"):
@@ -177,7 +177,7 @@ def guidance_dir(tmp_path):
 
 def test_load_guidance_stack_matches_jax(guidance_dir):
     jstack = jzoo.load_guidance_stack(guidance_dir, ("gender",), dtype=jnp.float32)
-    stack = tzoo.load_guidance_stack(guidance_dir, ("gender",), dtype=torch.float32)
+    stack = tzoo.load_guidance_stack(guidance_dir, ("gender",), dtype=torch.float32, device="cpu")
     p = jstack.params
     assert stack.clip_feat_fn is None and stack.dino_feat_fn is None
     images = _images((2, 128, 128, 3), seed=13)
@@ -207,13 +207,13 @@ def test_unreadable_guidance_files_raise(tmp_path, name):
     if name == "det_10g.onnx":
         target.write_bytes(b"onnx")
         with pytest.raises(ValueError):
-            tzoo.load_guidance_stack(tmp_path, ("gender",), dtype=torch.float32)
+            tzoo.load_guidance_stack(tmp_path, ("gender",), dtype=torch.float32, device="cpu")
         with pytest.raises(ValueError):
-            tzoo.load_detector(target, DETECTOR)
+            tzoo.load_detector(target, DETECTOR, device="cpu")
     else:
         target.mkdir()
         with pytest.raises(NotImplementedError, match="orbax.*convert_guidance"):
-            tzoo.load_guidance_stack(tmp_path, ("gender",), dtype=torch.float32)
+            tzoo.load_guidance_stack(tmp_path, ("gender",), dtype=torch.float32, device="cpu")
 
 
 def test_seeded_guidance_dir_loads_on_both_sides(tmp_path):
@@ -221,7 +221,7 @@ def test_seeded_guidance_dir_loads_on_both_sides(tmp_path):
     reads it and agrees with the port's on the classifier."""
     chip_smoke.seed_guidance_dir(tmp_path, seed=3, detector_npz=DETECTOR)
     jstack = jzoo.load_guidance_stack(tmp_path, ("gender",), dtype=jnp.float32)
-    stack = tzoo.load_guidance_stack(tmp_path, ("gender",), dtype=torch.float32)
+    stack = tzoo.load_guidance_stack(tmp_path, ("gender",), dtype=torch.float32, device="cpu")
     chips = _images((1, 32, 32, 3), seed=16)
     with torch.no_grad():
         _close(stack.classify_fn(torch.from_numpy(chips)).numpy(),

@@ -80,7 +80,7 @@ def debias_step(*, data: int, model: int, cfg: dict, params, db_feats, adapters,
     from fairdiff_torch.utils.tree import tree_leaves
 
     sd = tpipe.StableDiffusion(tpipe.SDConfig.tiny(), device="cpu").load_jax(params)
-    stack = tsyn.synthetic_stack(cfg.get("attributes", ("gender",)), db_feats=db_feats)
+    stack = tsyn.synthetic_stack(cfg.get("attributes", ("gender",)), db_feats=db_feats, device="cpu")
     mesh = _mesh(data, model) if data * model > 1 else None
     trainer = tdebias.DebiasTrainer(sd, stack, tdebias.DebiasConfig(**cfg), mesh=mesh)
     state = trainer.init_state(adapters=adapters_from_jax(adapters))
