@@ -16,6 +16,7 @@ from pathlib import Path
 import numpy as np
 
 from fairdiff_torch.io import imageio
+from fairdiff_torch.utils.profiling import span
 
 
 def to_uint8(images: np.ndarray) -> np.ndarray:
@@ -154,15 +155,17 @@ def load_image(path: str | Path) -> np.ndarray:
 def write_image(pixels: np.ndarray, path: str | Path, quality: int = 95) -> Path:
     """Write [H, W, 3] uint8 pixels in the format the suffix names: JPEG
     (`.jpg`, `.jpeg`; baseline 4:2:0 at `quality`, the bytes PIL writes) or
-    PNG (`.png`)."""
+    PNG (`.png`). A JPEG records the spans "encode_jpeg" and "write_file"."""
     path = Path(path)
     suffix = path.suffix.lower()
     if suffix == ".png":
         write_png(pixels, path)
     elif suffix in (".jpg", ".jpeg"):
-        data = imageio.encode_jpeg(pixels, quality)
-        path.parent.mkdir(parents=True, exist_ok=True)
-        path.write_bytes(data)
+        with span("encode_jpeg"):
+            data = imageio.encode_jpeg(pixels, quality)
+        with span("write_file"):
+            path.parent.mkdir(parents=True, exist_ok=True)
+            path.write_bytes(data)
     else:
         raise ValueError(f"{path}: write .jpg, .jpeg or .png")
     return path
@@ -170,5 +173,7 @@ def write_image(pixels: np.ndarray, path: str | Path, quality: int = 95) -> Path
 
 def save_image(img: np.ndarray, path: str | Path, quality: int = 95) -> None:
     """Write one [H, W, 3] image in [-1, 1] (fairdiff/io/images.py
-    `save_image`: JPEG at quality 95 for a `.jpg` path)."""
-    write_image(to_uint8(img), path, quality)
+    `save_image`: JPEG at quality 95 for a `.jpg` path); the span
+    "save_image", and in it "encode_jpeg" and "write_file"."""
+    with span("save_image"):
+        write_image(to_uint8(img), path, quality)

@@ -31,6 +31,7 @@ from fairdiff_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
 from fairdiff_torch.models.layers import init_weights
 from fairdiff_torch.models.unet2d import UNet2DCondition, UNetConfig
 from fairdiff_torch.sampling import dpm_solver as dpm
+from fairdiff_torch.utils.profiling import span
 
 
 def eos_attention_mask(input_ids: torch.Tensor, eos_token_id: int) -> torch.Tensor:
@@ -171,20 +172,22 @@ class StableDiffusion:
         prefix_table: Optional[torch.Tensor] = None,
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """-> (context [2N, S, C], key mask [2N, S]) in CFG order
-        [uncond; cond], broadcast to N."""
-        eos = self.config.text.eos_token_id
-        cond_ids = _ids(cond_ids, self.device)
-        uncond_ids = _ids(uncond_ids, self.device)
-        if cond_mask is None:
-            cond_mask = eos_attention_mask(cond_ids, eos)
-        if uncond_mask is None:
-            uncond_mask = eos_attention_mask(uncond_ids, eos)
-        te = lora_lib.apply_lora(self.text_encoder, te_lora) if te_lora is not None else None
-        cond = self.encode_prompt(cond_ids, cond_mask, prefix_table, te)
-        uncond = self.encode_prompt(uncond_ids, uncond_mask, None, te)
-        bcast = lambda x: x.expand(N, *x.shape[1:]) if x.shape[0] == 1 else x
-        context = torch.cat([bcast(uncond), bcast(cond)], dim=0)
-        key_mask = torch.cat([bcast(uncond_mask), bcast(cond_mask)], dim=0)
+        [uncond; cond], broadcast to N; the span "encode_prompt", the
+        text-encoder LoRA's merge included."""
+        with span("encode_prompt"):
+            eos = self.config.text.eos_token_id
+            cond_ids = _ids(cond_ids, self.device)
+            uncond_ids = _ids(uncond_ids, self.device)
+            if cond_mask is None:
+                cond_mask = eos_attention_mask(cond_ids, eos)
+            if uncond_mask is None:
+                uncond_mask = eos_attention_mask(uncond_ids, eos)
+            te = lora_lib.apply_lora(self.text_encoder, te_lora) if te_lora is not None else None
+            cond = self.encode_prompt(cond_ids, cond_mask, prefix_table, te)
+            uncond = self.encode_prompt(uncond_ids, uncond_mask, None, te)
+            bcast = lambda x: x.expand(N, *x.shape[1:]) if x.shape[0] == 1 else x
+            context = torch.cat([bcast(uncond), bcast(cond)], dim=0)
+            key_mask = torch.cat([bcast(uncond_mask), bcast(cond_mask)], dim=0)
         return context, key_mask
 
     def unet_eps(
@@ -239,8 +242,12 @@ class StableDiffusion:
         grad_mode=True keeps autograd on through the chain (the reference's
         adjusted direct finetuning, see `dpm_solver.denoise`) and the decode.
         return_latents=True returns (images, final latents, trajectory
-        [T, N, h, w, 4] of the per-step UNet inputs)."""
-        with torch.set_grad_enabled(grad_mode):
+        [T, N, h, w, 4] of the per-step UNet inputs).
+
+        Spans: "generate" over the call, and in it "encode_prompt", "merge_lora"
+        (the UNet LoRA's merge), "denoise" with one "unet_call" a step, and
+        "decode"."""
+        with torch.set_grad_enabled(grad_mode), span("generate"):
             noises = torch.as_tensor(noises, device=self.device).float()
             N = noises.shape[0]
             gs = self.config.guidance_scale if guidance_scale is None else guidance_scale
@@ -249,16 +256,20 @@ class StableDiffusion:
                 cond_mask=cond_mask, uncond_mask=uncond_mask,
                 te_lora=te_lora, prefix_table=prefix_table,
             )
-            unet_weights = (
-                lora_lib.apply_lora(self.unet, unet_lora) if unet_lora is not None else None
-            )
-            bundle = dpm.make_step_bundle(self.config.solver, self.schedule, num_steps)
+            unet_weights = None
+            if unet_lora is not None:
+                with span("merge_lora"):
+                    unet_weights = lora_lib.apply_lora(self.unet, unet_lora)
 
             def eps_fn(lat2: torch.Tensor, t: int) -> torch.Tensor:
-                return self.unet_eps(lat2, t, context, key_mask, unet_weights=unet_weights)
+                with span("unet_call"):
+                    return self.unet_eps(lat2, t, context, key_mask, unet_weights=unet_weights)
 
-            out = dpm.denoise(eps_fn, noises, bundle, guidance_scale=gs, grad_mode=grad_mode,
-                              return_trajectory=return_latents)
+            with span("denoise"):
+                bundle = dpm.make_step_bundle(self.config.solver, self.schedule, num_steps)
+                out = dpm.denoise(eps_fn, noises, bundle, guidance_scale=gs, grad_mode=grad_mode,
+                                  return_trajectory=return_latents)
             latents, traj = out if return_latents else (out, None)
-            images = self.decode_images(latents, grad_mode=grad_mode)
+            with span("decode"):
+                images = self.decode_images(latents, grad_mode=grad_mode)
         return (images, latents, traj) if return_latents else images

@@ -76,7 +76,7 @@ from fairdiff_torch.training import metrics as metrics_lib
 from fairdiff_torch.training.stack import GuidanceStack
 from fairdiff_torch.utils import grids as grids_lib
 from fairdiff_torch.utils import rng as rng_lib
-from fairdiff_torch.utils.profiling import PhaseTimers
+from fairdiff_torch.utils.profiling import PhaseTimers, span
 from fairdiff_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -331,7 +331,7 @@ class DebiasTrainer:
         for j in range(n_chunks):
             sl = slice(j * m, (j + 1) * m)
             x = x_final[sl].detach().requires_grad_()
-            with torch.enable_grad():
+            with span("loss_vjp"), torch.enable_grad():
                 images = self.sd.decode_images(x, grad_mode=True)
                 loss, lg = self._images_loss(
                     images, _slice_tree(targets, sl), _slice_tree(ori, sl)
@@ -349,12 +349,13 @@ class DebiasTrainer:
         summed over the batch in fp32, go through one VJP of the merge into
         `down` and `up`. Likewise the context cotangents are summed and sent
         through one VJP of the context into the text-encoder LoRA and the
-        prefix."""
+        prefix. Spans: "pair_vjp" for each VJP ("unet_forward" and
+        "unet_backward" in it), "encode_prompt" and "merge_vjp"."""
         gs = self.cfg.guidance_scale
         unet_lora = adapters.get("unet_lora")
         weights: dict[str, torch.Tensor] = {}
         if unet_lora is not None:
-            with torch.no_grad():
+            with span("merge_lora"), torch.no_grad():
                 weights = {k: w.requires_grad_() for k, w in lora_lib.apply_lora(self.sd.unet, unet_lora).items()}
         w_leaves = list(weights.values())
         ctx_adapters = {k: adapters[k] for k in ("prefix", "te_lora") if k in adapters}
@@ -369,29 +370,33 @@ class DebiasTrainer:
             n = traj.shape[1]
             for t_idx in range(traj.shape[0]):
                 for j in range(n // p):
-                    sl = slice(j * p, (j + 1) * p)
-                    x = traj[t_idx, sl]
-                    eps2 = self.sd.unet_eps(
-                        torch.cat([x, x]), int(ts[t_idx]), ctx_leaf, key_mask, unet_weights=weights
-                    ).float()
-                    eps_u, eps_c = eps2.chunk(2)
-                    surrogate = ((eps_u + gs * (eps_c - eps_u)) * cot[t_idx, sl]).sum()
-                    g = torch.autograd.grad(surrogate, [ctx_leaf, *w_leaves])
-                    acc_c += g[0].float()
-                    for a, gi in zip(acc_w, g[1:]):
-                        a += gi
+                    with span("pair_vjp"):
+                        sl = slice(j * p, (j + 1) * p)
+                        x = traj[t_idx, sl]
+                        with span("unet_forward"):
+                            eps2 = self.sd.unet_eps(
+                                torch.cat([x, x]), int(ts[t_idx]), ctx_leaf, key_mask, unet_weights=weights
+                            ).float()
+                            eps_u, eps_c = eps2.chunk(2)
+                            surrogate = ((eps_u + gs * (eps_c - eps_u)) * cot[t_idx, sl]).sum()
+                        with span("unet_backward"):
+                            g = torch.autograd.grad(surrogate, [ctx_leaf, *w_leaves])
+                        acc_c += g[0].float()
+                        for a, gi in zip(acc_w, g[1:]):
+                            a += gi
             grads: dict[str, Any] = {}
-            if unet_lora is not None:
-                # the merged weight is W + delta (rounded once), so its
-                # cotangent is delta's
-                deltas = lora_lib.lora_deltas(self.sd.unet, unet_lora)
-                g_unet = torch.autograd.grad(list(deltas.values()), tree_leaves(unet_lora), grad_outputs=acc_w)
-                grads["unet_lora"] = tree_unflatten(unet_lora, list(g_unet))
-            if ctx_adapters:
-                g_ctx = torch.autograd.grad(
-                    context, tree_leaves(ctx_adapters), grad_outputs=acc_c.to(context.dtype)
-                )
-                grads.update(tree_unflatten(ctx_adapters, list(g_ctx)))
+            with span("merge_vjp"):
+                if unet_lora is not None:
+                    # the merged weight is W + delta (rounded once), so its
+                    # cotangent is delta's
+                    deltas = lora_lib.lora_deltas(self.sd.unet, unet_lora)
+                    g_unet = torch.autograd.grad(list(deltas.values()), tree_leaves(unet_lora), grad_outputs=acc_w)
+                    grads["unet_lora"] = tree_unflatten(unet_lora, list(g_unet))
+                if ctx_adapters:
+                    g_ctx = torch.autograd.grad(
+                        context, tree_leaves(ctx_adapters), grad_outputs=acc_c.to(context.dtype)
+                    )
+                    grads.update(tree_unflatten(ctx_adapters, list(g_ctx)))
         return grads
 
     def _chain_grads(self, adapters, noises, cond_ids, uncond_ids, n_steps, targets, ori, n_chunks, norm):
@@ -448,8 +453,13 @@ class DebiasTrainer:
         n_steps: Optional[int] = None,
         phase4: str = "linear",
     ) -> tuple[DebiasState, dict]:
-        """One optimizer step. `noises` [N, h, w, 4] and `n_steps` default to
-        the step's draws from `utils.rng`."""
+        """One optimizer step, recorded as the root span "train_step" keyed
+        by the step. `noises` [N, h, w, 4] and `n_steps` default to the
+        step's draws from `utils.rng`."""
+        with span("train_step", key=state.step):
+            return self._train_step(state, prompt_ids, noises, n_steps, phase4)
+
+    def _train_step(self, state, prompt_ids, noises, n_steps, phase4):
         cfg, sd, dev = self.cfg, self.sd, self.device
         step = state.step
         n, m = cfg.train_images_per_prompt, cfg.train_micro_batch

@@ -16,6 +16,7 @@ import torch
 from fairdiff_torch.guidance.attributes import AttributeSlices, classify_faces
 from fairdiff_torch.guidance.face_feats import FaceFeatsDB, face_embeddings
 from fairdiff_torch.guidance.faces import FaceAnalysis, FaceDetections, analyze_faces
+from fairdiff_torch.utils.profiling import span
 from fairdiff_torch.utils.resize import resize
 
 # the reference's CLIP and DINO preprocessing statistics
@@ -52,19 +53,23 @@ class GuidanceStack:
         """faces -> attributes -> features, batched and masked,
         differentiable in the images. Phase 4 passes include_semantic=False
         and computes CLIP/DINO features on the gradient-hooked images
-        (`semantic_feats`), the reference's order."""
-        faces = analyze_faces(
-            images, self.detect_fn(images), chip_size=self.chip_size, aligned_size=self.aligned_size
-        )
-        attrs = classify_faces(self.classify_fn, faces.chips, faces.indicators, self.slices)
-        face_feats = (
-            face_embeddings(self.face_embed_fn, faces.aligned)
-            if self.face_embed_fn and include_face_feats
-            else None
-        )
-        clip_feats = dino_feats = None
-        if include_semantic:
-            clip_feats, dino_feats = self.semantic_feats(images)
+        (`semantic_feats`), the reference's order. Spans: "analyze", and in
+        it "faces", "attributes", "face_feats" and "semantic" (each stage
+        that runs)."""
+        with span("analyze"):
+            with span("faces"):
+                faces = analyze_faces(
+                    images, self.detect_fn(images), chip_size=self.chip_size, aligned_size=self.aligned_size
+                )
+            with span("attributes"):
+                attrs = classify_faces(self.classify_fn, faces.chips, faces.indicators, self.slices)
+            face_feats = clip_feats = dino_feats = None
+            if self.face_embed_fn and include_face_feats:
+                with span("face_feats"):
+                    face_feats = face_embeddings(self.face_embed_fn, faces.aligned)
+            if include_semantic:
+                with span("semantic"):
+                    clip_feats, dino_feats = self.semantic_feats(images)
         return AnalysisResult(faces, attrs, clip_feats, dino_feats, face_feats)
 
     def semantic_feats(self, images: torch.Tensor):

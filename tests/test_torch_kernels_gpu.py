@@ -31,6 +31,7 @@ from fairdiff_torch.sampling.pipeline import SDConfig, StableDiffusion
 from fairdiff_torch.training.debias import DebiasTrainer
 from fairdiff_torch.training.presets import PRESETS
 from fairdiff_torch.training.synthetic import synthetic_stack
+from fairdiff_torch.utils import profiling
 from fairdiff_torch.utils.tree import tree_leaves, tree_map
 
 pytestmark = pytest.mark.gpu
@@ -514,3 +515,44 @@ def test_tiny_unet_lora_pair_vjp_remat_on_and_off(cuda):
     for a, b in zip(on, off):
         assert torch.isfinite(a).all() and a.abs().max() > 0
         assert ((a - b).norm() / b.norm()).item() <= 1e-3
+
+
+def test_spans_read_device_durations_without_a_sync(cuda):
+    """The span recorder on the card: spans entered and left over device work
+    and their durations read later, all under the sync debug mode "error"
+    (no call of the recorder waits for the device); a span inside a CUDA
+    graph's capture records no event."""
+    x = torch.randn(1024, 1024, generator=cuda, device="cuda")
+    rec = profiling.SpanRecorder()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with rec.span("outer") as outer:
+            for _ in range(4):
+                with rec.span("inner"):
+                    x = torch.tanh(x @ x)
+        rec.spans()  # reads what has completed, waits for nothing
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        spans = rec.spans()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert [s.name for s in spans] == ["inner"] * 4 + ["outer"]
+    assert all(s.device_ns is not None and s.device_ns > 0 for s in spans)
+    assert outer.device_ns >= sum(s.device_ns for s in spans[:4])
+    assert not rec._pending and 2 <= rec._made <= 10 and len(rec._free) == rec._made  # every event back in the pool
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        y = x @ x  # warm-up before the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        with rec.span("captured") as captured:
+            y = x @ x
+    graph.replay()
+    torch.cuda.synchronize()
+    assert captured.device_ns is None and captured._events is None and y.isfinite().all()

@@ -1,10 +1,16 @@
 """fairdiff_torch's profiling tools against the JAX package's:
 `summarize_trace` (a port of tests/test_trace_summary.py on CUDA-trace
 events), `_bucket` on XLA and CUDA kernel names, `tree_fingerprint`, and
-`train_debias --profile_steps`."""
+`train_debias --profile_steps`; and the port's span recorder on the CPU:
+nesting and ids, the bounded buffer, the profiler's clock, the phases as
+spans, and the spans a tiny `train_step`, `generate` and `save_image`
+record (its CUDA events are tested on the card, in
+tests/test_torch_kernels_gpu.py)."""
 
+import collections
 import gzip
 import json
+import threading
 
 import jax.numpy as jnp
 import numpy as np
@@ -13,7 +19,10 @@ import torch
 
 from fairdiff.utils import profiling as jax_profiling
 from fairdiff.utils import trace_summary as jax_trace_summary
+from fairdiff_torch.adapters import lora as lora_lib
 from fairdiff_torch.io.adapters_io import load_adapters
+from fairdiff_torch.io.images import save_image, write_image
+from fairdiff_torch.sampling.pipeline import SDConfig, StableDiffusion
 from fairdiff_torch.tools import train_debias
 from fairdiff_torch.utils import profiling, trace_summary
 from fairdiff_torch.utils.trace_summary import _bucket, launches_by_bucket, summarize_trace
@@ -183,6 +192,10 @@ def test_train_debias_profile_steps_writes_a_trace_and_the_same_adapters(tmp_pat
     assert "trace written to" in capsys.readouterr().out
     (trace,) = (tmp_path / "profiled" / "trace").glob("*.trace.json.gz")
     assert trace.stat().st_size > 0 and not (tmp_path / "plain" / "trace").exists()
+    # the program's spans appear in the trace under their names
+    with gzip.open(trace, "rt") as f:
+        names = collections.Counter(e.get("name") for e in json.load(f)["traceEvents"])
+    assert names["train_step"] == 1 and names["pair_vjp"] == names["unet_backward"] > 0
     flat = lambda t, p=(): [x for k in sorted(t) for x in (flat(t[k], p + (k,)) if isinstance(t[k], dict)
                                                              else [(p + (k,), t[k])])]
     for (pa, a), (pb, b) in zip(flat(runs["plain"]), flat(runs["profiled"]), strict=True):
@@ -194,3 +207,170 @@ def test_cli_main_prints_usage_without_a_directory(capsys):
     with pytest.raises(SystemExit):
         trace_summary.main([])
     assert "Usage" in capsys.readouterr().out
+
+
+# -- the span recorder -------------------------------------------------------
+
+
+def test_spans_nest_with_parent_and_root_ids():
+    rec = profiling.SpanRecorder()
+    with rec.span("a", key=7) as a:
+        with rec.span("b") as b:
+            with rec.span("c") as c:
+                pass
+        with rec.span("d") as d:
+            pass
+    with rec.span("e") as e:
+        pass
+    spans = rec.spans()
+    assert [s.name for s in spans] == ["c", "b", "d", "a", "e"]  # in the order they ended
+    assert len({s.id for s in spans}) == 5
+    assert (a.parent, a.root, a.key) == (None, a.id, 7)
+    assert (b.parent, c.parent, d.parent) == (a.id, b.id, a.id)
+    assert b.root == c.root == d.root == a.id
+    assert (e.parent, e.root, e.key) == (None, e.id, None)
+    assert a.t0_ns <= b.t0_ns <= c.t0_ns <= c.t1_ns <= b.t1_ns <= d.t0_ns <= d.t1_ns <= a.t1_ns <= e.t0_ns
+    # on the CPU a span's device duration is its host duration
+    assert all(s.device_ns == s.t1_ns - s.t0_ns for s in spans)
+
+
+def test_a_span_left_by_an_exception_is_recorded_and_each_thread_has_its_own_stack():
+    rec = profiling.SpanRecorder()
+    with pytest.raises(ValueError):
+        with rec.span("outer") as outer:
+            with rec.span("failing"):
+                raise ValueError
+    seen = {}
+
+    def worker():
+        with rec.span("in_thread") as t:
+            seen["span"] = t
+
+    with rec.span("main") as main:
+        th = threading.Thread(target=worker)
+        th.start()
+        th.join(timeout=10)
+    assert not th.is_alive()
+    by_name = {s.name: s for s in rec.spans()}
+    assert by_name["failing"].parent == outer.id
+    assert main.parent is None  # the failed spans left the stack
+    assert seen["span"].parent is None and seen["span"].root == seen["span"].id
+
+
+def test_the_span_buffer_stays_bounded():
+    rec = profiling.SpanRecorder()
+    n = profiling.CAPACITY + 1000
+    for i in range(n):
+        with rec.span("s", key=i):
+            pass
+    spans = rec.spans()
+    assert len(spans) == profiling.CAPACITY and [s.key for s in spans] == list(range(1000, n))
+    assert len(rec._pending) == 0 and rec._made == 0  # no CUDA event on the CPU
+
+
+def test_module_spans_go_to_the_programs_recorder():
+    with profiling.span("module_probe", key=3) as sp:
+        pass
+    assert profiling.recorded_spans()[-1] is sp and sp.recorder is profiling.RECORDER
+
+
+def test_a_profiled_mm_lies_inside_its_span_on_the_shared_clock():
+    from torch.profiler import ProfilerActivity, profile
+
+    a = torch.randn(256, 256)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with profiling.span("mm_probe") as sp:
+            torch.mm(a, a)
+    events = list(prof.profiler.kineto_results.events())
+    (mm,) = [e for e in events if e.name() == "aten::mm"]
+    assert sp.t0_ns <= mm.start_ns() and mm.start_ns() + mm.duration_ns() <= sp.t1_ns
+    # while the profiler runs, the span opens a record_function of its name
+    assert [e.name() for e in events].count("mm_probe") == 1
+
+
+def test_phase_timers_keep_their_last_times_and_record_spans():
+    timers = profiling.PhaseTimers(torch.device("cpu"))
+    with profiling.span("step_probe") as root:
+        with timers("phase1"):
+            with profiling.span("inner_probe") as inner:
+                pass
+        with pytest.raises(RuntimeError):
+            with timers("phase2"):
+                raise RuntimeError
+    assert set(timers.last) == {"phase1", "phase2"} and min(timers.last.values()) >= 0
+    spans = {s.name: s for s in profiling.recorded_spans() if s.root == root.id}
+    assert spans["phase1"].parent == spans["phase2"].parent == root.id
+    assert inner.parent == spans["phase1"].id
+    assert spans["phase1"].t1_ns - spans["phase1"].t0_ns >= timers.last["phase1"] * 1e9 * 0.5
+
+
+def _tree(root_id):
+    spans = [s for s in profiling.recorded_spans() if s.root == root_id]
+    by_id = {s.id: s for s in spans}
+    parent = lambda s: by_id[s.parent].name if s.parent in by_id else None
+    return spans, by_id, parent
+
+
+def test_a_tiny_train_step_records_its_spans():
+    cfg = train_debias.parse_args(["--device", "cpu", "--tiny_smoke", "1"])
+    trainer = train_debias.build_trainer(cfg)
+    state = trainer.init_state(0)
+    n_text = trainer.sd.config.text.max_position_embeddings
+    ids = (torch.arange(n_text)[None] % 60, torch.zeros(1, n_text, dtype=torch.long))
+    state, logs = trainer.train_step(state, ids)
+    root = profiling.recorded_spans()[-1]
+    assert (root.name, root.key, root.parent) == ("train_step", 0, None)
+    spans, by_id, parent = _tree(root.id)
+    n_steps = logs["num_denoising_steps"]
+    chunks = trainer.cfg.train_images_per_prompt // trainer.cfg.train_micro_batch
+    named = lambda n: [s for s in spans if s.name == n]
+    phases = ("phase1_sample_analyze", "phase3_frozen_sample", "phase2_targets", "phase4_backward", "update")
+    assert {parent(s) for s in spans if s.name in phases} == {"train_step"}
+    assert {parent(s) for s in named("phase4_loss_vjp") + named("phase4_pair_vjp")} == {"phase4_backward"}
+    assert set(trainer.timers.last) == set(phases) | {"phase4_loss_vjp", "phase4_pair_vjp"}
+    pairs = named("pair_vjp")
+    assert len(pairs) == n_steps * chunks and {parent(s) for s in pairs} == {"phase4_pair_vjp"}
+    kids = collections.Counter((s.parent, s.name) for s in spans if parent(s) == "pair_vjp")
+    assert kids == {(p.id, n): 1 for p in pairs for n in ("unet_forward", "unet_backward")}
+    assert [parent(s) for s in named("merge_vjp")] == ["phase4_pair_vjp"]
+    assert sorted(parent(s) for s in named("encode_prompt")) == ["generate", "generate", "phase4_pair_vjp"]
+    assert [parent(s) for s in named("loss_vjp")] == ["phase4_loss_vjp"] * chunks
+    # the guidance analysis of phases 1 and 3 (phase 4's loss analyses its chunks too)
+    analyze = [parent(s) for s in named("analyze")]
+    assert sorted(a for a in analyze if a != "loss_vjp") == ["phase1_sample_analyze", "phase3_frozen_sample"]
+    gens = named("generate")
+    assert sorted(parent(s) for s in gens) == ["phase1_sample_analyze", "phase3_frozen_sample"]
+    for g in gens:
+        stages = [s for s in spans if s.parent == g.id]
+        assert [s.name for s in sorted(stages, key=lambda s: s.t0_ns)] == ["encode_prompt", "denoise", "decode"]
+        (denoise,) = [s for s in stages if s.name == "denoise"]
+        assert [s.name for s in spans if s.parent == denoise.id] == ["unet_call"] * n_steps
+    for s in spans:
+        if s.parent in by_id:
+            assert by_id[s.parent].t0_ns <= s.t0_ns <= s.t1_ns <= by_id[s.parent].t1_ns
+
+
+def test_a_tiny_generate_and_save_image_record_their_trees(tmp_path):
+    sd = StableDiffusion(SDConfig.tiny(), device="cpu").init_random(0)
+    lora = lora_lib.init_lora(sd.unet, lora_lib.unet_attention_targets, 2, torch.Generator().manual_seed(1))
+    n_text = sd.config.text.max_position_embeddings
+    noises = torch.randn(2, *sd.latent_shape(1)[1:], generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        images = sd.generate(noises, torch.arange(n_text)[None] % 60, torch.zeros(1, n_text, dtype=torch.long), 3,
+                             unet_lora=lora)
+    (gen,) = [s for s in profiling.recorded_spans()[-16:] if s.name == "generate"]
+    assert gen.parent is None and gen.root == gen.id  # called alone, it is the root
+    spans, _, parent = _tree(gen.id)
+    assert collections.Counter(s.name for s in spans) == {
+        "generate": 1, "encode_prompt": 1, "merge_lora": 1, "denoise": 1, "unet_call": 3, "decode": 1}
+    assert {parent(s) for s in spans if s.name != "unet_call"} == {None, "generate"}
+    assert {parent(s) for s in spans if s.name == "unet_call"} == {"denoise"}
+    save_image(images[0].numpy(), tmp_path / "img_0.jpg")
+    (saved,) = [s for s in profiling.recorded_spans()[-3:] if s.name == "save_image"]
+    spans, _, parent = _tree(saved.id)
+    assert sorted((s.name, parent(s)) for s in spans) == [
+        ("encode_jpeg", "save_image"), ("save_image", None), ("write_file", "save_image")]
+    # a PNG records no JPEG stage
+    before = len(profiling.recorded_spans())
+    write_image(np.zeros((4, 4, 3), np.uint8), tmp_path / "x.png")
+    assert len(profiling.recorded_spans()) == before
