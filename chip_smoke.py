@@ -1552,14 +1552,12 @@ def phase_kernels_gn() -> tuple[dict[str, dict], int]:
 
 
 def launch_counts() -> dict[str, int]:
-    from fairdiff_torch.ops import flash_attention as fa
-    from fairdiff_torch.ops import geglu as gg
-    from fairdiff_torch.ops import group_norm as gn
+    """The kernel launches that ran since `reset_counts`: a launch under a
+    CUDA graph's capture is counted where the graph replays (phase 4b's
+    pair VJPs, `training.debias.PairGraph`)."""
+    from fairdiff_torch import ops
 
-    return {"flash_attention": fa.launches, "flash_attention_lse": fa.launches_lse,
-            "flash_attention_dq": fa.launches_dq, "flash_attention_dkv": fa.launches_dkv,
-            "flash_attention_bwd_merged": fa.launches_merged,
-            "geglu": gg.launches, "geglu_dx": gg.launches_dx, "group_norm": gn.launches}
+    return ops.launch_counts()
 
 
 def reset_counts() -> None:

@@ -41,14 +41,16 @@ import functools
 import torch
 
 from fairdiff_torch.kernels import build
+from fairdiff_torch.ops import counting
 
 # keys from which self-attention takes the kernel (fairdiff/models/layers.py
 # FLASH_MIN_KV): the UNet's 1024- and 4096-token latents do, the 77-token
 # cross-attention and the 256/64-token latents do not
 FLASH_MIN_KV = 512
 
-# kernel launches, counted where each kernel is launched: K1 without lse
-# (generation), K1 with lse (the forward of a gradient pass), K2, K3, K6
+# kernel launches, counted where each kernel is launched (not under a CUDA
+# graph's capture: `fairdiff_torch.ops`): K1 without lse (generation), K1
+# with lse (the forward of a gradient pass), K2, K3, K6
 launches = 0
 launches_lse = 0
 launches_dq = 0
@@ -210,11 +212,13 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_lse: bool):
     o = torch.empty_like(q)
     if not with_lse:
         _launch("fwd", [q, k, v, o], q, k.shape[1])
-        launches += 1
+        if counting():
+            launches += 1
         return o, None
     lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
     _launch("fwd_lse", [q, k, v, o, lse], q, k.shape[1])
-    launches_lse += 1
+    if counting():
+        launches_lse += 1
     return o, lse
 
 
@@ -246,7 +250,8 @@ def flash_attention_dq(q, k, v, do, lse, delta) -> torch.Tensor:
         return flash_attention_dq_plain(q, k, v, do, lse, delta)
     dq = torch.empty_like(q)
     _launch("dq", [q, k, v, do, lse, delta, dq], q, k.shape[1])
-    launches_dq += 1
+    if counting():
+        launches_dq += 1
     return dq
 
 
@@ -258,7 +263,8 @@ def flash_attention_dkv(q, k, v, do, lse, delta) -> tuple[torch.Tensor, torch.Te
         return flash_attention_dkv_plain(q, k, v, do, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("dkv", [q, k, v, do, lse, delta, dk, dv], q, k.shape[1])
-    launches_dkv += 1
+    if counting():
+        launches_dkv += 1
     return dk, dv
 
 
@@ -294,7 +300,8 @@ def flash_attention_bwd_merged(
     dq32 = torch.zeros(B, H, -(-S // DQ_ROWS) * DQ_ROWS, D, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("bwd_merged", [q, k, v, do, lse, delta, dk, dv, dq32], q, k.shape[1])
-    launches_merged += 1
+    if counting():
+        launches_merged += 1
     # the one cast of dq, with the transpose back to [B, S, H, D]
     return torch.empty_like(q).copy_(dq32[:, :, :S].transpose(1, 2)), dk, dv
 

@@ -20,9 +20,11 @@ import torch
 import torch.nn.functional as F
 
 from fairdiff_torch.kernels import build
+from fairdiff_torch.ops import counting
 
-# kernel launches, counted where each kernel is launched: K4 and K5 (one
-# count a call; K5 is two CUDA launches, three at split K)
+# kernel launches, counted where each kernel is launched (not under a CUDA
+# graph's capture: `fairdiff_torch.ops`): K4 and K5 (one count a call; K5
+# is two CUDA launches, three at split K)
 launches = 0
 launches_dx = 0
 
@@ -188,7 +190,8 @@ def _launch_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, tile: tuple[i
         )
     if rc != 0:
         raise RuntimeError(f"geglu kernel launch failed: CUDA error {rc}")
-    launches += 1
+    if counting():
+        launches += 1
     return y
 
 
@@ -225,7 +228,8 @@ def geglu_dx(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dy: torch.Tensor
         )
     if rc != 0:
         raise RuntimeError(f"geglu dx kernel launch failed: CUDA error {rc}")
-    launches_dx += 1
+    if counting():
+        launches_dx += 1
     return dx
 
 

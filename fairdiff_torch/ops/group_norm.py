@@ -29,8 +29,10 @@ import torch
 import torch.nn.functional as F
 
 from fairdiff_torch.kernels import build
+from fairdiff_torch.ops import counting
 
-# K7 launches, counted where the kernel is launched
+# K7 launches, counted where the kernel is launched (not under a CUDA
+# graph's capture: `fairdiff_torch.ops`)
 launches = 0
 
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
@@ -124,7 +126,8 @@ def _forward(x, scale, bias, groups: int, eps: float, apply_silu: bool) -> torch
         )
     if rc != 0:
         raise RuntimeError(f"group norm kernel launch failed: CUDA error {rc}")
-    launches += 1
+    if counting():
+        launches += 1
     return out
 
 

@@ -107,13 +107,15 @@ def _device_label(device: torch.device) -> str:
 
 
 def trainer_pair_sweep(cfg: TPScalingConfig) -> list[dict]:
-    """Bytes of the trainer's pair VJP at several lane counts."""
+    """Bytes autograd saves in the trainer's pair VJP, run eagerly
+    (`EagerPairTrainer`; on the card the trainer replays a CUDA graph of the
+    same body), at several lane counts."""
     from fairdiff_torch import bench
     from fairdiff_torch.sampling import dpm_solver as dpm
-    from fairdiff_torch.training.debias import DebiasTrainer
+    from fairdiff_torch.training.debias import EagerPairTrainer
 
     sd, guidance, dcfg = bench.build(cfg.tiny, device=cfg.device or None)
-    trainer = DebiasTrainer(sd, guidance, dcfg)
+    trainer = EagerPairTrainer(sd, guidance, dcfg)
     state = trainer.init_state(1)
     dev, label = sd.device, _device_label(sd.device)
     v, S = sd.config.text.vocab_size, sd.config.text.max_position_embeddings

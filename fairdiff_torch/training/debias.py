@@ -62,6 +62,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from fairdiff_torch import ops
 from fairdiff_torch.adapters import lora as lora_lib
 from fairdiff_torch.adapters import prefix as prefix_lib
 from fairdiff_torch.adapters.ema import init_ema, update_ema
@@ -182,6 +183,85 @@ def new_state(cfg: DebiasConfig, adapters: dict, device: torch.device) -> Debias
     return DebiasState(adapters, opt, init_ema(adapters), 0)
 
 
+def pair_signature(unet: torch.nn.Module, rows: int, traj: torch.Tensor, context: torch.Tensor,
+                   key_mask: Optional[torch.Tensor], weights: dict[str, torch.Tensor],
+                   guidance_scale: float) -> tuple:
+    """What a pair VJP's CUDA graph is captured for: the lanes a chunk, the
+    latent shape, the context's shape, whether there is a key mask, the
+    merged UNet LoRA weights' names and shapes, the dtypes, the UNet's flash
+    backward and remat, and the guidance scale (a constant of the captured
+    surrogate)."""
+    return (rows, tuple(traj.shape[2:]), tuple(context.shape), key_mask is not None,
+            tuple((k, tuple(w.shape)) for k, w in weights.items()),
+            (traj.dtype, context.dtype, unet.conv_in.weight.dtype), unet.flash_bwd, unet.remat, guidance_scale)
+
+
+class PairGraph:
+    """A pair VJP (`DebiasTrainer._pair_vjp`) as a CUDA graph over static
+    tensors: a lane chunk's latents `x` and cotangent `cot`, the timestep
+    `t` (0-d, on the device), the context leaf and key mask, the merged UNet
+    LoRA weight leaves and the fp32 accumulators. `load_step` copies in a
+    step's context and weights and zeroes the accumulators; `run` copies in
+    a pair's latents, cotangent and timestep, captures the graph at its
+    first call and replays it after. `launches` holds the kernel launches
+    of one replay, counted in the warm-up and added to the op wrappers'
+    counters at each replay (a replay calls no wrapper)."""
+
+    def __init__(self, x: torch.Tensor, cot: torch.Tensor, context: torch.Tensor,
+                 key_mask: Optional[torch.Tensor], weights: dict[str, torch.Tensor]):
+        static = lambda v, **kw: torch.empty(v.shape, dtype=v.dtype, device=v.device, **kw)  # noqa: E731
+        self.x, self.cot = static(x), static(cot)
+        self.t = torch.zeros((), dtype=torch.long, device=x.device)
+        self.ctx = static(context, requires_grad=True)
+        self.key_mask = None if key_mask is None else static(key_mask)
+        self.weights = {k: static(w, requires_grad=True) for k, w in weights.items()}
+        self.acc_c = torch.zeros(context.shape, dtype=torch.float32, device=context.device)
+        self.acc_w = [torch.zeros(w.shape, dtype=torch.float32, device=w.device) for w in weights.values()]
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.launches: dict[str, int] = {}
+
+    @torch.no_grad()
+    def load_step(self, context: torch.Tensor, key_mask: Optional[torch.Tensor],
+                  weights: dict[str, torch.Tensor]) -> None:
+        self.ctx.copy_(context)
+        if key_mask is not None:
+            self.key_mask.copy_(key_mask)
+        for k, w in weights.items():
+            self.weights[k].copy_(w)
+        self.acc_c.zero_()
+        for a in self.acc_w:
+            a.zero_()
+
+    def run(self, body: Callable, x: torch.Tensor, t: int, cot: torch.Tensor) -> None:
+        """One pair VJP through `body` (`_pair_vjp`). The first call warms up
+        on a side stream (cuBLAS, cuDNN, the autograd engine and the
+        kernels' attributes), which adds this pair's cotangents, then
+        captures the graph (which adds nothing); later calls replay it.
+        Spans: "graph_capture" or "graph_replay"."""
+        with torch.no_grad():
+            self.x.copy_(x)
+            self.cot.copy_(cot)
+            self.t.fill_(t)
+        if self.graph is not None:
+            with span("graph_replay"):
+                self.graph.replay()
+            ops.add_launches(self.launches)
+            return
+        args = (self.x, self.t, self.cot, self.ctx, self.key_mask, self.weights, self.acc_c, self.acc_w)
+        with span("graph_capture"):
+            side = torch.cuda.Stream(self.x.device)
+            side.wait_stream(torch.cuda.current_stream())
+            before = ops.launch_counts()
+            with torch.cuda.stream(side):
+                body(*args)
+            self.launches = {k: n - before[k] for k, n in ops.launch_counts().items()}
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=side):
+                body(*args)
+            self.graph = graph
+
+
 class DebiasTrainer:
     def __init__(
         self,
@@ -206,6 +286,15 @@ class DebiasTrainer:
         # inspection hooks for tests: the last step's grads and targets
         self._last_grads: Optional[dict] = None
         self._last_targets: Optional[dict] = None
+        # phase 4b's pair VJP as a CUDA graph, one for each `pair_signature`
+        self._pair_graphs: dict[tuple, PairGraph] = {}
+
+    @property
+    def _graph_pairs(self) -> bool:
+        """Whether the pair VJPs replay CUDA graphs: on a CUDA device, where
+        the UNet is whole (a UNet split over the model axis runs collectives
+        inside its forward)."""
+        return self.device.type == "cuda" and axis_size(self.mesh, "model") == 1
 
     # ------------------------------------------------------------------
     def init_state(self, seed: int = 0, adapters: Optional[dict] = None) -> DebiasState:
@@ -349,41 +438,48 @@ class DebiasTrainer:
         summed over the batch in fp32, go through one VJP of the merge into
         `down` and `up`. Likewise the context cotangents are summed and sent
         through one VJP of the context into the text-encoder LoRA and the
-        prefix. Spans: "pair_vjp" for each VJP ("unet_forward" and
-        "unet_backward" in it), "encode_prompt" and "merge_vjp"."""
-        gs = self.cfg.guidance_scale
+        prefix.
+
+        Each VJP is `_pair_vjp`. On a CUDA device with a whole UNet
+        (`_graph_pairs`) it replays a CUDA graph (`PairGraph`, one for each
+        `pair_signature`, captured the first time the signature is seen);
+        elsewhere it runs eagerly. Spans: "pair_vjp" for each VJP, with
+        "graph_replay" or "graph_capture" in it on the graph route and
+        "unet_forward" and "unet_backward" in it where `_pair_vjp` runs;
+        "encode_prompt" and "merge_vjp"."""
         unet_lora = adapters.get("unet_lora")
         weights: dict[str, torch.Tensor] = {}
         if unet_lora is not None:
             with span("merge_lora"), torch.no_grad():
                 weights = {k: w.requires_grad_() for k, w in lora_lib.apply_lora(self.sd.unet, unet_lora).items()}
-        w_leaves = list(weights.values())
         ctx_adapters = {k: adapters[k] for k in ("prefix", "te_lora") if k in adapters}
         with torch.enable_grad():
             context, key_mask = self.sd.build_context(
                 cond_ids, uncond_ids, p, te_lora=adapters.get("te_lora"),
                 prefix_table=adapters.get("prefix"),
             )
-            ctx_leaf = context.detach().requires_grad_()
-            acc_c = torch.zeros(context.shape, dtype=torch.float32, device=context.device)
-            acc_w = [torch.zeros(w.shape, dtype=torch.float32, device=w.device) for w in w_leaves]
+            graph = None
+            if self._graph_pairs:
+                sig = pair_signature(self.sd.unet, p, traj, context, key_mask, weights, self.cfg.guidance_scale)
+                graph = self._pair_graphs.get(sig)
+                if graph is None:
+                    graph = self._pair_graphs[sig] = PairGraph(traj[0, :p], cot[0, :p], context, key_mask, weights)
+                graph.load_step(context, key_mask, weights)
+                acc_c, acc_w = graph.acc_c, graph.acc_w
+            else:
+                ctx_leaf = context.detach().requires_grad_()
+                acc_c = torch.zeros(context.shape, dtype=torch.float32, device=context.device)
+                acc_w = [torch.zeros(w.shape, dtype=torch.float32, device=w.device) for w in weights.values()]
             n = traj.shape[1]
             for t_idx in range(traj.shape[0]):
                 for j in range(n // p):
                     with span("pair_vjp"):
                         sl = slice(j * p, (j + 1) * p)
-                        x = traj[t_idx, sl]
-                        with span("unet_forward"):
-                            eps2 = self.sd.unet_eps(
-                                torch.cat([x, x]), int(ts[t_idx]), ctx_leaf, key_mask, unet_weights=weights
-                            ).float()
-                            eps_u, eps_c = eps2.chunk(2)
-                            surrogate = ((eps_u + gs * (eps_c - eps_u)) * cot[t_idx, sl]).sum()
-                        with span("unet_backward"):
-                            g = torch.autograd.grad(surrogate, [ctx_leaf, *w_leaves])
-                        acc_c += g[0].float()
-                        for a, gi in zip(acc_w, g[1:]):
-                            a += gi
+                        if graph is not None:
+                            graph.run(self._pair_vjp, traj[t_idx, sl], int(ts[t_idx]), cot[t_idx, sl])
+                        else:
+                            self._pair_vjp(traj[t_idx, sl], int(ts[t_idx]), cot[t_idx, sl], ctx_leaf, key_mask,
+                                           weights, acc_c, acc_w)
             grads: dict[str, Any] = {}
             with span("merge_vjp"):
                 if unet_lora is not None:
@@ -398,6 +494,22 @@ class DebiasTrainer:
                     )
                     grads.update(tree_unflatten(ctx_adapters, list(g_ctx)))
         return grads
+
+    def _pair_vjp(self, x, t, cot, ctx_leaf, key_mask, weights, acc_c, acc_w) -> None:
+        """One pair VJP: the surrogate <cot, guided_eps(x)> of a lane chunk's
+        latents `x` at timestep `t` (an int, or a 0-d device tensor)
+        differentiated into the context leaf and the merged UNet LoRA weight
+        leaves, its cotangents added into the fp32 accumulators."""
+        gs = self.cfg.guidance_scale
+        with span("unet_forward"):
+            eps2 = self.sd.unet_eps(torch.cat([x, x]), t, ctx_leaf, key_mask, unet_weights=weights).float()
+            eps_u, eps_c = eps2.chunk(2)
+            surrogate = ((eps_u + gs * (eps_c - eps_u)) * cot).sum()
+        with span("unet_backward"):
+            g = torch.autograd.grad(surrogate, [ctx_leaf, *weights.values()])
+        acc_c += g[0].float()
+        for a, gi in zip(acc_w, g[1:]):
+            a += gi
 
     def _chain_grads(self, adapters, noises, cond_ids, uncond_ids, n_steps, targets, ori, n_chunks, norm):
         """The golden: per lane chunk, autograd through the grad-mode chain
@@ -709,6 +821,14 @@ class DebiasTrainer:
             if checkpoint_cb:
                 checkpoint_cb(state)
         return state
+
+
+class EagerPairTrainer(DebiasTrainer):
+    """A `DebiasTrainer` whose pair VJPs run eagerly on every device, as on
+    the CPU: the graph route's reference, and the route whose autograd
+    saves can be counted (a replay saves nothing)."""
+
+    _graph_pairs = False
 
 
 def _slice_tree(tree: Any, sl: slice) -> Any:
