@@ -666,6 +666,10 @@ GEGLU_SHAPES = [(f"{label}{tag}", rows_ * tokens, d)
                 for label, tokens, d in (("d320", 4096, 320), ("d640", 1024, 640), ("d1280", 256, 1280),
                                          ("d1280mid", 64, 1280))]
 GEGLU_SLOT = 64  # K4's K slot: 64 deep
+# SDXL at 1024 px, CFG batch 10 (20 rows): self-attention at D = 64 and its
+# feed-forwards at d = 640 (4096 tokens) and 1280 (1024 tokens)
+SDXL_FLASH_SHAPES = [("sdxl4096", (20, 4096, 10, 64)), ("sdxl1024", (20, 1024, 20, 64))]
+SDXL_GEGLU_SHAPES = [("sdxl-d640", 20 * 4096, 640), ("sdxl-d1280", 20 * 1024, 1280)]
 
 
 def geglu_drop_last_slot(x: torch.Tensor) -> torch.Tensor:
@@ -691,6 +695,7 @@ def phase_kernels() -> dict[str, dict]:
         ("self1024", (B, 1024, 8, 80), (B, 1024, 8, 80)),
         ("self576", (PAIR_ROWS, 576, 8, 160), (PAIR_ROWS, 576, 8, 160)),  # 768 px, 1280 channels
         ("ragged", (1, 600, 2, 40), (1, 300, 2, 40)),
+        *((label, shape, shape) for label, shape in SDXL_FLASH_SHAPES),
     ):
         q = torch.randn(qs, generator=g, device="cuda", dtype=bf)
         k = torch.randn(kvs, generator=g, device="cuda", dtype=bf)
@@ -717,7 +722,7 @@ def phase_kernels() -> dict[str, dict]:
             bound_ms=bound_ms, bound_by=bound_by,
         )
     tile_checks: dict[str, dict] = {}
-    for label, m, d in GEGLU_SHAPES:
+    for label, m, d in GEGLU_SHAPES + SDXL_GEGLU_SHAPES:
         inner = 4 * d
         x = torch.randn(m, d, generator=g, device="cuda", dtype=bf)
         w = (torch.randn(2 * inner, d, generator=g, device="cuda") * d**-0.5).to(bf)
@@ -1041,7 +1046,7 @@ def profile_unet_call(sd, noises: torch.Tensor, cond, uncond) -> None:
     """Where one CFG UNet call's device time goes (batch 4 -> 8 rows)."""
     from torch.profiler import ProfilerActivity, profile
 
-    context, key_mask = sd.build_context(cond, uncond, noises.shape[0])
+    context, key_mask, _ = sd.build_context(cond, uncond, noises.shape[0])
     lat2 = torch.cat([noises, noises]).to(sd.device)
     with torch.no_grad():
         wall = time_ms(lambda: sd.unet_eps(lat2, 500, context, key_mask), iters=3, warmup=1)

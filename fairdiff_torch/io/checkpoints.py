@@ -27,7 +27,7 @@ def store_path(directory: str | Path, name: str) -> Path:
     path = d / f"{name}.pt"
     if path.exists():
         return path
-    tool = "fairdiff_torch.tools." + ("convert_sd" if name in SD_MODELS else "convert_guidance")
+    tool = "fairdiff_torch.tools." + ("convert_sd" if name in SD_MODELS + ("text_encoder_2",) else "convert_guidance")
     if (d / name).is_dir():
         raise NotImplementedError(
             f"{d / name} is the JAX package's orbax tree, which the port does not read (orbax imports JAX); "

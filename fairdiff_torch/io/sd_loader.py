@@ -1,10 +1,13 @@
 """Stable Diffusion checkpoint conversion, diffusers layout -> parameter
-trees (a copy of fairdiff/io/sd_loader.py).
+trees (a copy of fairdiff/io/sd_loader.py, widened to SDXL base 1.0).
 
 The reference loads SD-1.5 with `from_pretrained`. Here the state dicts of
-the `unet/`, `vae/` and `text_encoder/` subfolders are remapped by name into
-the JAX package's tree layout (HWIO convs, [in, out] kernels), which
-`io.from_jax` loads into the port's modules. Pure numpy.
+the `unet/`, `vae/` and `text_encoder/` subfolders (and SDXL's
+`text_encoder_2/`, through `torch_convert.convert_clip_text`) are remapped by
+name into the JAX package's tree layout (HWIO convs, [in, out] kernels),
+which `io.from_jax` loads into the port's modules. SDXL's UNet adds
+`transformer_blocks.{k}` for k below each level's depth, linear
+`proj_in`/`proj_out`, and `add_embedding.linear_{1,2}`. Pure numpy.
 """
 
 from __future__ import annotations
@@ -35,13 +38,16 @@ def _attn_block(sd: tc.Tensors, p: str) -> dict:
     return out
 
 
-def _transformer2d(sd: tc.Tensors, p: str) -> dict:
-    return {
+def _transformer2d(sd: tc.Tensors, p: str, depth: int, linear: bool) -> dict:
+    proj = tc.linear if linear else tc.conv
+    out = {
         "norm": tc.norm(sd, f"{p}.norm"),
-        "proj_in": tc.conv(sd, f"{p}.proj_in"),
-        "proj_out": tc.conv(sd, f"{p}.proj_out"),
-        "transformer_blocks_0": _attn_block(sd, f"{p}.transformer_blocks.0"),
+        "proj_in": proj(sd, f"{p}.proj_in"),
+        "proj_out": proj(sd, f"{p}.proj_out"),
     }
+    for k in range(depth):
+        out[f"transformer_blocks_{k}"] = _attn_block(sd, f"{p}.transformer_blocks.{k}")
+    return out
 
 
 def _resnet(sd: tc.Tensors, p: str) -> dict:
@@ -70,27 +76,29 @@ def convert_unet(sd: tc.Tensors, config: UNetConfig) -> dict:
             "linear_2": tc.linear(sd, "time_embedding.linear_2"),
         },
     }
+    if config.addition_embed_type == "text_time":
+        params["add_embedding"] = {
+            "linear_1": tc.linear(sd, "add_embedding.linear_1"),
+            "linear_2": tc.linear(sd, "add_embedding.linear_2"),
+        }
+    attn = lambda p, level: _transformer2d(sd, p, config.depth(level), config.use_linear_projection)
     for i in range(n_blocks):
         for j in range(config.layers_per_block):
             params[f"down_{i}_resnet_{j}"] = _resnet(sd, f"down_blocks.{i}.resnets.{j}")
             if config.cross_attn_down[i]:
-                params[f"down_{i}_attn_{j}"] = _transformer2d(
-                    sd, f"down_blocks.{i}.attentions.{j}"
-                )
+                params[f"down_{i}_attn_{j}"] = attn(f"down_blocks.{i}.attentions.{j}", i)
         if i < n_blocks - 1:
             params[f"down_{i}_downsample"] = {
                 "conv": tc.conv(sd, f"down_blocks.{i}.downsamplers.0.conv")
             }
     params["mid_resnet_0"] = _resnet(sd, "mid_block.resnets.0")
     params["mid_resnet_1"] = _resnet(sd, "mid_block.resnets.1")
-    params["mid_attn_0"] = _transformer2d(sd, "mid_block.attentions.0")
+    params["mid_attn_0"] = attn("mid_block.attentions.0", n_blocks - 1)
     for i in range(n_blocks):
         for j in range(config.layers_per_block + 1):
             params[f"up_{i}_resnet_{j}"] = _resnet(sd, f"up_blocks.{i}.resnets.{j}")
             if config.cross_attn_up[i]:
-                params[f"up_{i}_attn_{j}"] = _transformer2d(
-                    sd, f"up_blocks.{i}.attentions.{j}"
-                )
+                params[f"up_{i}_attn_{j}"] = attn(f"up_blocks.{i}.attentions.{j}", n_blocks - 1 - i)
         if i < n_blocks - 1:
             params[f"up_{i}_upsample"] = {
                 "conv": tc.conv(sd, f"up_blocks.{i}.upsamplers.0.conv")

@@ -79,7 +79,9 @@ def subdict(sd: Tensors, prefix: str) -> dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 def convert_clip_text(sd: Tensors, num_layers: int) -> dict:
-    """HF `CLIPTextModel.state_dict()` -> CLIPTextModel params."""
+    """HF `CLIPTextModel.state_dict()` -> CLIPTextModel params; a
+    `CLIPTextModelWithProjection`'s (SDXL's `text_encoder_2/`) also gives its
+    biasless `text_projection`."""
     if any(k.startswith("text_model.") for k in sd):
         sd = {k.removeprefix("text_model."): v for k, v in sd.items()}
     params: dict[str, Any] = {
@@ -87,6 +89,8 @@ def convert_clip_text(sd: Tensors, num_layers: int) -> dict:
         "position_embedding": _np(sd["embeddings.position_embedding.weight"]),
         "final_layer_norm": norm(sd, "final_layer_norm"),
     }
+    if "text_projection.weight" in sd:
+        params["text_projection"] = linear(sd, "text_projection", bias=False)
     for i in range(num_layers):
         p = f"encoder.layers.{i}"
         params[f"layers_{i}"] = {

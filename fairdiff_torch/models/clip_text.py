@@ -1,9 +1,13 @@
-"""CLIP text encoder, SD-1.5's conditioning model (counterpart of
-fairdiff/models/clip_text.py).
+"""CLIP text encoder, SD-1.5's conditioning model and SDXL's two (counterpart
+of fairdiff/models/clip_text.py).
 
 Accepts precomputed `inputs_embeds` (the soft-prefix path) and pools the
 output at argmax(input_ids), the rule of the CLIP checkpoint SD-1.5 ships
-with (kept even where extra tokens make it point elsewhere).
+with (kept even where extra tokens make it point elsewhere). Besides the
+final-norm output and the pooled token it returns the penultimate hidden
+state (the input of the last layer, transformers' `hidden_states[-2]`,
+which SDXL conditions on) and, with `projection_dim`, the pooled token
+through `text_projection` (transformers' `CLIPTextModelWithProjection`).
 """
 
 from __future__ import annotations
@@ -33,10 +37,26 @@ class CLIPTextConfig:
     hidden_act: str = "quick_gelu"
     layer_norm_eps: float = 1e-5
     eos_token_id: int = 49407
+    projection_dim = None  # a field of CLIPTextProjConfig
 
     @classmethod
     def sd15(cls) -> "CLIPTextConfig":
         return cls()
+
+    @classmethod
+    def sdxl_2(cls) -> "CLIPTextProjConfig":
+        """SDXL base 1.0's `text_encoder_2/config.json`: OpenCLIP ViT-bigG/14's
+        text tower (its first, `text_encoder/`, is SD-1.5's)."""
+        return CLIPTextProjConfig(hidden_size=1280, intermediate_size=5120, num_hidden_layers=32,
+                                  num_attention_heads=20, hidden_act="gelu", projection_dim=1280)
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPTextProjConfig(CLIPTextConfig):
+    """transformers' `CLIPTextModelWithProjection`: a biasless
+    text_projection of the pooled token."""
+
+    projection_dim: Optional[int] = None
 
 
 class CLIPEncoderLayer(nn.Module):
@@ -64,6 +84,8 @@ class CLIPTextModel(nn.Module):
         for i in range(config.num_hidden_layers):
             self.add_module(f"layers_{i}", CLIPEncoderLayer(config))
         self.final_layer_norm = nn.LayerNorm(c, eps=config.layer_norm_eps)
+        if config.projection_dim is not None:
+            self.text_projection = nn.Linear(c, config.projection_dim, bias=False)
 
     def forward(
         self,
@@ -80,10 +102,15 @@ class CLIPTextModel(nn.Module):
         if attention_mask is not None:
             bias = bias + expand_padding_mask(attention_mask)
 
+        penultimate = x
         for i in range(self.config.num_hidden_layers):
+            penultimate = x
             x = getattr(self, f"layers_{i}")(x, bias)
         x = self.final_layer_norm(x)
 
         eos_idx = input_ids.argmax(dim=-1)
         pooled = x[torch.arange(x.shape[0], device=x.device), eos_idx]
-        return {"last_hidden_state": x, "pooler_output": pooled}
+        out = {"last_hidden_state": x, "pooler_output": pooled, "penultimate_hidden_state": penultimate}
+        if self.config.projection_dim is not None:
+            out["text_embeds"] = self.text_projection(pooled)
+        return out

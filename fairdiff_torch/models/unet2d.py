@@ -1,9 +1,14 @@
-"""SD-1.5 conditional U-Net (counterpart of fairdiff/models/unet2d.py).
+"""SD-1.5 and SDXL conditional U-Nets (counterpart of fairdiff/models/unet2d.py,
+which has SD-1.5 alone).
 
 The public call takes and returns the JAX package's NHWC latents; inside,
 convolutions run NCHW and each spatial transformer works on [B, H*W, C]
 tokens. Submodule names follow the JAX parameter tree (`down_0_resnet_0`,
 `mid_attn_0`, `up_3_attn_2`, ...) so the weight carry-over is by path.
+SDXL's options (`UNetConfig.sdxl()`): head counts and transformer depths per
+level (`transformer_blocks_0..N-1` in each `Transformer2D`), linear
+`proj_in`/`proj_out` on the token rows, and the "text_time" added embedding
+(the pooled text vector and six size ids, summed into the time embedding).
 Self-attention over at least FLASH_MIN_KV tokens (the 1024- and 4096-token
 latents at 512 px; the 576-token ones of the 1280-channel blocks, head dim
 160, at 768 px) runs the flash-attention kernels on CUDA (`use_flash`, set
@@ -34,6 +39,7 @@ from torch.utils.checkpoint import checkpoint
 from fairdiff_torch.models.layers import dot_product_attention, expand_padding_mask
 from fairdiff_torch.ops.flash_attention import check_flash_bwd
 from fairdiff_torch.ops.geglu import geglu
+from fairdiff_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,13 +50,18 @@ class UNetConfig:
     block_out_channels: tuple[int, ...] = (320, 640, 1280, 1280)
     layers_per_block: int = 2
     cross_attention_dim: int = 768
-    attention_head_dim: int = 8  # diffusers quirk: this is the head *count*
+    # diffusers quirk: this is the head *count*, one for every level or one a level
+    attention_head_dim: int | tuple[int, ...] = 8
     norm_num_groups: int = 32
     norm_eps: float = 1e-5
     flip_sin_to_cos: bool = True
     freq_shift: int = 0
     cross_attn_down: tuple[bool, ...] = (True, True, True, False)
     cross_attn_up: tuple[bool, ...] = (False, True, True, True)
+    # SDXL's options, fields of SDXLUNetConfig (SD-1.5's configuration has none)
+    transformer_layers_per_block = 1
+    use_linear_projection = False
+    addition_embed_type = None
 
     @classmethod
     def sd15(cls) -> "UNetConfig":
@@ -66,6 +77,64 @@ class UNetConfig:
             attention_head_dim=2,
             norm_num_groups=8,
         )
+
+    @classmethod
+    def sdxl(cls) -> "SDXLUNetConfig":
+        """stabilityai/stable-diffusion-xl-base-1.0 `unet/config.json`."""
+        return SDXLUNetConfig(
+            sample_size=128,
+            block_out_channels=(320, 640, 1280),
+            cross_attention_dim=2048,
+            attention_head_dim=(5, 10, 20),
+            cross_attn_down=(False, True, True),
+            cross_attn_up=(True, True, False),
+            transformer_layers_per_block=(1, 2, 10),
+            use_linear_projection=True,
+            addition_embed_type="text_time",
+            addition_time_embed_dim=256,
+            projection_class_embeddings_input_dim=2816,
+        )
+
+    @classmethod
+    def tiny_xl(cls) -> "SDXLUNetConfig":
+        """CPU-testable miniature of SDXL's topology: three levels, none at
+        the first, two layers deep at the last, linear projections, the
+        text_time embedding (a pooled vector of 16 and six 8-wide ids)."""
+        return SDXLUNetConfig(
+            sample_size=8,
+            block_out_channels=(32, 64, 64),
+            cross_attention_dim=48,
+            attention_head_dim=(2, 2, 4),
+            norm_num_groups=8,
+            cross_attn_down=(False, True, True),
+            cross_attn_up=(True, True, False),
+            transformer_layers_per_block=(1, 1, 2),
+            use_linear_projection=True,
+            addition_embed_type="text_time",
+            addition_time_embed_dim=8,
+            projection_class_embeddings_input_dim=16 + 6 * 8,
+        )
+
+    def heads(self, level: int) -> int:
+        h = self.attention_head_dim
+        return h if isinstance(h, int) else h[level]
+
+    def depth(self, level: int) -> int:
+        d = self.transformer_layers_per_block
+        return d if isinstance(d, int) else d[level]
+
+
+@dataclasses.dataclass(frozen=True)
+class SDXLUNetConfig(UNetConfig):
+    """SDXL's UNet options besides SD-1.5's fields."""
+
+    # transformer layers of each level's attention (the mid block takes the last)
+    transformer_layers_per_block: int | tuple[int, ...] = 1
+    use_linear_projection: bool = False  # Linear proj_in/proj_out on the token rows, not 1x1 convs
+    # "text_time": add_embedding(pooled text vector ++ sinusoids of the six size ids)
+    addition_embed_type: Optional[str] = None
+    addition_time_embed_dim: int = 256
+    projection_class_embeddings_input_dim: int = 0
 
 
 def timestep_embedding(
@@ -184,24 +253,41 @@ class BasicTransformerBlock(nn.Module):
 
 
 class Transformer2D(nn.Module):
-    """Spatial transformer: GN -> 1x1 proj -> block -> 1x1 proj + residual."""
+    """Spatial transformer: GN -> proj_in -> `depth` blocks
+    (`transformer_blocks_0..`) -> proj_out + residual. The projections are
+    1x1 convs (SD-1.5) or, with `linear`, Linears on the token rows
+    (SDXL, diffusers' `use_linear_projection`). Span "transformer_stack",
+    key the depth."""
 
     def __init__(self, channels: int, heads: int, context_dim: int, groups: int = 32,
-                 flash_bwd: str = "split"):
+                 flash_bwd: str = "split", depth: int = 1, linear: bool = False):
         super().__init__()
+        self.depth, self.linear = depth, linear
         self.norm = nn.GroupNorm(groups, channels, eps=1e-6)
-        self.proj_in = nn.Conv2d(channels, channels, 1)
-        self.transformer_blocks_0 = BasicTransformerBlock(channels, heads, context_dim, flash_bwd)
-        self.proj_out = nn.Conv2d(channels, channels, 1)
+        proj = (lambda: nn.Linear(channels, channels)) if linear else (lambda: nn.Conv2d(channels, channels, 1))
+        self.proj_in = proj()
+        for k in range(depth):
+            self.add_module(f"transformer_blocks_{k}", BasicTransformerBlock(channels, heads, context_dim, flash_bwd))
+        self.proj_out = proj()
 
     def forward(self, x: torch.Tensor, context: torch.Tensor,
                 context_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        B, C, H, W = x.shape
-        h = self.proj_in(self.norm(x))
-        h = h.permute(0, 2, 3, 1).reshape(B, H * W, C)
-        h = self.transformer_blocks_0(h, context, context_mask)
-        h = h.reshape(B, H, W, C).permute(0, 3, 1, 2)
-        return self.proj_out(h) + x
+        with span("transformer_stack", self.depth):
+            B, C, H, W = x.shape
+            h = self.norm(x)
+            if not self.linear:
+                h = self.proj_in(h)
+            h = h.permute(0, 2, 3, 1).reshape(B, H * W, C)
+            if self.linear:
+                h = self.proj_in(h)
+            for k in range(self.depth):
+                h = getattr(self, f"transformer_blocks_{k}")(h, context, context_mask)
+            if self.linear:
+                h = self.proj_out(h)
+            h = h.reshape(B, H, W, C).permute(0, 3, 1, 2)
+            if not self.linear:
+                h = self.proj_out(h)
+            return h + x
 
 
 class Downsample2D(nn.Module):
@@ -226,7 +312,9 @@ class UNet2DCondition(nn.Module):
     """The SD U-Net epsilon-predictor.
 
     forward(latents [B,H,W,4] NHWC, timesteps [B] or scalar,
-            context [B,T,768], key mask [B,T] or None) -> eps [B,H,W,4] NHWC
+            context [B,T,768], key mask [B,T] or None,
+            added_cond {"text_embeds": [B,1280], "time_ids": [B,6]} with
+            the "text_time" embedding) -> eps [B,H,W,4] NHWC
     """
 
     def __init__(self, config: UNetConfig = UNetConfig.sd15(), remat: bool = False,
@@ -236,15 +324,21 @@ class UNet2DCondition(nn.Module):
         self.remat = remat
         self.flash_bwd = flash_bwd  # checked by each CrossAttention
         ch = cfg.block_out_channels
-        heads, ctx, groups, eps = (
-            cfg.attention_head_dim, cfg.cross_attention_dim, cfg.norm_num_groups, cfg.norm_eps,
-        )
+        ctx, groups, eps = cfg.cross_attention_dim, cfg.norm_num_groups, cfg.norm_eps
         temb_dim = ch[0] * 4
         self.time_embedding = TimestepEmbedding(ch[0], temb_dim)
+        if cfg.addition_embed_type == "text_time":
+            self.add_embedding = TimestepEmbedding(cfg.projection_class_embeddings_input_dim, temb_dim)
+        elif cfg.addition_embed_type is not None:
+            raise ValueError(f"addition_embed_type {cfg.addition_embed_type!r}: only 'text_time' is ported")
         self.conv_in = nn.Conv2d(cfg.in_channels, ch[0], 3, padding=1)
 
         def add(name: str, module: nn.Module) -> None:
             self.add_module(name, module)
+
+        def attn(level: int, channels: int) -> Transformer2D:
+            return Transformer2D(channels, cfg.heads(level), ctx, groups, flash_bwd, cfg.depth(level),
+                                 cfg.use_linear_projection)
 
         skip_ch = [ch[0]]
         cur = ch[0]
@@ -253,14 +347,14 @@ class UNet2DCondition(nn.Module):
                 add(f"down_{i}_resnet_{j}", ResnetBlock2D(cur, out_ch, groups, eps, temb_dim))
                 cur = out_ch
                 if cfg.cross_attn_down[i]:
-                    add(f"down_{i}_attn_{j}", Transformer2D(cur, heads, ctx, groups, flash_bwd))
+                    add(f"down_{i}_attn_{j}", attn(i, cur))
                 skip_ch.append(cur)
             if i < len(ch) - 1:
                 add(f"down_{i}_downsample", Downsample2D(cur))
                 skip_ch.append(cur)
 
         add("mid_resnet_0", ResnetBlock2D(cur, cur, groups, eps, temb_dim))
-        add("mid_attn_0", Transformer2D(cur, heads, ctx, groups, flash_bwd))
+        add("mid_attn_0", attn(len(ch) - 1, cur))
         add("mid_resnet_1", ResnetBlock2D(cur, cur, groups, eps, temb_dim))
 
         for i, out_ch in enumerate(reversed(ch)):
@@ -269,7 +363,7 @@ class UNet2DCondition(nn.Module):
                     ResnetBlock2D(cur + skip_ch.pop(), out_ch, groups, eps, temb_dim))
                 cur = out_ch
                 if cfg.cross_attn_up[i]:
-                    add(f"up_{i}_attn_{j}", Transformer2D(cur, heads, ctx, groups, flash_bwd))
+                    add(f"up_{i}_attn_{j}", attn(len(ch) - 1 - i, cur))
             if i < len(ch) - 1:
                 add(f"up_{i}_upsample", Upsample2D(cur))
 
@@ -283,6 +377,7 @@ class UNet2DCondition(nn.Module):
         encoder_hidden_states: torch.Tensor,
         encoder_attention_mask: Optional[torch.Tensor] = None,
         weights: Optional[Mapping[str, torch.Tensor]] = None,
+        added_cond: Optional[Mapping[str, torch.Tensor]] = None,
     ) -> torch.Tensor:
         cfg = self.config
         ch = cfg.block_out_channels
@@ -293,6 +388,13 @@ class UNet2DCondition(nn.Module):
             timesteps = timesteps.expand(B)
         t_emb = timestep_embedding(timesteps, ch[0], cfg.flip_sin_to_cos, cfg.freq_shift)
         temb = self.time_embedding(t_emb.to(dtype))
+        if cfg.addition_embed_type == "text_time":
+            if added_cond is None:
+                raise ValueError("this UNet takes added_cond: the pooled text vector and the time ids")
+            text_embeds, time_ids = added_cond["text_embeds"], added_cond["time_ids"]
+            time_embeds = timestep_embedding(time_ids.flatten(), cfg.addition_time_embed_dim, cfg.flip_sin_to_cos,
+                                             cfg.freq_shift).reshape(text_embeds.shape[0], -1)
+            temb = temb + self.add_embedding(torch.cat([text_embeds.float(), time_embeds], dim=-1).to(dtype))
 
         context = encoder_hidden_states.to(dtype)
         mask = encoder_attention_mask

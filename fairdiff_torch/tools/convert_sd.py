@@ -4,11 +4,14 @@ fairdiff/tools/convert_sd.py).
 
 Input: a local `runwayml/stable-diffusion-v1-5`-style directory with
 {text_encoder,unet,vae}/ subfolders holding `.safetensors` or torch
-`.bin`/`.pth` weights (the layout `from_pretrained` reads). Output:
-`<out_dir>/{text_encoder,unet,vae}.pt`, which `gen_images --model_dir` and
-`train_debias --model_dir` read.
+`.bin`/`.pth` weights (the layout `from_pretrained` reads); with `--preset
+sdxl` a `stabilityai/stable-diffusion-xl-base-1.0`-style one, which adds
+`text_encoder_2/`. Output: `<out_dir>/<model>.pt` a subfolder, which
+`gen_images --model_dir` (with the same `--preset`) and `train_debias
+--model_dir` read.
 
   python -m fairdiff_torch.tools.convert_sd --sd_dir /path/sd15 --out_dir /path/converted
+  python -m fairdiff_torch.tools.convert_sd --sd_dir /path/sdxl --out_dir /path/converted-xl --preset sdxl
   python -m fairdiff_torch.tools.convert_sd --sd_dir DIR --out_dir OUT --preset tiny
 """
 
@@ -33,8 +36,8 @@ from fairdiff_torch.utils import config as cfglib
 class ConvertConfig:
     sd_dir: str = ""
     out_dir: str = "converted-sd15"
-    # the architecture the checkpoint holds: "sd15", or "tiny" (the tests'
-    # miniature in the same diffusers layout)
+    # the architecture the checkpoint holds: "sd15", "sdxl", or "tiny" and
+    # "tiny_xl" (the tests' miniatures in the same diffusers layouts)
     preset: str = "sd15"
 
 
@@ -57,13 +60,15 @@ def load_state_dict(model_dir: Path) -> dict[str, torch.Tensor]:
 
 
 def main(cfg: ConvertConfig) -> Path:
-    arch = {"sd15": SDConfig.sd15, "tiny": SDConfig.tiny}[cfg.preset]()
+    arch = SDConfig.preset(cfg.preset)
     sd_dir, out = Path(cfg.sd_dir), Path(cfg.out_dir)
     converters = {
         "text_encoder": lambda sd: convert_clip_text(sd, arch.text.num_hidden_layers),
         "unet": lambda sd: convert_unet(sd, arch.unet),
         "vae": lambda sd: convert_vae(sd, arch.vae),
     }
+    if arch.xl:
+        converters["text_encoder_2"] = lambda sd: convert_clip_text(sd, arch.text_2.num_hidden_layers)
     t0 = time.perf_counter()
     for name, convert in converters.items():  # one model in memory at a time
         save_params(out, {name: convert(load_state_dict(sd_dir / name))})

@@ -6,11 +6,17 @@ adapters from `.npz` or from the reference's exported `.pth` (`.pt`, `.bin`)
 files, skip-existing resume, `prompt_i/img_j.jpg` outputs (JPEG at quality 95),
 and the reference defaults (30 steps, batch 10, guidance 7.5, 60 images a
 prompt). `--model_dir` reads the weights that `tools/convert_sd` wrote;
-without it SD-1.5 runs at full width on seeded random weights.
+without it the model runs at full width on seeded random weights.
+`--preset` names the architecture as `convert_sd --preset` does: "sd15"
+(the default) or "sdxl" (SDXL base 1.0 at 1024 px: both of its text
+encoders take the one tokenizer's ids, padded with eos); `--tiny_smoke 1`
+runs the preset's CPU miniature. The protocol is the same for both.
 
 Usage:
   python -m fairdiff_torch.tools.convert_sd --sd_dir /path/sd15 --out_dir converted-sd15
   python -m fairdiff_torch.tools.gen_images --model_dir converted-sd15 --save_dir outputs/gen
+  python -m fairdiff_torch.tools.convert_sd --sd_dir /path/sdxl --out_dir converted-sdxl --preset sdxl
+  python -m fairdiff_torch.tools.gen_images --preset sdxl --model_dir converted-sdxl --save_dir outputs/gen-xl
   python -m fairdiff_torch.tools.gen_images --tiny_smoke 1 --device cpu \
       --num_imgs_per_prompt 2 --batch_size 2 --num_denoising_steps 2
 """
@@ -38,6 +44,7 @@ from fairdiff_torch.utils.rng import prompt_noise_generator
 class GenImagesConfig:
     device: str = ""  # "" = cuda; "cpu" only when asked for
     model_dir: str = ""  # converted SD weights (tools/convert_sd); "" = seeded random weights
+    preset: str = "sd15"  # the architecture: "sd15" or "sdxl" (convert_sd's --preset)
     tokenizer_dir: str = ""
     load_text_encoder_lora_from: str = ""
     load_unet_lora_from: str = ""
@@ -54,7 +61,7 @@ class GenImagesConfig:
     guidance_scale: float = 7.5
     random_seed: int = 42
     save_dir: str = "outputs/gen-images"
-    tiny_smoke: bool = False  # tiny random model for CPU smoke runs
+    tiny_smoke: bool = False  # the preset's tiny random model, for CPU smoke runs
 
 
 def load_adapter_file(path: str, kind: str):
@@ -70,7 +77,9 @@ def load_adapter_file(path: str, kind: str):
 
 
 def main(cfg: GenImagesConfig) -> list[Path]:
-    sd_cfg = SDConfig.tiny() if cfg.tiny_smoke else SDConfig.sd15()
+    if cfg.preset not in ("sd15", "sdxl"):
+        raise ValueError(f"--preset {cfg.preset!r}: sd15 or sdxl")
+    sd_cfg = SDConfig.preset({"sd15": "tiny", "sdxl": "tiny_xl"}[cfg.preset] if cfg.tiny_smoke else cfg.preset)
     sd = StableDiffusion(sd_cfg, device=cfg.device or None)
     if cfg.model_dir:
         t0 = time.perf_counter()

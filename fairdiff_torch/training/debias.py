@@ -271,6 +271,9 @@ class DebiasTrainer:
         *,
         mesh=None,
     ):
+        if getattr(getattr(sd, "config", None), "text_2", None) is not None:
+            # phase 4's pair VJPs and their graphs carry no added conditioning yet
+            raise NotImplementedError("the debiasing trainer runs SD-1.5; SDXL generates only")
         self.sd = sd
         self.guidance = guidance
         self.cfg = config
@@ -454,7 +457,7 @@ class DebiasTrainer:
                 weights = {k: w.requires_grad_() for k, w in lora_lib.apply_lora(self.sd.unet, unet_lora).items()}
         ctx_adapters = {k: adapters[k] for k in ("prefix", "te_lora") if k in adapters}
         with torch.enable_grad():
-            context, key_mask = self.sd.build_context(
+            context, key_mask, _ = self.sd.build_context(
                 cond_ids, uncond_ids, p, te_lora=adapters.get("te_lora"),
                 prefix_table=adapters.get("prefix"),
             )

@@ -177,6 +177,50 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, s, t, h, d):
         assert_matches(g, p_, e, f32_tol=dict(atol=1e-4, rtol=1e-4))
 
 
+# SDXL's self-attention at 1024 px, CFG batch 10: D = 64 at 4096 tokens (640
+# channels, 10 heads) and 1024 tokens (1280 channels, 20 heads). The plain and
+# fp64 versions run two rows at a time (their [B, H, S, T] scores would not fit
+# at once); each row is independent, so the pieces are the whole.
+SDXL_FLASH_SHAPES = [(20, 4096, 10, 64), (20, 1024, 20, 64)]
+
+
+def _by_rows(fn, *xs, rows=2):
+    outs = [fn(*(x[i:i + rows] for x in xs)) for i in range(0, xs[0].shape[0], rows)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    return torch.cat(outs)
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "fwd_lse", "bwd"])
+@pytest.mark.parametrize("b,s,h,d", SDXL_FLASH_SHAPES)
+def test_flash_kernels_at_sdxl_shapes(cuda, kernel, b, s, h, d):
+    """K1, K1-lse, and K2 + K3 at D = 64, bf16, against their plain versions."""
+    mk = lambda: torch.randn(b, s, h, d, generator=cuda, device="cuda", dtype=torch.bfloat16)
+    q, k, v, do = mk(), mk(), mk(), mk()
+    f64 = lambda *xs: tuple(x.double() for x in xs)
+    if kernel == "fwd":
+        got = fa.flash_attention(q, k, v)
+        assert_matches(got, _by_rows(fa.flash_attention_plain, q, k, v),
+                       _by_rows(lambda *x: fa.flash_attention_plain(*f64(*x)), q, k, v))
+        return
+    o, lse = fa.flash_attention_lse(q, k, v)
+    if kernel == "fwd_lse":
+        o_plain, _ = _by_rows(fa.flash_attention_lse_plain, q, k, v)
+        o_exact, lse_exact = _by_rows(lambda *x: fa.flash_attention_lse_plain(*f64(*x)), q, k, v)
+        assert_matches(o, o_plain, o_exact)
+        torch.testing.assert_close(lse.double(), lse_exact, atol=1e-4, rtol=1e-5)
+        return
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    plain = _by_rows(fa.flash_attention_bwd_plain, q, k, v, o, lse, do)
+
+    def exact(q, k, v, do):
+        o_e, lse_e = fa.flash_attention_lse_plain(*f64(q, k, v))
+        return fa.flash_attention_bwd_plain(*f64(q, k, v), o_e, lse_e, do.double())
+
+    for g, p_, e in zip(got, plain, _by_rows(exact, q, k, v, do)):
+        assert_matches(g, p_, e)
+
+
 # K5 at ragged shapes (d and I off its 160-column and 64-deep tiles, M off
 # its 128 rows, one row, odd I) and at the four phase-4 path shapes (a pair
 # VJP's 8 rows; [512, 1280] splits its dx product's K over blocks)

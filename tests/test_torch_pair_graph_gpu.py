@@ -108,3 +108,35 @@ def test_graphed_pair_grads_equal_the_eager_route_over_two_steps(sd, route):
             assert all(s.device_ns is not None and s.device_ns > 0 for s in pairs)
     start = _flat(adapters)  # the two updates of each route
     assert _rel_l2(_flat(states["graphed"].adapters) - start, _flat(states["eager"].adapters) - start) <= REL_L2
+
+
+def test_model_spans_record_no_event_under_a_graph_capture(sd):
+    """A UNet call captured in a CUDA graph: its 16 "transformer_stack" spans
+    are recorded with no CUDA event (their device duration stays None) and
+    the recorder's event pool does not grow while the stream captures; the
+    replay runs, and an eager call's spans read their device durations."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    lat2 = torch.randn(2, 64, 64, 4, generator=g, device="cuda")
+    ctx = torch.randn(2, 4, sd.config.unet.cross_attention_dim, generator=g, device="cuda").to(sd.dtype)
+    t = torch.full((2,), 500, device="cuda")  # a host timestep would be copied during the capture
+    stacks = lambda spans: [s for s in spans if s.name == "transformer_stack"]
+    with torch.no_grad():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            sd.unet_eps(lat2, t, ctx)  # warm-up off the capturing stream
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        made, before = profiling.RECORDER._made, profiling.recorded_spans()[-1].id
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = sd.unet_eps(lat2, t, ctx)
+        captured = stacks(s for s in profiling.recorded_spans() if s.id > before)
+        assert len(captured) == 16 and all(s.device_ns is None for s in captured)
+        assert profiling.RECORDER._made == made
+        graph.replay()
+        want = sd.unet_eps(lat2, t, ctx)
+        torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    eager = stacks(profiling.recorded_spans())[-16:]
+    assert all(s.device_ns is not None and s.device_ns > 0 for s in eager)

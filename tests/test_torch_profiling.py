@@ -361,10 +361,14 @@ def test_a_tiny_generate_and_save_image_record_their_trees(tmp_path):
     (gen,) = [s for s in profiling.recorded_spans()[-16:] if s.name == "generate"]
     assert gen.parent is None and gen.root == gen.id  # called alone, it is the root
     spans, _, parent = _tree(gen.id)
+    # the two encoder calls (cond, uncond) and the UNet's 16 spatial transformers a call
     assert collections.Counter(s.name for s in spans) == {
-        "generate": 1, "encode_prompt": 1, "merge_lora": 1, "denoise": 1, "unet_call": 3, "decode": 1}
-    assert {parent(s) for s in spans if s.name != "unet_call"} == {None, "generate"}
-    assert {parent(s) for s in spans if s.name == "unet_call"} == {"denoise"}
+        "generate": 1, "encode_prompt": 1, "merge_lora": 1, "denoise": 1, "unet_call": 3, "decode": 1,
+        "text_encoder": 2, "transformer_stack": 3 * 16}
+    inner = {"unet_call": "denoise", "text_encoder": "encode_prompt", "transformer_stack": "unet_call"}
+    assert {parent(s) for s in spans if s.name not in inner} == {None, "generate"}
+    for name, outer in inner.items():
+        assert {parent(s) for s in spans if s.name == name} == {outer}
     save_image(images[0].numpy(), tmp_path / "img_0.jpg")
     (saved,) = [s for s in profiling.recorded_spans()[-3:] if s.name == "save_image"]
     spans, _, parent = _tree(saved.id)
@@ -374,3 +378,32 @@ def test_a_tiny_generate_and_save_image_record_their_trees(tmp_path):
     before = len(profiling.recorded_spans())
     write_image(np.zeros((4, 4, 3), np.uint8), tmp_path / "x.png")
     assert len(profiling.recorded_spans()) == before
+
+
+@pytest.mark.parametrize("preset, encoders, stacks", [
+    ("tiny", [0, 0], {1: 16}),  # SD-1.5's topology: one layer in each of 16 stacks
+    # SDXL's: none at the first level, 2 + 2 at the second and third, 1 mid, 3 + 3 up
+    ("tiny_xl", [0, 1, 0, 1], {1: 5, 2: 6}),
+])
+def test_transformer_stack_and_text_encoder_spans_carry_their_keys(preset, encoders, stacks):
+    """One "text_encoder" span an encoder call under "encode_prompt" (key:
+    the encoder's index), one "transformer_stack" span a `Transformer2D`
+    call under "unet_call" (key: its depth)."""
+    sd = StableDiffusion(SDConfig.preset(preset), device="cpu").init_random(0)
+    n_text = sd.config.text.max_position_embeddings
+    eos = sd.config.text.eos_token_id
+    noises = torch.randn(2, *sd.latent_shape(1)[1:], generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        sd.generate(noises, torch.tensor([[0, 5, 7] + [eos] * (n_text - 3)]),
+                    torch.tensor([[0] + [eos] * (n_text - 1)]), 2)
+    (gen,) = [s for s in profiling.recorded_spans()[-4:] if s.name == "generate"]
+    spans, by_id, parent = _tree(gen.id)
+    (enc,) = [s for s in spans if s.name == "encode_prompt"]
+    assert [s.key for s in sorted(spans, key=lambda s: s.t0_ns) if s.name == "text_encoder"] == encoders
+    assert {s.parent for s in spans if s.name == "text_encoder"} == {enc.id}
+    calls = [s for s in spans if s.name == "unet_call"]
+    assert len(calls) == 2
+    for call in calls:
+        keys = collections.Counter(s.key for s in spans if s.name == "transformer_stack" and s.parent == call.id)
+        assert keys == stacks
+    assert all(s.device_ns is not None for s in spans if s.name == "transformer_stack")  # the CPU: host time

@@ -24,6 +24,17 @@ Semantics encoded (diffusers 0.19.3, SD-1.5 configuration):
   - VAE: encoder downsample with asymmetric (0,1,0,1) pad; mid
     single-head attention (scale C^-0.5) with modern to_q/to_out naming
   - timestep embedding: flip_sin_to_cos=True, freq_shift=0
+
+SDXL base 1.0 (diffusers' `unet/config.json` options, read from the config
+where it has them, so the SD-1.5 configuration builds what it built):
+  - attention_head_dim a head count per level, transformer_layers_per_block
+    a depth per level (the mid block takes the last, the up blocks the
+    reversed lists), `transformer_blocks.{k}` for k below the depth
+  - use_linear_projection: GN, NCHW->(B,HW,C), then a Linear proj_in; a
+    Linear proj_out before (B,HW,C)->NCHW
+  - addition_embed_type "text_time": add_time_proj (the sinusoids of each
+    of the six time ids, addition_time_embed_dim wide, flattened), then
+    add_embedding(cat[text_embeds, time_embeds]) added to the time embedding
 """
 
 from __future__ import annotations
@@ -131,21 +142,30 @@ class TBasicTransformerBlock(nn.Module):
 
 
 class TTransformer2D(nn.Module):
-    def __init__(self, channels: int, heads: int, context_dim: int, groups: int):
+    def __init__(self, channels: int, heads: int, context_dim: int, groups: int,
+                 depth: int = 1, linear: bool = False):
         super().__init__()
+        self.linear = linear
         self.norm = nn.GroupNorm(groups, channels, eps=1e-6)
-        self.proj_in = nn.Conv2d(channels, channels, 1)
+        proj = nn.Linear if linear else (lambda a, b: nn.Conv2d(a, b, 1))
+        self.proj_in = proj(channels, channels)
         self.transformer_blocks = nn.ModuleList(
-            [TBasicTransformerBlock(channels, heads, context_dim)]
+            [TBasicTransformerBlock(channels, heads, context_dim) for _ in range(depth)]
         )
-        self.proj_out = nn.Conv2d(channels, channels, 1)
+        self.proj_out = proj(channels, channels)
 
     def forward(self, x, context):
         B, C, H, W = x.shape
         res = x
-        h = self.proj_in(self.norm(x))
-        h = h.permute(0, 2, 3, 1).reshape(B, H * W, C)
-        h = self.transformer_blocks[0](h, context)
+        h = self.norm(x)
+        if self.linear:
+            h = self.proj_in(h.permute(0, 2, 3, 1).reshape(B, H * W, C))
+        else:
+            h = self.proj_in(h).permute(0, 2, 3, 1).reshape(B, H * W, C)
+        for block in self.transformer_blocks:
+            h = block(h, context)
+        if self.linear:
+            return self.proj_out(h).reshape(B, H, W, C).permute(0, 3, 1, 2) + res
         h = h.reshape(B, H, W, C).permute(0, 3, 1, 2)
         return self.proj_out(h) + res
 
@@ -180,10 +200,19 @@ class TUNet(nn.Module):
         ch = cfg.block_out_channels
         temb_dim = ch[0] * 4
         g = cfg.norm_num_groups
-        heads = cfg.attention_head_dim
+        h_, d_ = cfg.attention_head_dim, getattr(cfg, "transformer_layers_per_block", 1)
+        linear = getattr(cfg, "use_linear_projection", False)
         self.cfg = cfg
+
+        def attn(level, channels):
+            return TTransformer2D(channels, h_ if isinstance(h_, int) else h_[level], cfg.cross_attention_dim, g,
+                                  d_ if isinstance(d_, int) else d_[level], linear)
+
         self.conv_in = nn.Conv2d(cfg.in_channels, ch[0], 3, padding=1)
         self.time_embedding = TTimestepEmbedding(ch[0], temb_dim)
+        self.text_time = getattr(cfg, "addition_embed_type", None) == "text_time"
+        if self.text_time:
+            self.add_embedding = TTimestepEmbedding(cfg.projection_class_embeddings_input_dim, temb_dim)
 
         self.down_blocks = nn.ModuleList()
         in_ch = ch[0]
@@ -196,9 +225,7 @@ class TUNet(nn.Module):
                     TResnetBlock2D(in_ch if j == 0 else out_ch, out_ch, temb_dim, g)
                 )
                 if cfg.cross_attn_down[i]:
-                    block.attentions.append(
-                        TTransformer2D(out_ch, heads, cfg.cross_attention_dim, g)
-                    )
+                    block.attentions.append(attn(i, out_ch))
             if i < len(ch) - 1:
                 block.downsamplers = nn.ModuleList([TDownsample(out_ch)])
             self.down_blocks.append(block)
@@ -208,9 +235,7 @@ class TUNet(nn.Module):
         self.mid_block.resnets = nn.ModuleList(
             [TResnetBlock2D(ch[-1], ch[-1], temb_dim, g) for _ in range(2)]
         )
-        self.mid_block.attentions = nn.ModuleList(
-            [TTransformer2D(ch[-1], heads, cfg.cross_attention_dim, g)]
-        )
+        self.mid_block.attentions = nn.ModuleList([attn(len(ch) - 1, ch[-1])])
 
         # skip channel bookkeeping mirrors diffusers get_up_block wiring
         skip_chs = [ch[0]]
@@ -232,9 +257,7 @@ class TUNet(nn.Module):
                 )
                 prev = out_ch
                 if cfg.cross_attn_up[i]:
-                    block.attentions.append(
-                        TTransformer2D(out_ch, heads, cfg.cross_attention_dim, g)
-                    )
+                    block.attentions.append(attn(len(ch) - 1 - i, out_ch))
             if i < len(rev) - 1:
                 block.upsamplers = nn.ModuleList([TUpsample(out_ch)])
             self.up_blocks.append(block)
@@ -242,13 +265,19 @@ class TUNet(nn.Module):
         self.conv_norm_out = nn.GroupNorm(g, ch[0], eps=cfg.norm_eps)
         self.conv_out = nn.Conv2d(ch[0], cfg.out_channels, 3, padding=1)
 
-    def forward(self, sample, timesteps, context):
+    def forward(self, sample, timesteps, context, added_cond_kwargs=None):
         cfg = self.cfg
         if timesteps.ndim == 0:
             timesteps = timesteps.expand(sample.shape[0])
         temb = self.time_embedding(
             timestep_embedding_t(timesteps, cfg.block_out_channels[0])
         )
+        if self.text_time:
+            text_embeds = added_cond_kwargs["text_embeds"]
+            time_embeds = timestep_embedding_t(
+                added_cond_kwargs["time_ids"].flatten(), cfg.addition_time_embed_dim
+            ).reshape(text_embeds.shape[0], -1)
+            temb = temb + self.add_embedding(torch.cat([text_embeds, time_embeds], dim=-1))
         h = self.conv_in(sample)
         skips = [h]
         for i, block in enumerate(self.down_blocks):
