@@ -21,7 +21,8 @@ Phases (any failure raises and exits non-zero):
      routes at exp-3's and exp-6's shapes, with the host's core count;
   3. each kernel against its plain PyTorch version on the card, in bf16, at
      the shapes the SD-1.5 path gives it (CFG batch of N=2 images; K1 also
-     at [8,576,8,160], the 1280-channel blocks at 768 px), both against an
+     at [8,576,8,160], the 1280-channel blocks at 768 px, and at the
+     short-key shapes, the masked K1 with eos key masks), both against an
      fp32 reference, with a dropped-tile control, K1 run twice (bit-equal),
      and with kernel, plain and library times, the datasheet bound and the
      kernel's factor over both;
@@ -29,14 +30,15 @@ Phases (any failure raises and exits non-zero):
      against the same weights and inputs on the CPU (plain versions), then
      the same forward in bf16 on the card, kernels against the plain routes;
      then unet-768: a bf16 CFG forward at 768 px (sample_size 96, 2 rows)
-     with the same limits against the plain routes' fp32 output, 15 K1
-     launches of which 5 at head dim 160, then a merged pair VJP on those
+     with the same limits against the plain routes' fp32 output, 32 K1
+     launches (17 short-key or masked) of which 12 at head dim 160, then a
+     merged pair VJP on those
      2 rows with phase 12's limits: 14 K6 launches, 5 at head dim 160, each
      held to its plain version, no K2 or K3;
   5. the slice: `fairdiff_torch.tools.gen_images.main` at full width on
      random weights, 2 prompts x 2 images, batch 2, 30 steps, with the
-     kernel launch counts checked against 10 (flash) and 16 (GEGLU) per
-     UNet call; its `img_j.jpg` files read back by the port's decoder;
+     kernel launch counts checked against 32 K1 (22 short-key or masked)
+     and 16 GEGLU per UNet call; its `img_j.jpg` files read back by the port's decoder;
   6. throughput: one 50-step CFG generate at batch 4, in img/s;
   7. kernels-bwd: the training kernels K1 with lse, K2 (dq), K3 (dk/dv) and
      K5 (GEGLU dx), bf16 and fp32, each against its plain version at the
@@ -244,8 +246,11 @@ CUT_LANES_EXP3 = 16
 # training run at 10 steps (was 20)
 CUT_DENOISING_STEPS = 2
 CUT_FACEREC_STEPS = 10
-# one no-grad CFG UNet call at 512 px (phases 1 and 3, generation)
-UNET_CALL_LAUNCHES = {"flash_attention": 10, "geglu": 16}
+# one no-grad CFG UNet call at 512 px (phases 1 and 3, generation): every
+# attention takes K1 (`models/layers.py attention_route`), the 10
+# self-attentions over 4096 and 1024 tokens and, short-key or masked, the 6
+# over 256 and 64 tokens and the 16 masked cross-attentions over 77 keys
+UNET_CALL_LAUNCHES = {"flash_attention": 32, "flash_attention_short": 22, "geglu": 16}
 
 
 def key_tile(d: int) -> int:
@@ -253,6 +258,30 @@ def key_tile(d: int) -> int:
     (csrc/flash_attention.cu `qb::KEY_TILE`): 128 up to 80, 64 above. The
     dropped-tile controls of o and dq drop the kernel's last tile."""
     return 128 if d <= 80 else 64
+
+
+def kept_keys(t: int, tile: int = 64) -> int:
+    """The keys a dropped-tile control keeps: all but the last `tile`-key
+    tile, or, where the keys fit one tile (the 77-key cross-attention, the
+    64-token mid block), all but the keys past the first 64, or past half."""
+    return (t - 1) // tile * tile or (t - 1) // 64 * 64 or t // 2
+
+
+def plain_attention(q, k, v, flash_bwd="split", key_mask=None):
+    """The plain version in the kernels' place (`routes`)."""
+    from fairdiff_torch.ops import flash_attention as fa
+
+    return fa.flash_attention_plain(q, k, v, key_mask)
+
+
+def drop_last_tile(q, k, v, flash_bwd="split", key_mask=None):
+    """The dropped-tile control in the kernels' place (`routes`): the plain
+    version over `kept_keys` of the keys."""
+    from fairdiff_torch.ops import flash_attention as fa
+
+    last = kept_keys(k.shape[1])
+    mask = None if key_mask is None else key_mask[:, :last]
+    return fa.flash_attention_plain(q, k[:, :last].contiguous(), v[:, :last].contiguous(), mask)
 
 
 def log(msg: str) -> None:
@@ -670,6 +699,17 @@ GEGLU_SLOT = 64  # K4's K slot: 64 deep
 # feed-forwards at d = 640 (4096 tokens) and 1280 (1024 tokens)
 SDXL_FLASH_SHAPES = [("sdxl4096", (20, 4096, 10, 64)), ("sdxl1024", (20, 1024, 20, 64))]
 SDXL_GEGLU_SHAPES = [("sdxl-d640", 20 * 4096, 640), ("sdxl-d1280", 20 * 1024, 1280)]
+# the short-key attention K1 takes without a gradient, as (label, q, k/v, the
+# key mask's valid lengths or None): the 77-key cross-attention at generation's
+# CFG batch (SD-1.5 with eos masks, SDXL at 1024 px unmasked) and SD-1.5's
+# 256-token self-attention (D = 160)
+SHORT_FLASH_SHAPES = [
+    ("cross4096", (2 * N_IMAGES, 4096, 8, 40), (2 * N_IMAGES, 77, 8, 40), [1, 9, 77, 12]),
+    ("cross256", (2 * N_IMAGES, 256, 8, 160), (2 * N_IMAGES, 77, 8, 160), [1, 9, 77, 12]),
+    ("self256", (2 * N_IMAGES, 256, 8, 160), (2 * N_IMAGES, 256, 8, 160), None),
+    ("sdxl-cross1024", (20, 1024, 20, 64), (20, 77, 20, 64), None),
+    ("sdxl-cross4096", (20, 4096, 10, 64), (20, 77, 10, 64), None),
+]
 
 
 def geglu_drop_last_slot(x: torch.Tensor) -> torch.Tensor:
@@ -683,6 +723,7 @@ def phase_kernels() -> dict[str, dict]:
     """Each kernel against its plain version at the path shapes (bf16)."""
     import torch.nn.functional as F
 
+    from fairdiff_torch.models.layers import expand_padding_mask
     from fairdiff_torch.ops import flash_attention as fa
     from fairdiff_torch.ops import geglu as gg
 
@@ -690,35 +731,40 @@ def phase_kernels() -> dict[str, dict]:
     bf = torch.bfloat16
     rows: dict[str, dict] = {}
     B = 2 * N_IMAGES
-    for label, qs, kvs in (
-        ("self4096", (B, 4096, 8, 40), (B, 4096, 8, 40)),
-        ("self1024", (B, 1024, 8, 80), (B, 1024, 8, 80)),
-        ("self576", (PAIR_ROWS, 576, 8, 160), (PAIR_ROWS, 576, 8, 160)),  # 768 px, 1280 channels
-        ("ragged", (1, 600, 2, 40), (1, 300, 2, 40)),
-        *((label, shape, shape) for label, shape in SDXL_FLASH_SHAPES),
+    for label, qs, kvs, lengths in (
+        ("self4096", (B, 4096, 8, 40), (B, 4096, 8, 40), None),
+        ("self1024", (B, 1024, 8, 80), (B, 1024, 8, 80), None),
+        ("self576", (PAIR_ROWS, 576, 8, 160), (PAIR_ROWS, 576, 8, 160), None),  # 768 px, 1280 channels
+        ("ragged", (1, 600, 2, 40), (1, 300, 2, 40), None),
+        *((label, shape, shape, None) for label, shape in SDXL_FLASH_SHAPES),
+        *SHORT_FLASH_SHAPES,
     ):
         q = torch.randn(qs, generator=g, device="cuda", dtype=bf)
         k = torch.randn(kvs, generator=g, device="cuda", dtype=bf)
         v = torch.randn(kvs, generator=g, device="cuda", dtype=bf)
-        got, ref = fa.flash_attention(q, k, v), fa.flash_attention_plain(q, k, v)
         t = kvs[1]
-        last = (t - 1) // key_tile(qs[3]) * key_tile(qs[3])  # first key of the kernel's last tile
+        mask = None if lengths is None else (torch.arange(t, device="cuda")[None] < torch.tensor(
+            lengths, device="cuda")[:, None]).int()
+        got, ref = fa.flash_attention(q, k, v, key_mask=mask), fa.flash_attention_plain(q, k, v, mask)
+        last = kept_keys(t, key_tile(qs[3]))  # the first key of the kernel's last tile
         checks = compare(
-            got, ref, fa.flash_attention_plain(q.float(), k.float(), v.float()),
-            fa.flash_attention_plain(q, k[:, :last].contiguous(), v[:, :last].contiguous()),
+            got, ref, fa.flash_attention_plain(q.float(), k.float(), v.float(), mask),
+            fa.flash_attention_plain(q, k[:, :last].contiguous(), v[:, :last].contiguous(),
+                                     None if mask is None else mask[:, :last]),
         )
         # each output element is written once by one block: a second run is bit-equal
-        checks["rerun_equal"] = bool(torch.equal(fa.flash_attention(q, k, v), got))
+        checks["rerun_equal"] = bool(torch.equal(fa.flash_attention(q, k, v, key_mask=mask), got))
         if not checks["rerun_equal"]:
             checks["failed"].append("rerun not bit-equal")
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         b, s, h, d = qs
+        bias = None if mask is None else expand_padding_mask(mask).to(bf)
         bound_ms, bound_by = flash_bound(b, s, t, h, d, "fwd")
         rows[f"flash_attention/{label}"] = dict(
-            shape=f"q{list(qs)} kv{list(kvs)} bf16", **checks,
-            ms=time_ms(lambda: fa.flash_attention(q, k, v)),
-            plain_ms=time_ms(lambda: fa.flash_attention_plain(q, k, v)),
-            library_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
+            shape=f"q{list(qs)} kv{list(kvs)} bf16{'' if mask is None else ' masked'}", **checks,
+            ms=time_ms(lambda: fa.flash_attention(q, k, v, key_mask=mask)),
+            plain_ms=time_ms(lambda: fa.flash_attention_plain(q, k, v, mask)),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, bias)),
             bound_ms=bound_ms, bound_by=bound_by,
         )
     tile_checks: dict[str, dict] = {}
@@ -796,13 +842,13 @@ def phase_unet_parity() -> float:
     t = torch.tensor([999, 500])
     ctx = torch.randn(2, 77, 768, generator=g)
     mask = (torch.arange(77)[None] < torch.tensor([[9], [77]])).int()
-    f0, g0 = fa.launches, gg.launches
+    reset_counts()
     with torch.no_grad():
         out_gpu = unet_gpu(lat.cuda(), t.cuda(), ctx.cuda(), mask.cuda()).cpu()
-        ran = (fa.launches - f0, gg.launches - g0)
+        ran = {k: launch_counts()[k] for k in UNET_CALL_LAUNCHES}
         out_cpu = unet_cpu(lat, t, ctx, mask)
-    if ran != (10, 16):
-        raise AssertionError(f"fp32 UNet forward launched (flash, geglu) = {ran}, want (10, 16)")
+    if ran != UNET_CALL_LAUNCHES:
+        raise AssertionError(f"fp32 UNet forward launched {ran}, want {UNET_CALL_LAUNCHES}")
     rel = rel_l2(out_gpu, out_cpu)
     log(f"[unet-fp32] SD-1.5 UNet batch 2, card (kernels) vs CPU (plain): rel L2 {rel:.3e} "
         f"(tol {UNET_REL_L2_TOL:.0e}), |eps| rms {out_cpu.pow(2).mean().sqrt().item():.4f}")
@@ -843,20 +889,13 @@ def unet_bf16_parity(unet_f32, inputs, exact: torch.Tensor, want=UNET_CALL_LAUNC
     per_launch: dict[str, list[dict]] = {"flash_attention": [], "geglu": []}
     head_dims: list[int] = []
 
-    def drop_last_tile(q, k, v, *_):
-        last = (k.shape[1] - 1) // 64 * 64
-        return fa.flash_attention_plain(q, k[:, :last].contiguous(), v[:, :last].contiguous())
-
-    def plain_attention(q, k, v, *_):
-        return fa.flash_attention_plain(q, k, v)
-
-    def checked_attention(q, k, v, *_):
-        got = fa.flash_attention(q, k, v)
+    def checked_attention(q, k, v, flash_bwd="split", key_mask=None):
+        got = fa.flash_attention(q, k, v, key_mask=key_mask)
         head_dims.append(q.shape[-1])
         per_launch["flash_attention"].append(compare(
-            got, fa.flash_attention_plain(q, k, v),
-            fa.flash_attention_plain(q.float(), k.float(), v.float()), drop_last_tile(q, k, v),
-            control_by_accuracy))
+            got, fa.flash_attention_plain(q, k, v, key_mask),
+            fa.flash_attention_plain(q.float(), k.float(), v.float(), key_mask),
+            drop_last_tile(q, k, v, key_mask=key_mask), control_by_accuracy))
         return got
 
     def checked_geglu(x, w, b):
@@ -867,10 +906,10 @@ def unet_bf16_parity(unet_f32, inputs, exact: torch.Tensor, want=UNET_CALL_LAUNC
         return got
 
     with torch.no_grad():
-        f0, g0 = fa.launches, gg.launches
+        reset_counts()
         with routes(checked_attention, checked_geglu):
             kern = unet(*inputs).float().cpu()
-        ran = (fa.launches - f0, gg.launches - g0)
+        ran = {k: launch_counts()[k] for k in want}
         with routes(plain_attention, gg.geglu_plain):
             plain = unet(*inputs).float().cpu()
         with routes(drop_last_tile, gg.geglu_plain):
@@ -891,11 +930,11 @@ def unet_bf16_parity(unet_f32, inputs, exact: torch.Tensor, want=UNET_CALL_LAUNC
         f"(tol {UNET_BF16_REL_L2_TOL:.0e}); vs fp32: kernels {e_k:.3e}, plain {e_p:.3e} "
         f"(kernels <= {UNET_BF16_ACCURACY_RATIO} x plain); dropped-tile control: vs plain "
         f"{e_dp:.3e}, vs fp32 {e_d:.3e} (must exceed {UNET_BF16_ACCURACY_RATIO} x plain); "
-        f"launches {ran} (want {tuple(want.values())}), flash head dims {head_dims}")
+        f"launches {ran} (want {want}), flash head dims {head_dims}")
     failed = [f"{name} launch {i}: {r['failed']}" for name, rows in per_launch.items()
               for i, r in enumerate(rows) if r["failed"]]
     failed += [name for name, ok in (
-        ("launches", ran == tuple(want.values())),
+        ("launches", ran == want),
         ("finite", bool(torch.isfinite(kern).all())),
         ("rel L2", e_kp <= UNET_BF16_REL_L2_TOL),
         ("accuracy", e_k <= UNET_BF16_ACCURACY_RATIO * e_p),
@@ -906,10 +945,14 @@ def unet_bf16_parity(unet_f32, inputs, exact: torch.Tensor, want=UNET_CALL_LAUNC
     return head_dims
 
 
-# one no-grad CFG UNet call at 768 px (sample_size 96): self-attention over
-# 9216 (D = 40), 2304 (D = 80) and 576 tokens (D = 160, the 1280-channel
-# blocks: down_2's 2 and up_1's 3) takes K1; mid's 144 tokens do not
-UNET_768_LAUNCHES = {"flash_attention": 15, "geglu": 16}
+# one no-grad CFG UNet call at 768 px (sample_size 96): every attention takes
+# K1, the self-attention over 9216 (D = 40), 2304 (D = 80) and 576 tokens
+# (D = 160, the 1280-channel blocks: down_2's 2 and up_1's 3) and, short-key
+# or masked, mid's over 144 tokens and the 16 masked cross-attentions;
+# UNET_768_K1_D160 of them at D = 160 (the 576- and 144-token blocks' self-
+# and cross-attention). A pair VJP runs K6 at D = 160 UNET_768_D160 times
+UNET_768_LAUNCHES = {"flash_attention": 32, "flash_attention_short": 17, "geglu": 16}
+UNET_768_K1_D160 = 12
 UNET_768_D160 = 5
 
 
@@ -918,7 +961,7 @@ def phase_unet_768(power: str) -> list[int]:
     rows) on the card, with the limits of phase 4's bf16 forward against the
     plain routes' fp32 output on the card (the 576-token attention of the
     1280-channel blocks, head dim 160, raised ValueError before K1 took
-    D = 160), and exactly UNET_768_D160 K1 launches at D = 160; then one
+    D = 160), and exactly UNET_768_K1_D160 K1 launches at D = 160; then one
     merged pair VJP on the same 2 rows (`phase_unet_vjp` with its limits and
     each K6 launch's checks), exactly UNET_768_D160 of its K6 launches at
     D = 160 and none of K2 or K3."""
@@ -935,9 +978,6 @@ def phase_unet_768(power: str) -> list[int]:
     mask = (torch.arange(77)[None] < torch.tensor([[77], [11]])).int()
     inputs = (torch.cat([lat, lat]).cuda(), torch.tensor([500, 500]).cuda(), ctx.cuda(), mask.cuda())
 
-    def plain_attention(q, k, v, *_):
-        return fa.flash_attention_plain(q, k, v)
-
     with torch.no_grad(), routes(plain_attention, gg.geglu_plain):
         exact = unet(*inputs).float().cpu()
     # at 9216 keys a dropped 64-key tile moves K1's output by rel L2 ~5e-3,
@@ -945,9 +985,9 @@ def phase_unet_768(power: str) -> list[int]:
     # (rel L2, or the accuracy ratio against fp32) that each launch is held to
     head_dims = unet_bf16_parity(unet, inputs, exact, UNET_768_LAUNCHES, "[unet-768]", control_by_accuracy=True)
     n160 = sum(d == 160 for d in head_dims)
-    log(f"[unet-768] K1 launches at head dim 160: {n160} (want {UNET_768_D160})")
-    if n160 != UNET_768_D160:
-        raise AssertionError(f"[unet-768] {n160} K1 launches at D = 160, want {UNET_768_D160}")
+    log(f"[unet-768] K1 launches at head dim 160: {n160} (want {UNET_768_K1_D160})")
+    if n160 != UNET_768_K1_D160:
+        raise AssertionError(f"[unet-768] {n160} K1 launches at D = 160, want {UNET_768_K1_D160}")
     del unet
     torch.cuda.empty_cache()
     vjp = phase_unet_vjp(power, flash_bwd="merged", sample_size=96, rows=2, tag="[unet-768]",
@@ -990,13 +1030,12 @@ def phase_slice() -> tuple[dict[str, int], dict[str, str]]:
             prompts_json=str(prompts), num_imgs_per_prompt=2, batch_size=2,
             save_dir=str(Path(tmp) / "out"),
         )
-        fa.launches = 0
-        gg.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         written = gen_images.main(cfg)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        counts = {"flash_attention": fa.launches, "geglu": gg.launches}
+        counts = {k: launch_counts()[k] for k in UNET_CALL_LAUNCHES}
         expect_paths = [Path(cfg.save_dir) / f"prompt_{p}" / f"img_{j}.jpg" for p in (0, 1) for j in (0, 1)]
         if sorted(written) != sorted(expect_paths):
             raise AssertionError(f"wrote {written}")
@@ -1006,7 +1045,7 @@ def phase_slice() -> tuple[dict[str, int], dict[str, str]]:
                 raise AssertionError(f"{p} is constant")
         # one UNet call per step serves both CFG halves
         calls = 2 * cfg.num_denoising_steps  # 2 generate calls (2 prompts, batch 2)
-        want = {"flash_attention": 10 * calls, "geglu": 16 * calls}
+        want = {k: n * calls for k, n in UNET_CALL_LAUNCHES.items()}
         log(f"[slice] gen_images.main: 4 JPEGs (quality 95) at 512x512, read back by the port's decoder, "
             f"{cfg.num_denoising_steps} steps, "
             f"{seconds:.2f} s incl. setup; launches {counts} (want {want})")
@@ -1572,7 +1611,7 @@ def reset_counts() -> None:
 
     from fairdiff_torch.fairness import emd
 
-    fa.launches = fa.launches_lse = fa.launches_dq = fa.launches_dkv = fa.launches_merged = 0
+    fa.launches = fa.launches_short = fa.launches_lse = fa.launches_dq = fa.launches_dkv = fa.launches_merged = 0
     gg.launches = gg.launches_dx = gn.launches = 0
     emd.solves = 0  # the native EMD solver's problems (a host library: not in launch_counts)
 
@@ -1596,9 +1635,9 @@ def native_ot_problems(cfg, steps: int, ot_draws: int, lanes: int) -> tuple[int,
 # (through its own block's cross-attention), so all 16 run K4 and K5. Remat
 # runs each block's forward twice (the forward, then the recompute in the
 # backward), so the forward kernels count twice.
-PAIR_VJP_LAUNCHES = {"flash_attention": 2, "flash_attention_lse": 18, "flash_attention_dq": 9,
-                     "flash_attention_dkv": 9, "flash_attention_bwd_merged": 0, "geglu": 32,
-                     "geglu_dx": 16, "group_norm": 0}
+PAIR_VJP_LAUNCHES = {"flash_attention": 2, "flash_attention_short": 0, "flash_attention_lse": 18,
+                     "flash_attention_dq": 9, "flash_attention_dkv": 9, "flash_attention_bwd_merged": 0,
+                     "geglu": 32, "geglu_dx": 16, "group_norm": 0}
 # the same with a UNet LoRA on every attention projection: the first
 # transformer block's self-attention now depends on trained weights, so it
 # runs K1 with lse and K2 and K3 like the other 9 sites
@@ -1712,13 +1751,6 @@ def phase_unet_vjp(power: str, flash_bwd: str = "split", beside: dict | None = N
     finally:
         setattr(fa, bwd_name, real_bwd)
         gg.geglu_dx = real_dx
-
-    def plain_attention(q, k, v, *_):
-        return fa.flash_attention_plain(q, k, v)
-
-    def drop_last_tile(q, k, v, *_):
-        last = (k.shape[1] - 1) // 64 * 64
-        return fa.flash_attention_plain(q, k[:, :last], v[:, :last])
 
     with routes(plain_attention, gg.geglu_plain):
         plain = context_grad(unet_bf16, torch.bfloat16)
@@ -2229,9 +2261,6 @@ def phase_unet_vjp_lora(power: str) -> dict:
     (ctx_on, lora_on), (ctx_off, lora_off) = runs[True]["grads"], runs[False]["grads"]
     e_ctx, e_lora = rel_l2(ctx_on, ctx_off), rel_l2(lora_on, lora_off)
     equal = bool(torch.equal(ctx_on, ctx_off) and torch.equal(lora_on, lora_off))
-
-    def plain_attention(q, k, v, *_):
-        return fa.flash_attention_plain(q, k, v)
 
     with routes(plain_attention, gg.geglu_plain):
         ctx_plain, lora_plain = grads(unet_bf16, torch.bfloat16)
@@ -4035,13 +4064,12 @@ def tp_rank(weights: str, inputs: dict) -> dict:
     trainer = DebiasTrainer(sd, synthetic_stack(dcfg.attributes, device=sd.device), dcfg, mesh=mesh)
     checks, heads = [], []
 
-    def checked(q, k, v, *_):
-        got = fa.flash_attention(q, k, v)
-        last = (k.shape[1] - 1) // 64 * 64
+    def checked(q, k, v, flash_bwd="split", key_mask=None):
+        got = fa.flash_attention(q, k, v, key_mask=key_mask)
         heads.append(q.shape[2])
-        checks.append(compare(got, fa.flash_attention_plain(q, k, v),
-                              fa.flash_attention_plain(q.float(), k.float(), v.float()),
-                              fa.flash_attention_plain(q, k[:, :last].contiguous(), v[:, :last].contiguous())))
+        checks.append(compare(got, fa.flash_attention_plain(q, k, v, key_mask),
+                              fa.flash_attention_plain(q.float(), k.float(), v.float(), key_mask),
+                              drop_last_tile(q, k, v, key_mask=key_mask)))
         return got
 
     out = _tp_run(trainer, inputs, checked)

@@ -17,7 +17,9 @@
 // padded copy in device memory). Numerics follow the TPU kernel: fp32 scores
 // with `scale` applied to them (not to q), fp32 running max m, sum l and
 // accumulator, p rounded to the input type before p.v, keys >= T masked to
-// -inf, l clamped at 1e-30.
+// -inf, l clamped at 1e-30. The masked K1 (`fd_flash_fwd_masked_*`, no lse)
+// also masks to -inf each key whose entry in a key mask [B, T] is 0: the
+// UNet's cross-attention over a padded 77-token context.
 //
 // The fp32 kernels are the simple versions (every tile through shared
 // memory, CUDA-core fmaf); they serve the full-precision parity checks, not
@@ -149,9 +151,11 @@ struct Smem {
   static_assert(BYTES <= 232448, "shared memory");
 };
 
-// out: o (K1) or dq (K2), through the same 64-row box as q
+// out: o (K1) or dq (K2), through the same 64-row box as q; kmask: the
+// masked K1's key mask [B, T] (int32, 0 masks the key), else null
 struct Maps {
   CUtensorMap q, k, v, dout, out;
+  const int* kmask;
 };
 
 template <int DP, bool BWD>
@@ -269,14 +273,44 @@ __device__ __forceinline__ void pack(const float (&acc)[N / 2], uint32_t (&a)[N 
   }
 }
 
+// the masked K1's valid keys of one key tile for this thread's BN / 4
+// columns (bit 2j + e: column 8j + 2 (lane % 4) + e of the accumulator
+// layout): key < T and its mask entry not 0. Read from global memory (L1),
+// loaded while the tile's S product runs
+template <int BN>
+__device__ __forceinline__ uint32_t valid_keys(const int* __restrict__ kmask, int k0, int T_, int lane) {
+  static_assert(BN <= 128, "BN / 4 bits");
+  uint32_t bits = 0;
+  #pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    #pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int key = k0 + 8 * j + 2 * (lane % 4) + e;
+      if (key < T_ && __ldg(kmask + key) != 0) bits |= 1u << (2 * j + e);
+    }
+  }
+  return bits;
+}
+
 // one score tile of the online softmax, in place: s -> p = ex2(s sl2 - m2)
 // with m2 the running row max in log2 units; keys at or past `limit` (< BN
-// on the last tile only) masked to -inf. alpha: each row's rescale of the
-// running sums; l: this thread's partial row sums
-template <int BN>
+// on the last tile only) masked to -inf, or (MASK) every key whose bit in
+// `valid` is 0. alpha: each row's rescale of the running sums; l: this
+// thread's partial row sums. With MASK a tile can mask a row's every key:
+// while its running max is still -inf the exponents subtract 0 instead, so
+// p and alpha are 0, not NaN. MASK false compiles to the unmasked code
+template <int BN, bool MASK = false>
 __device__ __forceinline__ void online_softmax(float (&s)[BN / 2], float (&m2)[2], float (&l)[2],
-                                               float (&alpha)[2], float sl2, int limit, int lane) {
-  if (limit < BN) {
+                                               float (&alpha)[2], float sl2, int limit, int lane,
+                                               uint32_t valid = 0) {
+  if constexpr (MASK) {
+    #pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      #pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (!((valid >> (2 * j + (e & 1))) & 1u)) s[4 * j + e] = -INFINITY;
+    }
+  } else if (limit < BN) {
     #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
       #pragma unroll
@@ -284,7 +318,7 @@ __device__ __forceinline__ void online_softmax(float (&s)[BN / 2], float (&m2)[2
         if (8 * j + 2 * (lane % 4) + (e & 1) >= limit) s[4 * j + e] = -INFINITY;
     }
   }
-  float mx[2] = {-INFINITY, -INFINITY};
+  float mx[2] = {-INFINITY, -INFINITY}, msub[2];
   #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
     #pragma unroll
@@ -294,8 +328,9 @@ __device__ __forceinline__ void online_softmax(float (&s)[BN / 2], float (&m2)[2
   for (int r = 0; r < 2; ++r) {
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    const float m_new = fmaxf(m2[r], mx[r] * sl2);  // finite: key 0 of tile 0 is valid
-    alpha[r] = ex2(m2[r] - m_new);                  // 0 on the first tile
+    const float m_new = fmaxf(m2[r], mx[r] * sl2);  // unmasked: finite, key 0 of tile 0 is valid
+    msub[r] = MASK && m_new == -INFINITY ? 0.0f : m_new;
+    alpha[r] = ex2(m2[r] - msub[r]);                // 0 on the first tile
     m2[r] = m_new;
     l[r] *= alpha[r];
   }
@@ -303,7 +338,7 @@ __device__ __forceinline__ void online_softmax(float (&s)[BN / 2], float (&m2)[2
   for (int j = 0; j < BN / 8; ++j) {
     #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const float p = ex2(fmaf(s[4 * j + e], sl2, -m2[e / 2]));
+      const float p = ex2(fmaf(s[4 * j + e], sl2, -msub[e / 2]));
       l[e / 2] += p;  // fp32 p in the sum, as the TPU kernel
       s[4 * j + e] = p;
     }
@@ -357,14 +392,14 @@ __device__ __forceinline__ void your_turn(int wg, bool last) {
   if (!(last && wg == 1)) named_arrive(3 + (wg ^ 1), NCONS);  // warpgroup 1's last pass has no taker
 }
 
-// K1 (lse written where `lse` is not null)
-template <int DP>
-__global__ void __launch_bounds__(NTHR, 1)
-    flash_fwd_kernel(const __grid_constant__ Maps maps, const bf16* __restrict__ q,
-                     const bf16* __restrict__ k, const bf16* __restrict__ v,
-                     const bf16* __restrict__ dout, const float* __restrict__ lse_in,
-                     const float* __restrict__ delta, bf16* __restrict__ o, float* __restrict__ lse,
-                     int S, int T_, int H, int D, float scale, int mode) {
+// K1 (lse written where `lse` is not null); MASK: keys masked by
+// `maps.kmask` too (the UNet's cross-attention key mask), launched without
+// lse only
+template <int DP, bool MASK>
+__device__ __forceinline__ void fwd_body(const Maps& maps, const bf16* __restrict__ q,
+                                         const bf16* __restrict__ k, const bf16* __restrict__ v,
+                                         bf16* __restrict__ o, float* __restrict__ lse, int S, int T_,
+                                         int H, int D, float scale, int mode) {
   constexpr int BN = KEY_TILE<DP>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const auto sm = start<DP, false>(smem_raw, mode);
@@ -387,6 +422,10 @@ __global__ void __launch_bounds__(NTHR, 1)
   if (wg == 1) named_arrive(3, NCONS);  // warpgroup 0 issues first
   mbar_wait(sm.bar_q(), 0);
 
+  // the masked K1's key mask row of this block's batch element
+  const int* kmask = MASK ? maps.kmask + (long)(blockIdx.y / H) * T_ : nullptr;
+  uint32_t valid = 0;
+
   // tile 0's scores; then each step issues tile it's S and tile it-1's P.V
   // together and runs tile it's softmax while P.V is in flight
   mbar_wait(sm.full(0), 0);
@@ -396,9 +435,10 @@ __global__ void __launch_bounds__(NTHR, 1)
   gemm_ss<DP, BN>(sacc, a_q, sm.k(0));
   wg_commit();
   your_turn(wg, false);
+  if constexpr (MASK) valid = valid_keys<BN>(kmask, 0, T_, lane);
   wg_wait();
   keep(sacc);
-  online_softmax<BN>(sacc, m2, l, alpha, sl2, T_, lane);
+  online_softmax<BN, MASK>(sacc, m2, l, alpha, sl2, T_, lane, valid);
   pack<BN>(sacc, pa);  // o is still 0: nothing to rescale
   for (int it = 1; it < n_tiles; ++it) {
     const int s = it % STAGES, sp = (it - 1) % STAGES;
@@ -410,9 +450,10 @@ __global__ void __launch_bounds__(NTHR, 1)
     gemm_rs<DP, BN>(oacc, pa, sm.v(sp));
     wg_commit();
     your_turn(wg, false);
+    if constexpr (MASK) valid = valid_keys<BN>(kmask, it * BN, T_, lane);
     wg_wait<1>();  // S is done; P.V may still run
     keep(sacc);
-    online_softmax<BN>(sacc, m2, l, alpha, sl2, T_ - it * BN, lane);
+    online_softmax<BN, MASK>(sacc, m2, l, alpha, sl2, T_ - it * BN, lane, valid);
     wg_wait();
     keep(oacc);
     keep(pa);
@@ -450,6 +491,27 @@ __global__ void __launch_bounds__(NTHR, 1)
     inv[r] = 1.0f / l[r];
   }
   store_out(sm, maps, o, oacc, inv, S, H, D, mode);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(NTHR, 1)
+    flash_fwd_kernel(const __grid_constant__ Maps maps, const bf16* __restrict__ q,
+                     const bf16* __restrict__ k, const bf16* __restrict__ v,
+                     const bf16* __restrict__ dout, const float* __restrict__ lse_in,
+                     const float* __restrict__ delta, bf16* __restrict__ o, float* __restrict__ lse,
+                     int S, int T_, int H, int D, float scale, int mode) {
+  fwd_body<DP, false>(maps, q, k, v, o, lse, S, T_, H, D, scale, mode);
+}
+
+// the masked K1: instantiated at the UNets' head dims only (MASKED_DP)
+template <int DP>
+__global__ void __launch_bounds__(NTHR, 1)
+    flash_fwd_kernel_masked(const __grid_constant__ Maps maps, const bf16* __restrict__ q,
+                            const bf16* __restrict__ k, const bf16* __restrict__ v,
+                            const bf16* __restrict__ dout, const float* __restrict__ lse_in,
+                            const float* __restrict__ delta, bf16* __restrict__ o, float* __restrict__ lse,
+                            int S, int T_, int H, int D, float scale, int mode) {
+  fwd_body<DP, true>(maps, q, k, v, o, lse, S, T_, H, D, scale, mode);
 }
 
 // ds = p (dp - delta) in place of dp, p = ex2(s sl2 - lse2); keys at or
@@ -1084,10 +1146,12 @@ __device__ void load_tile_f32(float* dst, const float* src, long stride, int row
 
 size_t smem_f32(int D) { return sizeof(float) * (5 * BM * D + BM * BN + 3 * BM); }
 
+// kmask: a key mask [B, T] (int32, 0 masks the key) or null
 __global__ void __launch_bounds__(NTHREADS)
     flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, float* __restrict__ o,
-                         float* __restrict__ lse, int S, int T_, int H, int D, float scale) {
+                         float* __restrict__ lse, const int* __restrict__ kmask, int S, int T_, int H,
+                         int D, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* sQ = reinterpret_cast<float*>(smem);  // [BM x D]
   float* sK = sQ + BM * D;                     // [BN x D]
@@ -1106,6 +1170,7 @@ __global__ void __launch_bounds__(NTHREADS)
   const float* kb = k + (long)b * T_ * stride + (long)h * D;
   const float* vb = v + (long)b * T_ * stride + (long)h * D;
   float* ob = o + (long)b * S * stride + (long)h * D;
+  const int* km = kmask != nullptr ? kmask + (long)b * T_ : nullptr;
   const int tid = threadIdx.x;
 
   load_tile_f32(sQ, qb, stride, q0, BM, S, D);
@@ -1127,22 +1192,25 @@ __global__ void __launch_bounds__(NTHREADS)
       float* srow = sS + r * BN;
       float mx = -INFINITY;
       for (int c = c0; c < c0 + BN / 2; ++c) {
-        const float s = (k0 + c < T_) ? srow[c] * scale : -INFINITY;
+        const bool valid = k0 + c < T_ && (km == nullptr || km[k0 + c] != 0);
+        const float s = valid ? srow[c] * scale : -INFINITY;
         srow[c] = s;
         mx = fmaxf(mx, s);
       }
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       const float m_prev = sM[r];
       const float m_new = fmaxf(m_prev, mx);
+      // a key mask can mask a row's every key so far: subtract 0, not -inf
+      const float m_sub = m_new == -INFINITY ? 0.0f : m_new;
       float sum = 0.0f;
       for (int c = c0; c < c0 + BN / 2; ++c) {
-        srow[c] = expf(srow[c] - m_new);
+        srow[c] = expf(srow[c] - m_sub);
         sum += srow[c];
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       __syncwarp();  // both threads of the row have read sM[r]
       if ((tid & 1) == 0) {
-        const float alpha = expf(m_prev - m_new);
+        const float alpha = expf(m_prev - m_sub);
         sAlpha[r] = alpha;
         sL[r] = sL[r] * alpha + sum;
         sM[r] = m_new;
@@ -1373,15 +1441,20 @@ int set_smem(Kernel kernel, size_t bytes) {
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-// K1 (lse_out may be null) or K2 (BWD): TMA where every tensor is 16-byte
-// aligned and its row stride (H * D * 2 bytes) and head stride (D * 2) are
-// multiples of 16 bytes; otherwise the same kernel's cp.async producer
-template <int DP, bool BWD>
+// K1 (lse_out may be null), the masked K1 (MASK: kmask [B, T], no lse) or
+// K2 (BWD): TMA where every tensor is 16-byte aligned and its row stride
+// (H * D * 2 bytes) and head stride (D * 2) are multiples of 16 bytes;
+// otherwise the same kernel's cp.async producer
+template <int DP, bool BWD, bool MASK = false>
 int launch_q(const bf16* q, const bf16* k, const bf16* v, const bf16* dout, const float* lse_in,
              const float* delta, bf16* out, float* lse_out, int B, int S, int T_, int H, int D, float scale,
-             cudaStream_t stream) {
+             cudaStream_t stream, const int* kmask = nullptr) {
   using L = qb::Smem<DP, BWD>;
-  const auto kernel = BWD ? qb::flash_dq_kernel<DP> : qb::flash_fwd_kernel<DP>;
+  const auto kernel = [] {
+    if constexpr (BWD) return qb::flash_dq_kernel<DP>;
+    else if constexpr (MASK) return qb::flash_fwd_kernel_masked<DP>;
+    else return qb::flash_fwd_kernel<DP>;
+  }();
   if (int err = set_smem(kernel, L::BYTES)) return err;
   const auto aligned4 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 4 == 0; };
   const bool tma = D % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out) &&
@@ -1393,6 +1466,7 @@ int launch_q(const bf16* q, const bf16* k, const bf16* v, const bf16* dout, cons
                tensor_map(&maps.k, k, B, T_, H, D, L::BN) && tensor_map(&maps.v, v, B, T_, H, D, L::BN) &&
                (!BWD || tensor_map(&maps.dout, dout, B, S, H, D, 64))))
     return (int)cudaErrorInvalidValue;
+  maps.kmask = kmask;
   const int mode = (tma ? TMA : 0) | (pairs ? PAIRS : 0);
   const dim3 grid((S + qb::BM - 1) / qb::BM, B * H);
   kernel<<<grid, qb::NTHR, L::BYTES, stream>>>(maps, q, k, v, dout, lse_in, delta, out, lse_out, S, T_, H, D,
@@ -1448,6 +1522,19 @@ bool bad_shape(int B, int S, int T_, int H, int D) {
     default: { constexpr int DP = 160; return CALL; } \
   }
 
+// the masked K1's instantiations: the UNets' head dims padded to the mma
+// depth (SD's 40, 80 and 160, SDXL's 64; the CPU-sized UNets' 16 and 32)
+#define FD_DISPATCH_MASKED_DP(D, CALL)               \
+  switch (((D) + 15) / 16) {                         \
+    case 1: { constexpr int DP = 16; return CALL; }  \
+    case 2: { constexpr int DP = 32; return CALL; }  \
+    case 3: { constexpr int DP = 48; return CALL; }  \
+    case 4: { constexpr int DP = 64; return CALL; }  \
+    case 5: { constexpr int DP = 80; return CALL; }  \
+    case 10: { constexpr int DP = 160; return CALL; } \
+    default: return (int)cudaErrorInvalidValue;      \
+  }
+
 int fwd_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
              int T, int H, int D, float scale, void* stream) {
   if (bad_shape(B, S, T, H, D)) return (int)cudaErrorInvalidValue;
@@ -1459,15 +1546,27 @@ int fwd_bf16(const void* q, const void* k, const void* v, void* o, float* lse, i
   FD_DISPATCH_DP(D, (launch_q<DP, false>(qq, kk, vv, nullptr, nullptr, nullptr, oo, lse, B, S, T, H, D, scale, st)));
 }
 
-int fwd_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
-            int T, int H, int D, float scale, void* stream) {
+int fwd_masked_bf16(const void* q, const void* k, const void* v, void* o, const int* kmask, int B,
+                    int S, int T, int H, int D, float scale, void* stream) {
+  if (bad_shape(B, S, T, H, D) || kmask == nullptr) return (int)cudaErrorInvalidValue;
+  const auto* qq = static_cast<const bf16*>(q);
+  const auto* kk = static_cast<const bf16*>(k);
+  const auto* vv = static_cast<const bf16*>(v);
+  auto* oo = static_cast<bf16*>(o);
+  auto st = static_cast<cudaStream_t>(stream);
+  FD_DISPATCH_MASKED_DP(D, (launch_q<DP, false, true>(qq, kk, vv, nullptr, nullptr, nullptr, oo, nullptr, B, S, T,
+                                                       H, D, scale, st, kmask)));
+}
+
+int fwd_f32(const void* q, const void* k, const void* v, void* o, float* lse, const int* kmask, int B,
+            int S, int T, int H, int D, float scale, void* stream) {
   if (bad_shape(B, S, T, H, D)) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_f32(D);
   if (int err = set_smem(flash_fwd_f32_kernel, smem)) return err;
   const dim3 grid((S + BM - 1) / BM, B * H);
   flash_fwd_f32_kernel<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), lse, S, T, H, D, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, kmask, S, T, H, D, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1482,7 +1581,21 @@ extern "C" int fd_flash_fwd_bf16(const void* q, const void* k, const void* v, vo
 extern "C" int fd_flash_fwd_f32(const void* q, const void* k, const void* v, void* o,
                                 int B, int S, int T, int H, int D, float scale,
                                 void* stream) {
-  return fwd_f32(q, k, v, o, nullptr, B, S, T, H, D, scale, stream);
+  return fwd_f32(q, k, v, o, nullptr, nullptr, B, S, T, H, D, scale, stream);
+}
+
+// the forward with a key mask [B, T] (int32, 0 masks the key; a row keeps
+// at least one key), without lse
+extern "C" int fd_flash_fwd_masked_bf16(const void* q, const void* k, const void* v, void* o,
+                                        const void* kmask, int B, int S, int T, int H, int D,
+                                        float scale, void* stream) {
+  return fwd_masked_bf16(q, k, v, o, static_cast<const int*>(kmask), B, S, T, H, D, scale, stream);
+}
+
+extern "C" int fd_flash_fwd_masked_f32(const void* q, const void* k, const void* v, void* o,
+                                       const void* kmask, int B, int S, int T, int H, int D,
+                                       float scale, void* stream) {
+  return fwd_f32(q, k, v, o, nullptr, static_cast<const int*>(kmask), B, S, T, H, D, scale, stream);
 }
 
 // the forward that also writes lse [B, H, S] fp32 (the backward's input)
@@ -1495,7 +1608,7 @@ extern "C" int fd_flash_fwd_lse_bf16(const void* q, const void* k, const void* v
 extern "C" int fd_flash_fwd_lse_f32(const void* q, const void* k, const void* v, void* o,
                                     void* lse, int B, int S, int T, int H, int D, float scale,
                                     void* stream) {
-  return fwd_f32(q, k, v, o, static_cast<float*>(lse), B, S, T, H, D, scale, stream);
+  return fwd_f32(q, k, v, o, static_cast<float*>(lse), nullptr, B, S, T, H, D, scale, stream);
 }
 
 extern "C" int fd_flash_dq_bf16(const void* q, const void* k, const void* v, const void* dout,

@@ -3,8 +3,8 @@
 One attention core serves every transformer: fp32 logits and softmax with
 the probabilities rounded to the activation type before P.V, or, where the
 caller sets `use_flash` (the UNet only, as in the JAX package), the
-flash-attention kernel for long-key self-attention on CUDA. Submodule names
-follow the JAX parameter tree so the weight carry-over is by path.
+flash-attention kernels on CUDA (`attention_route`). Submodule names follow
+the JAX parameter tree so the weight carry-over is by path.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fairdiff_torch.ops.flash_attention import FLASH_MIN_KV, flash_attention
+from fairdiff_torch.ops.flash_attention import FLASH_MIN_KV, flash_attention, needs_grad
 from fairdiff_torch.ops.group_norm import fused_group_norm_silu
 
 
@@ -34,6 +34,22 @@ ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
 }
 
 
+def attention_route(*, cuda: bool, use_flash: bool, grad: bool, keys: int, bias: bool, key_mask: bool) -> str:
+    """Which path an attention call takes: "flash" (`flash_attention`: K1,
+    or with a gradient K1-lse and its backward) or "plain". The kernels
+    serve only callers that ask (`use_flash`: the UNet) on CUDA, and no
+    additive `bias`. Without a gradient every such call takes K1, whatever
+    its key count, with its `key_mask` (the masked K1). With a gradient the
+    JAX package's rule holds: the kernel for self-attention over at least
+    FLASH_MIN_KV keys without a key mask, the plain path for the rest (the
+    cross-attention over 77 keys, the short latents)."""
+    if not (use_flash and cuda) or bias:
+        return "plain"
+    if not grad:
+        return "flash"
+    return "flash" if keys >= FLASH_MIN_KV and not key_mask else "plain"
+
+
 def dot_product_attention(
     q: torch.Tensor,  # [B, S, H, D]
     k: torch.Tensor,  # [B, T, H, D]
@@ -41,14 +57,19 @@ def dot_product_attention(
     bias: Optional[torch.Tensor] = None,  # additive, broadcastable to [B,H,S,T]
     flash_bwd: str = "split",
     use_flash: bool = False,
+    key_mask: Optional[torch.Tensor] = None,  # [B, T] {0,1}: 0 masks the key
 ) -> torch.Tensor:
-    """Multi-head attention core -> [B, S, H, D]. The kernel runs where the
-    JAX package routes to its flash kernel (`use_flash`, no bias,
-    T >= FLASH_MIN_KV) and the tensors are on CUDA, with the backward
-    `flash_bwd` names (checked by `flash_attention`); everything else takes
-    the plain path."""
-    if use_flash and bias is None and k.shape[1] >= FLASH_MIN_KV and q.is_cuda:
-        return flash_attention(q, k, v, flash_bwd)
+    """Multi-head attention core -> [B, S, H, D], down the path
+    `attention_route` picks: the kernels, with the backward `flash_bwd`
+    names (checked by `flash_attention`), or the plain path, where the key
+    mask is the additive bias `expand_padding_mask` makes of it."""
+    route = attention_route(cuda=q.is_cuda, use_flash=use_flash, grad=needs_grad(q, k, v), keys=k.shape[1],
+                            bias=bias is not None, key_mask=key_mask is not None)
+    if route == "flash":
+        return flash_attention(q, k, v, flash_bwd, key_mask)
+    if key_mask is not None:
+        mask_bias = expand_padding_mask(key_mask)
+        bias = mask_bias if bias is None else bias + mask_bias
     scale = q.shape[-1] ** -0.5
     # fp32 logits from the activation-type operands (exact products, as
     # preferred_element_type=float32 in the JAX einsum)

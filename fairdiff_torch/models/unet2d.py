@@ -9,13 +9,17 @@ SDXL's options (`UNetConfig.sdxl()`): head counts and transformer depths per
 level (`transformer_blocks_0..N-1` in each `Transformer2D`), linear
 `proj_in`/`proj_out` on the token rows, and the "text_time" added embedding
 (the pooled text vector and six size ids, summed into the time embedding).
-Self-attention over at least FLASH_MIN_KV tokens (the 1024- and 4096-token
-latents at 512 px; the 576-token ones of the 1280-channel blocks, head dim
-160, at 768 px) runs the flash-attention kernels on CUDA (`use_flash`, set
-here only, as the JAX package sets it for the UNet), and every feed-forward
-runs the fused GEGLU kernels on CUDA; both through autograd Functions where
-a gradient is wanted; `flash_bwd` ("split": K2 + K3, "merged": K6,
-"recompute": the plain attention's autograd) picks the flash backward. `remat=True` recomputes each resnet and transformer block in
+The attention asks for the flash-attention kernels (`use_flash`, set here
+only, as the JAX package sets it for the UNet; `layers.attention_route`):
+on CUDA, where no gradient is wanted, every attention runs K1, the
+cross-attention with its key mask; where one is wanted, self-attention over
+at least FLASH_MIN_KV tokens (the 1024- and 4096-token latents at 512 px;
+the 576-token ones of the 1280-channel blocks, head dim 160, at 768 px)
+runs the kernels through an autograd Function, and the rest the plain
+attention. Every feed-forward runs the fused GEGLU kernels on CUDA, through
+an autograd Function where a gradient is wanted; `flash_bwd` ("split": K2 +
+K3, "merged": K6, "recompute": the plain attention's autograd) picks the
+flash backward. `remat=True` recomputes each resnet and transformer block in
 the backward instead of keeping its activations (`torch.utils.checkpoint`, the
 counterpart of `nn.remat` in the JAX module). A caller that runs the UNet
 under `torch.func.functional_call` with replaced weights (merged LoRA) passes
@@ -36,7 +40,7 @@ from torch import nn
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
-from fairdiff_torch.models.layers import dot_product_attention, expand_padding_mask
+from fairdiff_torch.models.layers import dot_product_attention
 from fairdiff_torch.ops.flash_attention import check_flash_bwd
 from fairdiff_torch.ops.geglu import geglu
 from fairdiff_torch.utils.profiling import span
@@ -216,8 +220,8 @@ class CrossAttention(nn.Module):
         v = self.to_v(context).reshape(B, T, self.heads, -1)
         # masking pad keys makes the static-77 context equal to the
         # reference's compact-length cross-attention
-        bias = None if context_mask is None else expand_padding_mask(context_mask)
-        out = dot_product_attention(q, k, v, bias, self.flash_bwd, use_flash=True).reshape(B, S, -1)
+        out = dot_product_attention(q, k, v, None, self.flash_bwd, use_flash=True,
+                                    key_mask=context_mask).reshape(B, S, -1)
         return self.to_out(out)
 
 

@@ -18,6 +18,7 @@ import torch
 # launch_counts' names: (op module, its counter)
 COUNTERS = {
     "flash_attention": ("flash_attention", "launches"),
+    "flash_attention_short": ("flash_attention", "launches_short"),
     "flash_attention_lse": ("flash_attention", "launches_lse"),
     "flash_attention_dq": ("flash_attention", "launches_dq"),
     "flash_attention_dkv": ("flash_attention", "launches_dkv"),

@@ -31,6 +31,14 @@ models call: where a gradient is wanted it goes through `FlashAttention`
 (forward with lse, backward through K2 and K3 or K6), otherwise it runs the
 lse-free forward. A CUDA tensor that needs a gradient never gets an output
 without a `grad_fn`: the low-level forward wrappers raise instead.
+
+The lse-free forward also takes a key mask [B, T] ({0, 1}; 0 masks the key
+to -inf, as keys past T): the masked K1, which the UNet's cross-attention
+over its padded 77-token context runs where no gradient is wanted. A row
+must keep at least one key (`eos_attention_mask` keeps the first). Its
+result is the additive `expand_padding_mask` bias path's. The gradient
+route takes no mask (`models/layers.py attention_route` sends a masked call
+that wants a gradient to the plain attention).
 """
 
 from __future__ import annotations
@@ -50,8 +58,11 @@ FLASH_MIN_KV = 512
 
 # kernel launches, counted where each kernel is launched (not under a CUDA
 # graph's capture: `fairdiff_torch.ops`): K1 without lse (generation), K1
-# with lse (the forward of a gradient pass), K2, K3, K6
+# with lse (the forward of a gradient pass), K2, K3, K6; and of `launches`,
+# those over fewer than FLASH_MIN_KV keys or with a key mask (the short-key
+# attention that only the no-gradient route sends to K1)
 launches = 0
+launches_short = 0
 launches_lse = 0
 launches_dq = 0
 launches_dkv = 0
@@ -59,6 +70,9 @@ launches_merged = 0
 
 # the kernels' largest head dim (SD-1.5's 1280-channel transformers: 160)
 MAX_D = 160
+# the masked K1's head dims, padded to 16 (csrc `FD_DISPATCH_MASKED_DP`): the
+# UNets' 40, 64, 80 and 160, and the CPU-sized UNets' 16 and 32
+MASKED_DP = (16, 32, 48, 64, 80, 160)
 
 # the backward routes: K2 + K3, K6, or autograd through the plain attention
 FLASH_BWD = ("split", "merged", "recompute")
@@ -74,7 +88,7 @@ _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 def _kernel(name: str, dtype: torch.dtype):
     """The C entry `fd_flash_<name>_<dtype>`; argtypes from its pointer count."""
     fn = getattr(build.load("flash_attention"), f"fd_flash_{name}_{_DTYPES[dtype]}")
-    n_ptr = {"fwd": 4, "fwd_lse": 5, "dq": 7, "dkv": 8, "bwd_merged": 9}[name]
+    n_ptr = {"fwd": 4, "fwd_lse": 5, "fwd_masked": 5, "dq": 7, "dkv": 8, "bwd_merged": 9}[name]
     fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -99,11 +113,16 @@ def _acc(x: torch.Tensor) -> torch.Tensor:
     return x if x.dtype == torch.float64 else x.float()
 
 
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def flash_attention_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask: torch.Tensor | None = None
+) -> torch.Tensor:
     """Same maths without the kernel: fp32 logits and softmax, probabilities
-    rounded to the input type before P.V (fairdiff `_xla_attention`)."""
+    rounded to the input type before P.V (fairdiff `_xla_attention`); keys
+    whose `key_mask` [B, T] entry is 0 masked to -inf."""
     scale = q.shape[-1] ** -0.5
     logits = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale
+    if key_mask is not None:
+        logits = logits.masked_fill(key_mask[:, None, None, :] == 0, float("-inf"))
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhst,bthd->bshd", probs, v)
 
@@ -193,17 +212,38 @@ def _check_cuda(*xs: torch.Tensor) -> None:
         raise ValueError(f"the kernel takes head dims up to {MAX_D}, not {q.shape[-1]}")
 
 
-def _needs_grad(*xs: torch.Tensor) -> bool:
+def needs_grad(*xs: torch.Tensor) -> bool:
+    """Whether a gradient is wanted through any of `xs`."""
     return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
 
 
-def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_lse: bool):
-    global launches, launches_lse
-    _check(q, k, v)
+def _key_mask(key_mask: torch.Tensor, q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """The key mask as the masked K1 reads it: int32 [B, T], contiguous."""
+    if key_mask.shape != (q.shape[0], k.shape[1]):
+        raise ValueError(f"want a key mask {(q.shape[0], k.shape[1])}, got {tuple(key_mask.shape)}")
+    if key_mask.device != q.device:
+        raise ValueError("the key mask must be on q's device")
     if q.device.type == "cpu":
-        return flash_attention_lse_plain(q, k, v) if with_lse else (flash_attention_plain(q, k, v), None)
+        return key_mask
+    if -(-q.shape[-1] // 16) * 16 not in MASKED_DP:
+        raise ValueError(f"the masked kernel takes head dims padded to {MASKED_DP}, not {q.shape[-1]}")
+    return key_mask.to(torch.int32).contiguous()
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_lse: bool,
+             key_mask: torch.Tensor | None = None):
+    global launches, launches_short, launches_lse
+    _check(q, k, v)
+    if key_mask is not None:
+        if with_lse:
+            raise ValueError("the forward with lse takes no key mask")
+        key_mask = _key_mask(key_mask, q, k)
+    if q.device.type == "cpu":
+        if with_lse:
+            return flash_attention_lse_plain(q, k, v)
+        return flash_attention_plain(q, k, v, key_mask), None
     _check_cuda(q, k, v)
-    if _needs_grad(q, k, v):
+    if needs_grad(q, k, v):
         raise RuntimeError(
             "the kernel's output has no grad_fn: call flash_attention (or "
             "FlashAttention.apply) for a result that carries gradients"
@@ -211,9 +251,13 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_lse: bool):
     B, S, H, _ = q.shape
     o = torch.empty_like(q)
     if not with_lse:
-        _launch("fwd", [q, k, v, o], q, k.shape[1])
+        if key_mask is None:
+            _launch("fwd", [q, k, v, o], q, k.shape[1])
+        else:
+            _launch("fwd_masked", [q, k, v, o, key_mask], q, k.shape[1])
         if counting():
             launches += 1
+            launches_short += key_mask is not None or k.shape[1] < FLASH_MIN_KV
         return o, None
     lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
     _launch("fwd_lse", [q, k, v, o, lse], q, k.shape[1])
@@ -342,12 +386,16 @@ class FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, flash_bwd: str = "split"
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, flash_bwd: str = "split",
+    key_mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Non-causal o = softmax(D**-0.5 q k^T) v; q [B,S,H,D], k/v [B,T,H,D].
     Differentiable where a gradient is wanted (through `FlashAttention`,
-    whose backward `flash_bwd` selects)."""
+    whose backward `flash_bwd` selects); without a gradient, keys whose
+    `key_mask` [B, T] entry is 0 masked (the masked K1)."""
     check_flash_bwd(flash_bwd)
-    if _needs_grad(q, k, v):
+    if needs_grad(q, k, v):
+        if key_mask is not None:
+            raise ValueError("the gradient route takes no key mask: the plain attention serves it")
         return FlashAttention.apply(q, k, v, flash_bwd)
-    return _forward(q, k, v, with_lse=False)[0]
+    return _forward(q, k, v, with_lse=False, key_mask=key_mask)[0]

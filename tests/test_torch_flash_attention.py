@@ -75,9 +75,9 @@ def _record_attention(monkeypatch):
     calls = []
     real = tlayers.dot_product_attention
 
-    def recording(q, k, v, bias=None, flash_bwd="split", use_flash=False):
+    def recording(q, k, v, bias=None, flash_bwd="split", use_flash=False, key_mask=None):
         calls.append((use_flash, k.shape[1]))
-        return real(q, k, v, bias, flash_bwd, use_flash=use_flash)
+        return real(q, k, v, bias, flash_bwd, use_flash=use_flash, key_mask=key_mask)
 
     monkeypatch.setattr(tlayers, "dot_product_attention", recording)
     monkeypatch.setattr(unet2d, "dot_product_attention", recording)
@@ -322,3 +322,127 @@ def test_bad_flash_bwd_raises():
         StableDiffusion(SDConfig.tiny(), device="cpu", flash_bwd="fused")
     unet = StableDiffusion(SDConfig.tiny(), device="cpu", flash_bwd="merged").unet
     assert {m.flash_bwd for m in unet.modules() if hasattr(m, "to_q")} == {"merged"}
+
+
+# -- the masked K1's plain version and the attention route ------------------------
+
+
+def _eos_mask(lengths, t=77):
+    """Key masks as `eos_attention_mask` makes them: the first `length` keys valid."""
+    return (torch.arange(t)[None] < torch.tensor(lengths)[:, None]).int()
+
+
+@pytest.mark.parametrize("s,h,d", [(64, 2, 40), (32, 2, 64), (16, 2, 80), (8, 2, 160)])
+def test_masked_plain_equals_the_bias_path(s, h, d):
+    """flash_attention_plain with a key mask [B, T] is the plain attention
+    with the additive `expand_padding_mask` bias, fp32 within 1e-6, for eos
+    masks of length 1, 9 and 77 at T = 77 and the UNets' head dims; the
+    wrapper on CPU tensors runs it and launches nothing; and the key mask
+    down the plain route is that bias path exactly (the CPU route is
+    unchanged)."""
+    g = torch.Generator().manual_seed(d)
+    q = torch.randn(3, s, h, d, generator=g)
+    k, v = torch.randn(3, 77, h, d, generator=g), torch.randn(3, 77, h, d, generator=g)
+    mask = _eos_mask([1, 9, 77])
+    want = tlayers.dot_product_attention(q, k, v, tlayers.expand_padding_mask(mask))
+    torch.testing.assert_close(tfa.flash_attention_plain(q, k, v, mask), want, atol=1e-6, rtol=0)
+    torch.testing.assert_close(tfa.flash_attention_plain(q, k, v, mask.bool()), want, atol=1e-6, rtol=0)
+    before = (tfa.launches, tfa.launches_short)
+    torch.testing.assert_close(tfa.flash_attention(q, k, v, key_mask=mask), want, atol=1e-6, rtol=0)
+    assert (tfa.launches, tfa.launches_short) == before
+    assert torch.equal(tlayers.dot_product_attention(q, k, v, use_flash=True, key_mask=mask), want)
+    # the first key alone: each row attends to it only
+    torch.testing.assert_close(tfa.flash_attention_plain(q, k, v, mask)[0], v[0, :1].expand(s, h, d), atol=1e-6,
+                               rtol=0)
+
+
+def test_key_mask_is_refused_where_the_kernels_take_none():
+    """No key mask with lse or on the gradient route (the route sends those
+    calls to the plain attention), and none of another shape."""
+    q, k, v = (torch.randn(2, 8, 2, 16) for _ in range(3))
+    mask = _eos_mask([3, 8], t=8)
+    with pytest.raises(ValueError, match="no key mask"):
+        tfa._forward(q, k, v, with_lse=True, key_mask=mask)
+    with pytest.raises(ValueError, match="gradient route takes no key mask"):
+        tfa.flash_attention(q.requires_grad_(), k, v, key_mask=mask)
+    with pytest.raises(ValueError, match="key mask"):
+        tfa.flash_attention(q.detach(), k, v, key_mask=mask[:, :5])
+
+
+# single attention sites of SD-1.5 (masked cross-attention) and SDXL (none),
+# as (keys, key mask), against the route with and without a gradient
+ROUTE_SITES = {
+    "sd15_self_4096": (4096, False), "sd15_self_256": (256, False), "sd15_self_64": (64, False),
+    "sd15_cross": (77, True), "sd15_cross_unmasked": (77, False),
+    "sdxl_self_1024": (1024, False), "sdxl_cross": (77, False),
+}
+
+
+@pytest.mark.parametrize("site", ROUTE_SITES)
+@pytest.mark.parametrize("grad", [False, True])
+def test_attention_route_at_the_unets_sites(site, grad):
+    """On CUDA with `use_flash`: K1 for every site without a gradient (the
+    cross-attention with its key mask); with one, the kernels only for
+    self-attention over at least FLASH_MIN_KV keys. Without `use_flash`, on
+    the CPU, or with an additive bias: the plain path."""
+    keys, masked = ROUTE_SITES[site]
+    route = functools.partial(tlayers.attention_route, grad=grad, keys=keys, key_mask=masked)
+    want = "flash" if not grad or (keys >= tfa.FLASH_MIN_KV and not masked) else "plain"
+    assert route(cuda=True, use_flash=True, bias=False) == want
+    assert route(cuda=True, use_flash=False, bias=False) == "plain"
+    assert route(cuda=False, use_flash=True, bias=False) == "plain"
+    assert route(cuda=True, use_flash=True, bias=True) == "plain"
+
+
+@functools.lru_cache(maxsize=None)
+def _unet_sites(model: str) -> tuple:
+    """(keys, key mask) of every attention call of one full-size UNet forward
+    (SD-1.5 at 512 px with its key mask or without, SDXL at 1024 px), run on
+    the meta device with the attention and GEGLU recorded, not computed."""
+    from fairdiff_torch.models import unet2d
+
+    cfg, n = {"sd15": (unet2d.UNetConfig.sd15(), 64), "sd15_unmasked": (unet2d.UNetConfig.sd15(), 64),
+              "sdxl": (unet2d.UNetConfig.sdxl(), 128)}[model]
+    sites = []
+
+    def recording(q, k, v, bias=None, flash_bwd="split", use_flash=False, key_mask=None):
+        assert use_flash and bias is None
+        sites.append((k.shape[1], key_mask is not None))
+        return torch.empty_like(q)
+
+    saved = unet2d.dot_product_attention, unet2d.geglu
+    unet2d.dot_product_attention = recording
+    unet2d.geglu = lambda x, w, b: x.new_empty(*x.shape[:-1], w.shape[0] // 2)
+    try:
+        with torch.device("meta"), torch.no_grad():
+            unet = unet2d.UNet2DCondition(cfg)
+            mask = torch.ones(2, 77, dtype=torch.int32) if model == "sd15" else None
+            added = {"text_embeds": torch.empty(2, 1280), "time_ids": torch.empty(2, 6)} if model == "sdxl" else None
+            unet(torch.empty(2, n, n, 4), torch.tensor([500, 500]), torch.empty(2, 77, cfg.cross_attention_dim), mask,
+                 added_cond=added)
+    finally:
+        unet2d.dot_product_attention, unet2d.geglu = saved
+    return tuple(sites)
+
+
+@pytest.mark.parametrize("model,grad,want", [
+    ("sd15", False, (32, 22, 16)), ("sd15", True, (10, 0, 0)),
+    ("sd15_unmasked", False, (32, 22, 0)), ("sd15_unmasked", True, (10, 0, 0)),
+    ("sdxl", False, (140, 70, 0)), ("sdxl", True, (70, 0, 0)),
+])
+def test_attention_route_over_a_unet_call(model, grad, want):
+    """Over every attention site of a UNet call, the K1 launches the route
+    gives on CUDA: (K1 launches, of them short-key or masked, of them
+    masked). Without a gradient SD-1.5 at 512 px runs 10 + 22 = 32 (its 16
+    cross-attentions and the 6 self-attentions over 256 and 64 tokens join
+    the 10 over 4096 and 1024) and SDXL at 1024 px 70 + 70 = 140; with a
+    gradient the kernels keep the long-key self-attention alone (10 and
+    70), as before the route took the short keys. Without `use_flash`, none."""
+    sites = _unet_sites(model)
+    assert len(sites) == {"sdxl": 140}.get(model, 32)
+    routes = [(tlayers.attention_route(cuda=True, use_flash=True, grad=grad, keys=t, bias=False, key_mask=m), t, m)
+              for t, m in sites]
+    flash = [(t, m) for r, t, m in routes if r == "flash"]
+    assert (len(flash), sum(t < tfa.FLASH_MIN_KV or m for t, m in flash), sum(m for _, m in flash)) == want
+    assert all(tlayers.attention_route(cuda=True, use_flash=False, grad=grad, keys=t, bias=False, key_mask=m)
+               == "plain" for t, m in sites)

@@ -22,8 +22,8 @@ import torch
 
 from chip_smoke import PAIR_VJP_LAUNCHES, PAIR_VJP_LAUNCHES_LORA, UNET_CALL_LAUNCHES, launch_counts, reset_counts
 from fairdiff_torch.adapters import lora as lora_lib
-from fairdiff_torch.models.layers import FusedGroupNorm
-from fairdiff_torch.models.unet2d import UNetConfig
+from fairdiff_torch.models.layers import FusedGroupNorm, dot_product_attention, expand_padding_mask
+from fairdiff_torch.models.unet2d import UNet2DCondition, UNetConfig
 from fairdiff_torch.ops import flash_attention as fa
 from fairdiff_torch.ops import geglu as gg
 from fairdiff_torch.ops import group_norm as gn
@@ -219,6 +219,143 @@ def test_flash_kernels_at_sdxl_shapes(cuda, kernel, b, s, h, d):
 
     for g, p_, e in zip(got, plain, _by_rows(exact, q, k, v, do)):
         assert_matches(g, p_, e)
+
+
+# the short-key attention that K1 takes where no gradient is wanted
+# (`models/layers.py attention_route`), as (B, S, H, D, T, masked): SD-1.5's
+# cross-attention over 77 keys with eos key masks at each level's head dim,
+# SDXL's unmasked at 1024 px, and SD-1.5's short self-attention (T = S); then
+# small shapes in both dtypes (the CPU-sized UNets' head dims 16 and 32 at
+# their 16 keys, T off the key tile)
+SHORT_KEY_SHAPES = [(20, 4096, 8, 40, 77, True), (20, 1024, 8, 80, 77, True), (20, 256, 8, 160, 77, True),
+                    (20, 64, 8, 160, 77, True), (20, 1024, 20, 64, 77, False), (20, 4096, 10, 64, 77, False),
+                    (20, 256, 8, 160, 256, False), (20, 64, 8, 160, 64, False)]
+SMALL_MASKED_SHAPES = [(3, 300, 3, 40, 77), (3, 33, 2, 16, 16), (3, 100, 2, 32, 16), (3, 130, 2, 160, 200)]
+EOS_LENGTHS = (1, 9, 77)
+
+
+def _masked_case(cuda, dtype, b, s, h, d, t, masked):
+    """q, k, v and a key mask whose rows keep the first 1, 9 or 77 keys in
+    turn (at most t), or None."""
+    mk = lambda n: torch.randn(b, n, h, d, generator=cuda, device="cuda", dtype=dtype)
+    q, k, v = mk(s), mk(t), mk(t)
+    if not masked:
+        return q, k, v, None
+    lengths = torch.tensor(EOS_LENGTHS, device="cuda").clamp(max=t).repeat(b)[:b]
+    return q, k, v, (torch.arange(t, device="cuda")[None] < lengths[:, None]).int()
+
+
+def _bias_path(q, k, v, mask):
+    """The plain attention with the additive `expand_padding_mask` bias, and
+    its fp64 twin (fp32 logits, fp64 P.V)."""
+    bias = None if mask is None else expand_padding_mask(mask)
+    return (dot_product_attention(q, k, v, bias),
+            dot_product_attention(q.double(), k.double(), v.double(), bias))
+
+
+def _check_short_key_route(q, k, v, mask):
+    before = (fa.launches, fa.launches_short, fa.launches_lse)
+    got = dot_product_attention(q, k, v, use_flash=True, key_mask=mask)
+    assert (fa.launches, fa.launches_short, fa.launches_lse) == (before[0] + 1, before[1] + 1, before[2])
+    plain, exact = _bias_path(q, k, v, mask)
+    assert_matches(got, plain, exact)
+    if mask is not None:  # the mutation control: K1 with the mask ignored fails the same check
+        with pytest.raises(AssertionError):
+            assert_matches(fa.flash_attention(q, k, v), plain, exact)
+    return got
+
+
+@pytest.mark.parametrize("b,s,h,d,t,masked", SHORT_KEY_SHAPES)
+def test_short_key_k1_at_the_unets_shapes(cuda, b, s, h, d, t, masked):
+    """The route without a gradient: one K1 launch (counted short-key), the
+    masked K1 where there is a key mask, against the plain path with the
+    additive bias in bf16 (the kernel checks' tolerance); the mask ignored
+    fails that check; a second run is bit-equal."""
+    q, k, v, mask = _masked_case(cuda, torch.bfloat16, b, s, h, d, t, masked)
+    with torch.no_grad():
+        got = _check_short_key_route(q, k, v, mask)
+        assert torch.equal(fa.flash_attention(q, k, v, key_mask=mask), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,d,t", SMALL_MASKED_SHAPES)
+def test_masked_k1_small_shapes(cuda, dtype, b, s, h, d, t):
+    """The masked K1 (bf16, and the fp32 simple kernel) at small shapes
+    against the plain path's bias, with eos masks and with masks that keep
+    only each row's last quarter, half or key: at T = 200 and D = 160
+    (64-key tiles) a row's first tiles are wholly masked, where its running
+    max is still -inf."""
+    q, k, v, mask = _masked_case(cuda, dtype, b, s, h, d, t, True)
+    _check_short_key_route(q, k, v, mask)
+    late = (torch.arange(t, device="cuda")[None] >= torch.tensor([t * 3 // 4, t // 2, t - 1], device="cuda")[:, None])
+    _check_short_key_route(q, k, v, late.int())
+
+
+def test_masked_k1_refuses_what_it_does_not_take(cuda):
+    """A head dim the masked K1 is not built for (D = 96), a mask of another
+    shape, and a mask where a gradient is wanted raise."""
+    q = torch.randn(2, 64, 2, 96, device="cuda", dtype=torch.bfloat16)
+    mask = torch.ones(2, 64, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="head dims padded"):
+        fa.flash_attention(q, q, q, key_mask=mask)
+    with pytest.raises(ValueError, match="key mask"):
+        fa.flash_attention(q[..., :64].contiguous(), q[..., :64].contiguous(), q[..., :64].contiguous(),
+                           key_mask=mask[:, :10])
+    x = q[..., :64].contiguous().requires_grad_()
+    with pytest.raises(ValueError, match="gradient route takes no key mask"):
+        fa.flash_attention(x, x, x, key_mask=mask)
+
+
+def _full_unet(model: str):
+    """A full-size bf16 UNet on the card (default init; only launch counts
+    are read) and one CFG pair of its inputs: SD-1.5 at 512 px with eos key
+    masks of 9 and 77 keys, or SDXL at 1024 px with its added conditioning."""
+    cfg = UNetConfig.sd15() if model == "sd15" else UNetConfig.sdxl()
+    with torch.device("cuda"):
+        unet = UNet2DCondition(cfg).to(torch.bfloat16).requires_grad_(False).eval()
+    n = cfg.sample_size
+    lat = torch.randn(2, n, n, 4, device="cuda")
+    ctx = torch.randn(2, 77, cfg.cross_attention_dim, device="cuda", dtype=torch.bfloat16)
+    if model == "sd15":
+        mask = (torch.arange(77, device="cuda")[None] < torch.tensor([[9], [77]], device="cuda")).int()
+        return unet, lat, ctx, mask, None
+    added = {"text_embeds": torch.randn(2, 1280, device="cuda"),
+             "time_ids": torch.tensor([1024.0, 1024, 0, 0, 1024, 1024], device="cuda").expand(2, 6)}
+    return unet, lat, ctx, None, added
+
+
+# (K1 launches, of them short-key or masked, long-key self-attention sites,
+# feed-forwards) of one UNet call
+UNET_SITES = {"sd15": (32, 22, 10, 16), "sdxl": (140, 70, 70, 70)}
+
+
+@pytest.mark.parametrize("model", ["sd15", "sdxl"])
+def test_unet_call_k1_launch_counts(cuda, model):
+    """One no-grad CFG UNet call at full size launches K1 at every
+    attention: 32 on SD-1.5 at 512 px (22 short-key or masked) and 140 on
+    SDXL at 1024 px (70), and no other flash kernel. A call with a gradient
+    through the context runs the flash kernels at the long-key
+    self-attention alone, as before the short-key route: K1 without lse once
+    (the first block's self-attention, whose input does not depend on the
+    context) and K1-lse, K2 and K3 at the other 9 (SD-1.5) or 69 (SDXL)
+    sites; no short-key launch."""
+    unet, lat, ctx, mask, added = _full_unet(model)
+    k1, short, long_self, ffs = UNET_SITES[model]
+    zero = {k: 0 for k in launch_counts()}
+    reset_counts()
+    with torch.no_grad():
+        eps = unet(lat, 500, ctx, mask, added_cond=added)
+    torch.cuda.synchronize()
+    assert launch_counts() == dict(zero, flash_attention=k1, flash_attention_short=short, geglu=ffs)
+    assert eps.shape == lat.shape
+    reset_counts()
+    ctx = ctx.clone().requires_grad_()
+    eps = unet(lat, 500, ctx, mask, added_cond=added)
+    (grad,) = torch.autograd.grad(eps.float().square().mean(), ctx)
+    torch.cuda.synchronize()
+    want = dict(zero, flash_attention=1, flash_attention_lse=long_self - 1, flash_attention_dq=long_self - 1,
+                flash_attention_dkv=long_self - 1, geglu=ffs, geglu_dx=ffs)
+    assert launch_counts() == want and grad.shape == ctx.shape
 
 
 # K5 at ragged shapes (d and I off its 160-column and 64-deep tiles, M off
@@ -504,9 +641,10 @@ def test_group_norm_module_gradients_match_plain(cuda, dtype):
 def test_tiny_train_step_runs_the_kernels(cuda, experiment):
     """One exp-3 step (gender x race, sampled OT) and one exp-2 step (the
     soft prefix) of the trainer on the card: the tiny SD in bf16 with remat
-    at 64x64 latents, whose 4096- and 1024-token self-attentions are the
-    same 10 flash sites as SD-1.5's and its 16 feed-forwards the same GEGLU
-    sites (head dims 16 and 32), 4 lanes, micro-batch 2, 2 denoising steps.
+    at 64x64 latents, whose 32 attentions are the same K1 sites as SD-1.5's
+    without a gradient (10 of them, over 4096 and 1024 tokens, the flash
+    sites with one) and its 16 feed-forwards the same GEGLU sites (head dims
+    16 and 32), 4 lanes, micro-batch 2, 2 denoising steps.
     Finite non-zero gradients, and every kernel launched as often as
     chip_smoke.py's counts of a CFG UNet call and a pair VJP say."""
     sd_cfg = dataclasses.replace(SDConfig.tiny(), unet=dataclasses.replace(UNetConfig.tiny(), sample_size=64),

@@ -137,10 +137,10 @@ def _patch_flash_on_cpu() -> None:
 
     plain = layers.dot_product_attention
 
-    def routed(q, k, v, bias=None, flash_bwd="split", use_flash=False):
-        if use_flash and bias is None:
+    def routed(q, k, v, bias=None, flash_bwd="split", use_flash=False, key_mask=None):
+        if use_flash and bias is None and key_mask is None:
             return flash_attention(q, k, v, flash_bwd)
-        return plain(q, k, v, bias, flash_bwd, use_flash)
+        return plain(q, k, v, bias, flash_bwd, use_flash, key_mask)
 
     layers.dot_product_attention = routed
     import fairdiff_torch.models.unet2d as unet2d
